@@ -33,7 +33,8 @@ def params_from_numpy(tree: Dict[str, Any], device="cuda",
 
 
 def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
-    """The port's params as a float32 numpy tree (the inverse direction)."""
+    """The port's params as a float32 numpy tree (the inverse direction).
+    Always a copy: a train engine updates its tensors in place."""
     if isinstance(params, dict):
         return {k: params_to_numpy(v) for k, v in params.items()}
-    return params.detach().float().cpu().numpy()
+    return np.array(params.detach().float().cpu().numpy())

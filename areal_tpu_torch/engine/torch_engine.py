@@ -1,0 +1,300 @@
+"""The PyTorch train + inference engine (counterpart of
+``areal_tpu/engine/jax_engine.py``: ``JaxTrainEngine``).
+
+``train_batch`` runs micro-batch gradient accumulation and one optimizer
+step: each micro-batch's sequences are packed into [R, T] rows, the model
+runs to hidden states, the fused chunked-vocab op turns them into
+next-token logprobs (the [R, T, V] logits never exist), the loss function
+reduces them, and the gradients are summed in float32 in micro-batch
+order. The sum is scaled by 1 / global_denom, its global norm taken, and
+AdamW applied with the learning rate of the schedule at ``version_steps``.
+Nothing is fetched from the device until the one packed stats vector at
+the end.
+
+Loss functions are callables ``loss_fn(model_out, rows) -> (loss_sum,
+aux_dict)`` where ``model_out`` is the per-token next-token logprobs
+[R, T] (LM models) or values [R, T] (critics), and ``rows`` carries the
+packed [R, T] tensors of every data key (token-aligned keys scattered,
+per-sequence scalars broadcast across their span).
+
+The engine owns its parameter tensors and updates them in place. Not
+ported: meshes, the overlapped input pipeline, ``warm``, ``offload``,
+``generate``, the MoE terms of the loss and the cached stats fetch.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from areal_tpu_torch import resolve_device
+from areal_tpu_torch.api.data_api import MicroBatchSpec, SequenceSample
+from areal_tpu_torch.api.model_api import PackedLossFn, TrainEngine
+from areal_tpu_torch.engine.optimizer import (
+    AdamW, OptimizerConfig, global_norm, make_lr_schedule, tree_leaves,
+)
+from areal_tpu_torch.models.config import TransformerConfig
+from areal_tpu_torch.models.packing import PackedBatch, pack_sequences
+from areal_tpu_torch.models.transformer import forward as model_forward
+from areal_tpu_torch.ops.loss import fused_next_token_logprobs
+
+
+def _to_device_tree(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device_tree(v, device) for k, v in tree.items()}
+    return tree.detach().to(device).requires_grad_(True)
+
+
+class TorchTrainEngine(TrainEngine):
+
+    def __init__(
+        self,
+        model_cfg: TransformerConfig,
+        params: Dict[str, Any],
+        optimizer_config: Optional[OptimizerConfig] = None,
+        total_train_steps: int = 1000,
+        remat: Any = "full",  # "full" | "none" (bools ok)
+        row_len_multiple: int = 128,
+        max_row_len: Optional[int] = None,
+        device="cuda",
+    ):
+        if model_cfg.moe is not None:
+            raise NotImplementedError("MoE models are not ported yet")
+        self.model_cfg = model_cfg
+        self.device = resolve_device(device)
+        self.remat = remat
+        self.row_len_multiple = row_len_multiple
+        self.max_row_len = max_row_len
+        self.params = _to_device_tree(params, self.device)
+        self.optimizer: Optional[AdamW] = None
+        self._lr_schedule = None
+        # LR-schedule position when callers do not pass version_steps (one
+        # optimizer step per train_batch).
+        self._lr_steps = 0
+        if optimizer_config is not None:
+            self.optimizer = AdamW(optimizer_config, tree_leaves(self.params))
+            self._lr_schedule = make_lr_schedule(optimizer_config, total_train_steps)
+
+    # ------------------------------------------------------------------
+    # Batch building
+    # ------------------------------------------------------------------
+
+    def _build_rows(
+        self, sample: SequenceSample, keys: Optional[List[str]] = None
+    ) -> Tuple[PackedBatch, Dict[str, np.ndarray]]:
+        """Pack the main token key into rows; scatter/broadcast other keys."""
+        main_key = sample._main_key()
+        flat_main = sample.data[main_key]
+        lens_per_seq: List[int] = []
+        seqs: List[np.ndarray] = []
+        offset = 0
+        for sl in sample.seqlens[main_key]:
+            for l in sl:
+                seqs.append(np.asarray(flat_main[offset : offset + l]))
+                lens_per_seq.append(l)
+                offset += l
+        batch = pack_sequences(
+            seqs,
+            row_len_multiple=self.row_len_multiple,
+            max_row_len=self.max_row_len,
+        )
+        rows: Dict[str, np.ndarray] = {
+            "input_ids": batch.input_ids,
+            "segment_ids": batch.segment_ids,
+            "positions": batch.positions,
+        }
+        total_main = sum(lens_per_seq)
+        for k in keys if keys is not None else sample.keys:
+            if k == main_key or sample.data.get(k) is None:
+                continue
+            d = np.asarray(sample.data[k])
+            if d.shape[0] == total_main:
+                # Token-aligned: split per sequence in main-key order.
+                per_seq, off = [], 0
+                for l in lens_per_seq:
+                    per_seq.append(d[off : off + l])
+                    off += l
+                rows[k] = batch.scatter_per_token(per_seq)
+            elif d.shape[0] == len(lens_per_seq):
+                # Per-sequence scalar: broadcast across each span.
+                per_seq = [np.full((l,), d[i]) for i, l in enumerate(lens_per_seq)]
+                rows[k] = batch.scatter_per_token(per_seq)
+            else:
+                raise ValueError(
+                    f"key {k!r} length {d.shape[0]} aligns with neither tokens "
+                    f"({total_main}) nor sequences ({len(lens_per_seq)})"
+                )
+        return batch, rows
+
+    def _device_rows(self, rows: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """Rows as tensors on the engine's device, 64-bit types narrowed to
+        32 bits (what the reference's device transfer does)."""
+        out = {}
+        for k, v in rows.items():
+            v = np.asarray(v)
+            if v.dtype == np.int64:
+                v = v.astype(np.int32)
+            elif v.dtype == np.float64:
+                v = v.astype(np.float32)
+            out[k] = torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+        return out
+
+    # ------------------------------------------------------------------
+    # Train
+    # ------------------------------------------------------------------
+
+    def _head_weight(self, p):
+        if self.model_cfg.tied_embeddings:
+            return p["embedding"]["weight"].T
+        return p["head"]["weight"]
+
+    def _model_out(self, rows, output: str, remat) -> torch.Tensor:
+        """Next-token logprobs [R, T] (the fused chunked-vocab path over
+        hidden states), critic values [R, T] or raw logits [R, T, V]."""
+        fuse = output == "logprobs" and not self.model_cfg.is_critic
+        out = model_forward(
+            self.params, self.model_cfg,
+            rows["input_ids"], rows["segment_ids"], rows["positions"],
+            output="hidden" if fuse else "logits", remat=remat, device=self.device,
+        )
+        if fuse:
+            out = fused_next_token_logprobs(
+                out, self._head_weight(self.params),
+                rows["input_ids"], rows["segment_ids"],
+            )
+        return out
+
+    def train_batch(
+        self,
+        input_: SequenceSample,
+        mb_spec: MicroBatchSpec,
+        loss_fn: PackedLossFn,
+        loss_weight_fn: Callable[[SequenceSample], float],
+        token_normalize_scope: str = "global",
+        version_steps: Optional[int] = None,
+        loss_name: str = "loss",
+    ) -> Dict[str, float]:
+        """Forward + backward over micro-batches, one optimizer step, no
+        host sync until the single packed-stats fetch at the end.
+
+        `version_steps` is the LR-schedule position: the schedule value
+        there scales this step's update, so every PPO minibatch update of
+        one version trains at that version's LR. Adam's bias correction
+        still counts actual optimizer updates. `None` falls back to the
+        engine's own train_batch count. The applied value is reported as
+        `<loss_name>/lr`.
+
+        `token_normalize_scope='dp'` is per-data-parallel-shard
+        normalization; on one device it equals `'global'`.
+        """
+        if self.optimizer is None:
+            raise RuntimeError("engine built without optimizer")
+        if token_normalize_scope not in ("global", "dp"):
+            raise ValueError(f"unknown token_normalize_scope {token_normalize_scope!r}")
+        lr_pos = self._lr_steps if version_steps is None else int(version_steps)
+        self._lr_steps += 1
+        lr = float(self._lr_schedule(lr_pos))
+        mbs, _, _ = input_.split(mb_spec)
+        global_denom = max(float(sum(loss_weight_fn(mb) for mb in mbs)), 1.0)
+
+        leaves = tree_leaves(self.params)
+        grads: List[Optional[torch.Tensor]] = [None] * len(leaves)
+        loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
+        aux_sum: Dict[str, torch.Tensor] = {}
+        for mb in mbs:
+            _, rows_np = self._build_rows(mb)
+            rows = self._device_rows(rows_np)
+            out = self._model_out(
+                rows, "values" if self.model_cfg.is_critic else "logprobs", self.remat)
+            loss, aux = loss_fn(out, rows)
+            loss.backward()
+            # Float32 accumulation in micro-batch order.
+            for i, p in enumerate(leaves):
+                g, p.grad = p.grad, None
+                if g is None:  # a leaf the loss does not reach
+                    g = torch.zeros_like(p)
+                if grads[i] is None:
+                    grads[i] = g.float()
+                else:
+                    grads[i].add_(g)
+            loss_sum = loss_sum + loss.detach().float()
+            for k, v in aux.items():
+                v = v.detach().float()
+                aux_sum[k] = aux_sum[k] + v if k in aux_sum else v
+
+        with torch.no_grad():
+            for g in grads:
+                g.mul_(1.0 / global_denom)
+            gnorm = global_norm(grads)
+            self.optimizer.apply(leaves, grads, gnorm, lr)
+            # Every scalar stat in one vector: one device fetch per step.
+            aux_keys = sorted(aux_sum)
+            packed = torch.stack([loss_sum, gnorm] + [aux_sum[k] for k in aux_keys])
+        p = packed.cpu().tolist()
+        stats = {
+            f"{loss_name}/loss": p[0] / global_denom,
+            f"{loss_name}/grad_norm": p[1],
+            f"{loss_name}/n_tokens": global_denom,
+            f"{loss_name}/n_mbs": float(len(mbs)),
+            f"{loss_name}/lr": lr,
+        }
+        for k, v in zip(aux_keys, p[2:]):
+            if k.startswith("mean:"):
+                # Micro-batch-mean stats (fractions / rates): summed over
+                # the accumulation, so divide by the micro-batch count.
+                stats[f"{loss_name}/{k[len('mean:'):]}"] = v / len(mbs)
+            else:
+                stats[f"{loss_name}/{k}"] = v / global_denom
+        return stats
+
+    # ------------------------------------------------------------------
+    # Inference
+    # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def forward(
+        self,
+        input_: SequenceSample,
+        mb_spec: MicroBatchSpec,
+        output_key: str = "logprobs",
+        output: Optional[str] = None,
+        post_hook: Optional[Callable] = None,
+    ) -> SequenceSample:
+        """Gradient-free forward; returns a SequenceSample keyed
+        `output_key` with per-token arrays aligned to the main key."""
+        output = output or ("values" if self.model_cfg.is_critic else "logprobs")
+        main_key = input_._main_key()
+        per_mb_flat: List[np.ndarray] = []
+        mb_seqlens: List[List[int]] = []
+        mbs, _, bwd_indices = input_.split(mb_spec)
+        for mb in mbs:
+            batch, rows = self._build_rows(mb, keys=[main_key])
+            out_rows = self._model_out(self._device_rows(rows), output, "none")
+            per_mb_flat.append(batch.gather_flat(out_rows.float().cpu().numpy()))
+            mb_seqlens.append(mb.seqlens_of())
+        merged = SequenceSample.reorder_output(
+            np.concatenate(per_mb_flat, axis=0), mb_seqlens, bwd_indices)
+        out = SequenceSample(
+            ids=list(input_.ids),
+            keys={output_key},
+            data={output_key: merged},
+            seqlens={output_key: [list(sl) for sl in input_.seqlens[main_key]]},
+        )
+        if post_hook is not None:
+            out = post_hook(out)
+        return out
+
+    # ------------------------------------------------------------------
+    # State
+    # ------------------------------------------------------------------
+
+    def get_params(self):
+        """The engine's own parameter tensors (updated in place by
+        train_batch)."""
+        return self.params
+
+    def set_params(self, params):
+        """Replace the weights; optimizer state stays."""
+        self.params = _to_device_tree(params, self.device)

@@ -8,8 +8,9 @@ build in parallel, one ``nvcc`` each. Nothing here runs at import: the
 CPU tests import every module of the port on a machine with no
 ``nvcc``.
 
-The wrappers (``ops/attention.flash_packed_attention``,
-``engine/paged.paged_decode_attention``) pass tensor pointers and the
+The wrappers (``ops/attention.flash_packed_attention`` and its backward,
+``engine/paged.paged_decode_attention``, ``ops/gae.segment_scan_reverse``)
+pass tensor pointers and the
 current CUDA stream, raise if the C entry point returns a CUDA error,
 and add one to ``launches[name]`` per kernel launch, so a run can show
 that its main path went through each kernel.
@@ -37,6 +38,8 @@ BUILD_DIR = PKG_DIR / "build"
 SOURCES = {
     "flash_attn": "flash_attn.cu",
     "paged_decode": "paged_decode.cu",
+    "flash_attn_bwd": "flash_attn_bwd.cu",
+    "gae_scan": "gae_scan.cu",
 }
 
 # Kernel launch counts by kernel name (the C entry points).
@@ -44,6 +47,9 @@ launches: Dict[str, int] = {
     "flash_attn_fwd_bf16": 0,
     "paged_decode_bf16": 0,
     "paged_decode_int8": 0,
+    "flash_attn_bwd_dq_bf16": 0,
+    "flash_attn_bwd_dkv_bf16": 0,
+    "gae_scan_f32": 0,
 }
 
 NVCC_FLAGS = [
@@ -70,6 +76,11 @@ ENTRY_POINTS = {
         "paged_decode", [P, P, P, P, P, I, P, I, I, I, I, I, I, I, F, P]),
     "paged_decode_int8": (
         "paged_decode", [P, P, P, P, P, P, P, I, P, I, I, I, I, I, I, I, F, P]),
+    "flash_attn_bwd_dq_bf16": (
+        "flash_attn_bwd", [P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, P]),
+    "flash_attn_bwd_dkv_bf16": (
+        "flash_attn_bwd", [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, P]),
+    "gae_scan_f32": ("gae_scan", [P, P, P, I, I, P]),
 }
 
 

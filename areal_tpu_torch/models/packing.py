@@ -1,0 +1,129 @@
+"""Host-side packing of variable-length sequences into [R, T] rows (the
+port's copy of ``areal_tpu/models/packing.py``).
+
+The bridge between `SequenceSample` (packed 1D, fully dynamic) and the
+packed-rows forward: sequences are FFD-packed into R rows of T tokens with
+segment ids, T a multiple of `row_len_multiple` (default 128), the
+reference's row bucketing, kept so both packages build the same rows.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence
+
+import numpy as np
+
+from areal_tpu_torch.base import datapack
+
+
+@dataclasses.dataclass
+class SeqSpan:
+    """Where sequence `seq_index` of the original flat list landed."""
+
+    seq_index: int
+    row: int
+    start: int
+    length: int
+
+
+@dataclasses.dataclass
+class PackedBatch:
+    input_ids: np.ndarray  # [R, T] int32
+    segment_ids: np.ndarray  # [R, T] int32; 0 = pad, sequences numbered 1.. per row
+    positions: np.ndarray  # [R, T] int32 within-sequence positions
+    spans: List[SeqSpan]
+    seq_lens: List[int]
+
+    @property
+    def n_rows(self) -> int:
+        return self.input_ids.shape[0]
+
+    @property
+    def row_len(self) -> int:
+        return self.input_ids.shape[1]
+
+    @property
+    def total_tokens(self) -> int:
+        return int(sum(self.seq_lens))
+
+    def scatter_per_token(self, values: Sequence[np.ndarray]) -> np.ndarray:
+        """Place per-sequence 1D arrays (flat-list order) into [R, T] rows."""
+        first = np.asarray(values[0])
+        out = np.zeros(
+            (self.n_rows, self.row_len) + first.shape[1:], dtype=first.dtype
+        )
+        for span in self.spans:
+            v = np.asarray(values[span.seq_index])
+            assert v.shape[0] == span.length, (v.shape, span)
+            out[span.row, span.start : span.start + span.length] = v
+        return out
+
+    def gather_per_token(self, rows: np.ndarray) -> List[np.ndarray]:
+        """Inverse of scatter: [R, T, ...] -> per-sequence arrays in order."""
+        out: List[Optional[np.ndarray]] = [None] * len(self.seq_lens)
+        for span in self.spans:
+            out[span.seq_index] = np.asarray(
+                rows[span.row, span.start : span.start + span.length]
+            )
+        return out  # type: ignore[return-value]
+
+    def gather_flat(self, rows: np.ndarray) -> np.ndarray:
+        """[R, T, ...] -> packed 1D concatenation in original sequence order."""
+        return np.concatenate(self.gather_per_token(rows), axis=0)
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def pack_sequences(
+    seqs: Sequence[np.ndarray],
+    row_len: Optional[int] = None,
+    row_len_multiple: int = 128,
+    n_rows_multiple: int = 1,
+    max_row_len: Optional[int] = None,
+) -> PackedBatch:
+    """FFD-pack sequences into rows.
+
+    row_len: fixed row length; default = longest sequence rounded up to
+    `row_len_multiple`.
+    n_rows_multiple: pad the row count (empty rows) so R divides evenly
+    across data-parallel shards.
+    """
+    lens = [int(len(s)) for s in seqs]
+    if not lens:
+        raise ValueError("cannot pack zero sequences")
+    longest = max(lens)
+    if row_len is None:
+        row_len = _round_up(max(longest, row_len_multiple), row_len_multiple)
+        if max_row_len is not None:
+            row_len = min(row_len, _round_up(max_row_len, row_len_multiple))
+    if longest > row_len:
+        raise ValueError(f"sequence of length {longest} exceeds row_len {row_len}")
+
+    groups = datapack.ffd_allocate(lens, capacity=row_len, min_groups=1)
+    n_rows = _round_up(len(groups), n_rows_multiple)
+
+    input_ids = np.zeros((n_rows, row_len), dtype=np.int32)
+    segment_ids = np.zeros((n_rows, row_len), dtype=np.int32)
+    positions = np.zeros((n_rows, row_len), dtype=np.int32)
+    spans: List[SeqSpan] = []
+    for row, group in enumerate(groups):
+        cursor = 0
+        for seg_num, seq_idx in enumerate(group, start=1):
+            l = lens[seq_idx]
+            sl = slice(cursor, cursor + l)
+            input_ids[row, sl] = np.asarray(seqs[seq_idx], dtype=np.int32)
+            segment_ids[row, sl] = seg_num
+            positions[row, sl] = np.arange(l, dtype=np.int32)
+            spans.append(SeqSpan(seq_index=seq_idx, row=row, start=cursor, length=l))
+            cursor += l
+        assert cursor <= row_len
+    return PackedBatch(
+        input_ids=input_ids,
+        segment_ids=segment_ids,
+        positions=positions,
+        spans=spans,
+        seq_lens=lens,
+    )

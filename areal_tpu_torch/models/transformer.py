@@ -5,23 +5,27 @@ Params keep the reference's tree: a dict with ``embedding/weight``,
 ``layers/{ln1,ln2,attn,mlp}/...`` whose leaves carry a leading layer axis
 ``L``, ``final_norm`` and (untied actor or critic) ``head``; matmul
 weights are ``[in, out]``. The reference scans over the stacked layers
-with ``lax.scan``; here a Python loop indexes layer ``i`` out of each
-leaf (a view, no copy).
+with ``lax.scan``; here a Python loop walks per-layer views of each leaf
+(one ``unbind`` per leaf and forward, so the backward writes each stacked
+gradient once, as one stack).
 
 A batch is ``[R, T]`` packed rows tagged with segment ids (0 = padding)
 and per-token positions. Compute runs in ``cfg.compute_dtype``; logits
-are float32. There is no remat and no mesh in the port.
+are float32. ``forward`` is differentiable in the params; ``remat="full"``
+recomputes each layer in the backward (``torch.utils.checkpoint``). There
+is no mesh in the port.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from areal_tpu_torch import resolve_device, torch_dtype
 from areal_tpu_torch.models.config import TransformerConfig
@@ -115,6 +119,19 @@ def layer_params(layers: Params, i: int) -> Params:
     """Layer ``i`` of the stacked layer tree (views into the leaves)."""
     return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
             for k, v in layers.items()}
+
+
+def unbind_layers(layers: Params, n_layers: int) -> List[Params]:
+    """The stacked layer tree as a list of per-layer trees: one ``unbind``
+    per leaf (views), whose backward is one stack per leaf. Indexing layer
+    ``i`` out of a leaf instead would, in the backward, allocate a zero
+    tensor of the whole stacked leaf per layer."""
+    out: List[Params] = [{} for _ in range(n_layers)]
+    for k, v in layers.items():
+        parts = unbind_layers(v, n_layers) if isinstance(v, dict) else v.unbind(0)
+        for i in range(n_layers):
+            out[i][k] = parts[i]
+    return out
 
 
 def norm(x, p, cfg: TransformerConfig):
@@ -225,28 +242,41 @@ def forward(
     positions: torch.Tensor,  # [R, T] int32
     output: str = "logits",  # logits | hidden
     return_kv: bool = False,
+    remat: Any = False,  # False / "none" | True / "full"
     device="cuda",
 ):
     """Packed-rows forward. Returns logits [R, T, V] float32 (critic
     values [R, T]), or the final-normed hidden states with
     ``output="hidden"``; with ``return_kv`` also the per-layer post-rotary
-    (k, v), each stacked [L, R, T, Hkv, hd], for prefill. Params and
-    inputs must live on ``device``."""
+    (k, v), each stacked [L, R, T, Hkv, hd], for prefill. With
+    ``remat="full"`` and gradients enabled each layer keeps only its input
+    and is recomputed in the backward. Params and inputs must live on
+    ``device``."""
     if cfg.moe is not None:
         raise NotImplementedError("MoE models are not ported yet")
+    remat_mode = {True: "full", False: "none"}.get(remat, remat)
+    if remat_mode not in ("full", "none"):
+        raise ValueError(f"unknown remat mode {remat!r} (the port has 'full' and 'none')")
     device = resolve_device(device)
     for name, t in (("input_ids", input_ids), ("params", params["embedding"]["weight"])):
         if t.device != device:
             raise ValueError(f"forward on {device}: {name} lives on {t.device}")
     cdt = torch_dtype(cfg.compute_dtype)
     x, cos, sin = embed(params, cfg, input_ids, positions, cdt)
-    ks, vs = [], []
-    for i in range(cfg.n_layers):
-        lp = layer_params(params["layers"], i)
+
+    def layer_body(lp, x):
         q, k, v = qkv(norm(x, lp["ln1"], cfg), lp["attn"], cfg, cdt, cos, sin)
-        o = packed_attention(q, k.contiguous(), v.contiguous(), segment_ids, positions)
+        o = packed_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                             segment_ids, positions)
         x = x + attn_out(o, lp["attn"], cfg, cdt)
         x = x + mlp(norm(x, lp["ln2"], cfg), lp["mlp"], cfg, cdt)
+        return x, k, v
+
+    use_remat = remat_mode == "full" and torch.is_grad_enabled()
+    ks, vs = [], []
+    for lp in unbind_layers(params["layers"], cfg.n_layers):
+        body = functools.partial(layer_body, lp)
+        x, k, v = checkpoint(body, x, use_reentrant=False) if use_remat else body(x)
         if return_kv:
             ks.append(k)
             vs.append(v)

@@ -1,6 +1,6 @@
 """Packed variable-length causal attention with GQA (counterpart of
-``areal_tpu/ops/attention.py`` and the forward of
-``areal_tpu/ops/pallas/flash_attn.py``).
+``areal_tpu/ops/attention.py`` and of ``areal_tpu/ops/pallas/flash_attn.py``,
+forward and backward).
 
 Rows are packed token streams tagged with segment ids (0 = padding,
 sequences numbered from 1) and per-token positions; a token attends to
@@ -12,10 +12,15 @@ q ``[R, T, Hq, hd]``, k/v ``[R, T, Hkv, hd]``, segment ids and positions
 - ``reference_packed_attention``: the plain version, a dense einsum and
   mask. It is what runs for tensors on the CPU, and what the kernel is
   held against.
-- ``flash_packed_attention``: the wrapper of the hand-written CUDA kernel
-  ``csrc/flash_attn.cu`` (online softmax, causal tile skip). A CUDA
-  tensor launches the kernel or raises; a CPU tensor takes the plain
-  version.
+- ``reference_packed_attention_bwd``: the plain backward, which repeats
+  the backward kernels' arithmetic (p from the logsumexp, p and ds rounded
+  to the input dtype before the products). The kernels are held against it.
+- ``flash_packed_attention``: the wrapper of the hand-written CUDA kernels,
+  a ``torch.autograd.Function`` whose forward is ``csrc/flash_attn.cu``
+  (online softmax, causal tile skip, saves the f32 logsumexp) and whose
+  backward is the dq and dk/dv kernels of ``csrc/flash_attn_bwd.cu``. A
+  CUDA tensor launches the kernels or raises; a CPU tensor takes the plain
+  version, with autograd through it.
 - ``packed_attention``: the model's entry, the same function. There are
   no splash, ring, Ulysses or sharded variants in the port.
 """
@@ -88,18 +93,135 @@ def _flash_fwd(q, k, v, segment_ids, positions, scale: float
     return out, lse
 
 
+def reference_packed_attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    segment_ids: torch.Tensor, positions: torch.Tensor, dout: torch.Tensor,
+    softmax_scale: Optional[float] = None,
+    out: Optional[torch.Tensor] = None, lse: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain backward: (dq, dk, dv) of ``sum(out * dout)`` in the
+    inputs' dtype, with the backward kernels' arithmetic (p = exp(s - lse)
+    under the mask, ds = p (dout.v - delta) scale, p and ds rounded to the
+    input dtype before the products, f32 sums). ``out`` [R, T, Hq, hd] and
+    ``lse`` [R, Hq, T] are the forward's; when not given they come from
+    the plain forward. One packed row at a time, so the live score
+    tensors are [Hq, T, T]."""
+    R, T, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    group = Hq // Hkv
+    scale = softmax_scale if softmax_scale is not None else hd**-0.5
+    dt = q.dtype
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    for r in range(R):
+        qg = q[r].reshape(T, Hkv, group, hd).float()
+        kf, vf = k[r].float(), v[r].float()
+        dog = dout[r].reshape(T, Hkv, group, hd).float()
+        s = torch.einsum("qhgd,khd->hgqk", qg, kf) * scale
+        mask = segment_causal_mask(segment_ids[r:r + 1], positions[r:r + 1])[0]
+        if lse is None:
+            row_lse = torch.logsumexp(torch.where(mask, s, NEG_INF), dim=-1)
+        else:
+            row_lse = lse[r].reshape(Hkv, group, T)
+        p = torch.where(mask, torch.exp(s - row_lse[..., None]), 0.0)
+        if out is None:
+            og = torch.einsum("hgqk,khd->qhgd", p, vf).to(dt).float()
+        else:
+            og = out[r].reshape(T, Hkv, group, hd).float()
+        delta = (dog * og).sum(-1).permute(1, 2, 0)  # [Hkv, group, T]
+        dp = torch.einsum("qhgd,khd->hgqk", dog, vf)
+        ds = (p * (dp - delta[..., None]) * scale).to(dt).float()
+        p = p.to(dt).float()
+        dq[r] = torch.einsum("hgqk,khd->qhgd", ds, kf).reshape(T, Hq, hd).to(dt)
+        dk[r] = torch.einsum("hgqk,qhgd->khd", ds, qg).to(dt)
+        dv[r] = torch.einsum("hgqk,qhgd->khd", p, dog).to(dt)
+    return dq, dk, dv
+
+
+def _flash_bwd(q, k, v, segment_ids, positions, out, lse, dout, scale: float
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the two backward kernels: (dq, dk, dv) bf16. ``out`` and
+    ``lse`` are the forward kernel's. Raises on anything the kernels do
+    not take."""
+    R, T, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout)):
+        kernels.check_cuda_tensor(name, t, torch.bfloat16, 4)
+    kernels.check_cuda_tensor("segment_ids", segment_ids, torch.int32, 2)
+    kernels.check_cuda_tensor("positions", positions, torch.int32, 2)
+    kernels.check_cuda_tensor("lse", lse, torch.float32, 3)
+    if hd not in (64, 128):
+        raise ValueError(f"flash kernel takes head_dim 64 or 128, got {hd}")
+    if (k.shape != (R, T, Hkv, hd) or v.shape != k.shape or Hq % Hkv
+            or out.shape != q.shape or dout.shape != q.shape):
+        raise ValueError(
+            f"flash backward shapes: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+            f"v {tuple(v.shape)}, out {tuple(out.shape)}, dout {tuple(dout.shape)}")
+    if (segment_ids.shape != (R, T) or positions.shape != (R, T)
+            or lse.shape != (R, Hq, T)):
+        raise ValueError("segment_ids / positions must be [R, T], lse [R, Hq, T]")
+    if R > 65535 or Hq > 65535:
+        raise ValueError(f"flash kernel grid limit: R={R}, Hq={Hq}")
+    delta = _bwd_delta(out, dout)
+    args = (q, k, v, dout, segment_ids, positions, lse, delta)
+    return (_launch_dq(*args, scale), *_launch_dkv(*args, scale))
+
+
+def _bwd_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dout * out) in f32, laid out like the logsumexp,
+    [R, Hq, T] (the reference computes it outside its kernels as well)."""
+    return (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def _launch_dq(q, k, v, dout, segment_ids, positions, lse, delta, scale: float):
+    """The dq kernel alone, on inputs `_flash_bwd` has checked."""
+    R, T, Hq, hd = q.shape
+    dq = torch.empty_like(q)
+    kernels.launch("flash_attn_bwd_dq_bf16", q, k, v, dout, segment_ids,
+                   positions, lse, delta, dq, R, T, Hq, k.shape[2], hd, float(scale))
+    return dq
+
+
+def _launch_dkv(q, k, v, dout, segment_ids, positions, lse, delta, scale: float):
+    """The dk/dv kernel alone, on inputs `_flash_bwd` has checked."""
+    R, T, Hq, hd = q.shape
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    kernels.launch("flash_attn_bwd_dkv_bf16", q, k, v, dout, segment_ids,
+                   positions, lse, delta, dk, dv, R, T, Hq, k.shape[2], hd, float(scale))
+    return dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel with the dq and dk/dv kernels as its backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, segment_ids, positions, scale):
+        out, lse = _flash_fwd(q, k, v, segment_ids, positions, scale)
+        ctx.save_for_backward(q, k, v, segment_ids, positions, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, segment_ids, positions, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, segment_ids, positions, out, lse,
+                                dout.contiguous(), ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
 def flash_packed_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     segment_ids: torch.Tensor, positions: torch.Tensor,
     softmax_scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Packed causal GQA attention through the CUDA flash kernel (bf16 in
-    and out, f32 accumulation). On a CPU tensor: the plain version."""
+    """Packed causal GQA attention through the CUDA flash kernels (bf16 in
+    and out, f32 accumulation), differentiable in q, k and v. On a CPU
+    tensor: the plain version."""
     if q.device.type == "cpu":
         return reference_packed_attention(
             q, k, v, segment_ids, positions, softmax_scale=softmax_scale)
     scale = float(softmax_scale) if softmax_scale is not None else q.shape[-1] ** -0.5
-    return _flash_fwd(q, k, v, segment_ids, positions, scale)[0]
+    return _FlashAttention.apply(q, k, v, segment_ids, positions, scale)
 
 
 # The model's attention entry: on CUDA the flash kernel, on the CPU the

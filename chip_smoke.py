@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (areal_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--phases build,parity,serve_bf16,serve_int8,interrupt]
-                          [--out report.json]
+    python3 chip_smoke.py [--seed N] [--out report.json] [--profile-serving]
+        [--phases build,parity,serve_bf16,serve_int8,interrupt,grad,train]
 
 Phases (every one must pass; the script exits nonzero on the first that
 fails, and on a machine without CUDA):
@@ -10,16 +10,27 @@ fails, and on a machine without CUDA):
 1. build       - compile every kernel of areal_tpu_torch/csrc with nvcc for
                  sm_90a (one nvcc per source, in parallel).
 2. parity      - hold each kernel against its plain PyTorch version on the
-                 card, at the serving path's shapes, with bf16 inputs made
-                 from --seed; time kernel, plain version and (where one
-                 exists) one PyTorch library call with CUDA events.
+                 card, at the serving and training paths' shapes, with
+                 inputs made from --seed; time kernel, plain version and
+                 (where one exists) one PyTorch library call with CUDA
+                 events.
 3. serve_bf16  - a ServingEngine at the full width of
                  DeepSeek-R1-Distill-Qwen-1.5B (seeded random weights)
                  serves a mix of requests with a bf16 KV pool; launch
                  counts of every kernel on that path must be > 0.
+                 --profile-serving adds the profiled windows.
 4. serve_int8  - the same with kv_cache_dtype="int8".
 5. interrupt   - update_params mid-generation returns partial results
                  with interrupted=True and the new version goes live.
+6. grad        - at full width and 2 layers, the gradients of the SFT loss
+                 through the kernels against the plain attention on the
+                 card, leaf by leaf.
+7. train       - a TorchTrainEngine at the full width and depth of
+                 R1-Distill-Qwen-1.5B (float32 params, bf16 compute): PPO
+                 actor inference, one train_step (GAE, advantage
+                 normalization, 4 minibatch updates), then 3 SFT steps;
+                 launch counts of the forward, both backward and the GAE
+                 kernels must be > 0.
 
 Before the last line it prints the card's name and power limit (as
 nvidia-smi reports them) and one {"kernels": [...]} JSON line; the last
@@ -43,6 +54,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
+PEAK_F32_FLOPS = 67e12  # H100 SXM float32 rate outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bandwidth
 # Parity limits for the bf16 attention outputs. ATOL caps the error
 # anywhere; RTOL is per output row (one query head's hd values) against
@@ -51,7 +63,23 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bandwidth
 ATOL = 2e-2
 RTOL = 2e-2
 LSE_ATOL = 1e-3  # f32 logsumexp
-PHASES = ("build", "parity", "serve_bf16", "serve_int8", "interrupt")
+# Gradients of attention (bf16) have no fixed scale (dk and dv sum over
+# thousands of queries), so their limits are relative: every output row
+# (one head's hd values of one token) within RTOL of that row's largest
+# reference value, and the whole tensor within GRAD_TOL of its largest. A
+# row's scale is taken as at least ROW_FLOOR of the tensor's: the dq row of
+# a sequence's first token is dout.v - dout.out = 0 but for rounding.
+GRAD_TOL = 2e-2
+ROW_FLOOR = 1e-3
+GAE_RTOL = 1e-5  # f32 scan, against max(1, max|ref|)
+# SFT-loss gradients through the kernels against the plain attention, bf16
+# compute end to end: per leaf, against the leaf's largest reference value.
+LEAF_TOL = 5e-2
+PHASES = ("build", "parity", "serve_bf16", "serve_int8", "interrupt", "grad", "train")
+# The train phase at real size; a rehearsal on the CPU passes smaller ones.
+TRAIN_SIZES = dict(n_prompts=8, group=4, prompt=(128, 512), response=(256, 3072),
+                   row_len=4096, max_tokens_per_mb=16384, n_minibatches=4,
+                   sft_seqs=8, sft_steps=3)
 
 
 def log(msg: str) -> None:
@@ -87,8 +115,8 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def bound(flops: float, nbytes: float):
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
+    t_ops = flops / peak_flops * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -98,10 +126,11 @@ def bound(flops: float, nbytes: float):
 # ----------------------------------------------------------------------
 
 
-def row_errors(out, ref):
-    """(max abs error, max over output rows of max|out - ref| / max|ref|)."""
+def row_errors(out, ref, floor=1e-6):
+    """(max abs error, max over output rows of max|out - ref| / max|ref|),
+    a row's max|ref| taken as at least `floor`."""
     d = (out.float() - ref.float()).abs().amax(dim=-1)
-    m = ref.float().abs().amax(dim=-1).clamp(min=1e-6)
+    m = ref.float().abs().amax(dim=-1).clamp(min=floor)
     return d.max().item(), (d / m).max().item()
 
 
@@ -283,6 +312,155 @@ def parity_paged(torch, rng, dev, report, int8: bool):
         f"plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
 
 
+def random_seg_lens(rng, R, T, lo=2, hi=6, pad_max=512):
+    """Per row, `lo`..`hi` sequence lengths that fill T less a padding tail."""
+    rows = []
+    for _ in range(R):
+        n = int(rng.integers(lo, hi + 1))
+        used = T - int(rng.integers(1, pad_max + 1))
+        cuts = np.sort(rng.choice(np.arange(1, used), size=n - 1, replace=False))
+        rows.append(np.diff([0, *cuts.tolist(), used]).tolist())
+    return rows
+
+
+def parity_flash_bwd(torch, rng, dev, report):
+    """Both backward kernels against the plain backward on the same
+    inputs: q, k, v, dout and the forward kernel's out and logsumexp (which
+    parity_flash holds against the plain forward)."""
+    from areal_tpu_torch.ops.attention import (
+        _bwd_delta, _flash_bwd, _flash_fwd, _launch_dkv, _launch_dq,
+        reference_packed_attention_bwd, segment_causal_mask)
+
+    cases = [
+        ("ragged_T1000", 2, 1000, 12, 2, 128, [[300, 220, 417], [999]]),
+        ("hd64", 2, 333, 8, 2, 64, [[100, 200], [5, 300, 27]]),
+        ("all_padding_row", 2, 200, 12, 2, 128, [[64, 100], []]),
+        # the training shape: rows of 4096 tokens, 2-6 sequences and a
+        # padding tail each
+        ("train_R4_T4096", 4, 4096, 12, 2, 128, random_seg_lens(rng, 4, 4096)),
+    ]
+    errs = {"dq": [], "dk": [], "dv": []}
+    failed = []
+    for name, R, T, Hq, Hkv, hd, seg_lens in cases:
+        q, k, v, seg, pos = flash_case(torch, rng, dev, R, T, Hq, Hkv, hd, seg_lens)
+        dout = torch.from_numpy(rng.standard_normal((R, T, Hq, hd), np.float32)).to(
+            dev, torch.bfloat16)
+        scale = hd ** -0.5
+        out, lse = _flash_fwd(q, k, v, seg, pos, scale)
+        got = _flash_bwd(q, k, v, seg, pos, out, lse, dout, scale)
+        again = _flash_bwd(q, k, v, seg, pos, out, lse, dout, scale)
+        ref = reference_packed_attention_bwd(q, k, v, seg, pos, dout, out=out, lse=lse)
+        torch.cuda.synchronize()
+        parts = []
+        for tname, g, g2, w in zip(("dq", "dk", "dv"), got, again, ref):
+            top = w.float().abs().max().item()
+            err, rel = row_errors(g, w, floor=ROW_FLOOR * top)
+            pad = g.float()[seg == 0].abs().max().item() if (seg == 0).any() else 0.0
+            parts.append(f"{tname} abs={err:.3e} of max|ref|={top:.3e} row_rel={rel:.3e} "
+                         f"pad_rows_max={pad:.1e}")
+            if not (err <= GRAD_TOL * top and rel <= RTOL and pad == 0.0
+                    and torch.isfinite(g.float()).all() and torch.equal(g, g2)):
+                failed.append(f"{name} {tname}")
+            errs[tname].append(err)
+        log(f"  flash_bwd {name}: " + "; ".join(parts)
+            + f" (limits: {GRAD_TOL} of max|ref|, row {RTOL}; two runs bit-equal)")
+    if failed:
+        raise AssertionError(f"flash backward disagrees with its plain version or between "
+                             f"two runs: {failed}")
+    # Timing at the training shape (the last case). Work of the run's
+    # inputs: causal pairs within each sequence, reads of valid tokens.
+    valid = [n for row in seg_lens for n in row]
+    pairs = sum(n * (n + 1) / 2.0 for n in valid)
+    product = 2.0 * pairs * hd * Hq  # flops of one [T, T] x hd product
+    tok = sum(valid)
+    q_bytes, kv_bytes = tok * Hq * hd * 2, tok * Hkv * hd * 2
+    stat_bytes = 2 * R * Hq * T * 4 + 2 * R * T * 4  # lse, delta, seg, pos
+    full_q, full_kv = R * T * Hq * hd * 2, R * T * Hkv * hd * 2  # outputs span T
+    dq_bound = bound(3 * product, 2 * q_bytes + 2 * kv_bytes + stat_bytes + full_q)
+    dkv_bound = bound(4 * product, 2 * q_bytes + 2 * kv_bytes + stat_bytes + 2 * full_kv)
+    whole_bound = bound(5 * product, 3 * q_bytes + 2 * kv_bytes + stat_bytes
+                        + full_q + 2 * full_kv)
+    delta = _bwd_delta(out, dout)
+    args = (q, k, v, dout, seg, pos, lse, delta)
+    dq_ms = time_ms(lambda: _launch_dq(*args, scale), iters=10)
+    dkv_ms = time_ms(lambda: _launch_dkv(*args, scale), iters=10)
+    delta_ms = time_ms(lambda: _bwd_delta(out, dout), iters=10)
+    plain_ms = time_ms(lambda: reference_packed_attention_bwd(
+        q, k, v, seg, pos, dout, out=out, lse=lse), iters=3, warmup=1)
+    # Library yardstick: autograd through one SDPA call with the boolean
+    # mask (its forward untimed), which gives dq, dk and dv together.
+    group = Hq // Hkv
+    qt = q.transpose(1, 2).contiguous().requires_grad_(True)
+    kt = k.repeat_interleave(group, dim=2).transpose(1, 2).contiguous().requires_grad_(True)
+    vt = v.repeat_interleave(group, dim=2).transpose(1, 2).contiguous().requires_grad_(True)
+    mask = segment_causal_mask(seg, pos)[:, None]
+    o = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    do = dout.transpose(1, 2).contiguous()
+    lib_ms = time_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), do, retain_graph=True),
+                     iters=10)
+    shape = f"R={R} T={T} Hq={Hq} Hkv={Hkv} hd={hd} valid={tok} seqs={len(valid)}"
+    for kname, replaces, ms, (b_ms, b_by), err in (
+            ("flash_attn_bwd_dq_bf16", "areal_tpu/ops/pallas/flash_attn.py:265", dq_ms,
+             dq_bound, max(errs["dq"])),
+            ("flash_attn_bwd_dkv_bf16", "areal_tpu/ops/pallas/flash_attn.py:295", dkv_ms,
+             dkv_bound, max(errs["dk"] + errs["dv"]))):
+        report[kname] = dict(
+            name=kname, route="cuda", source="areal_tpu_torch/csrc/flash_attn_bwd.cu",
+            replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib_ms, shape=shape,
+            note="plain_ms and library_ms time dq, dk and dv together")
+    report["flash_attn_bwd_dq_bf16"]["whole_backward"] = dict(
+        ms=dq_ms + dkv_ms + delta_ms, delta_ms=delta_ms, bound_ms=whole_bound[0],
+        bound_by=whole_bound[1])
+    log(f"  flash_bwd timing {shape}: dq {dq_ms:.3f} ms (bound {dq_bound[0]:.4f} ms, "
+        f"{dq_bound[1]}), dk/dv {dkv_ms:.3f} ms (bound {dkv_bound[0]:.4f} ms, {dkv_bound[1]}), "
+        f"delta pre-pass {delta_ms:.3f} ms; whole backward bound {whole_bound[0]:.4f} ms "
+        f"({whole_bound[1]}); plain {plain_ms:.1f} ms, sdpa backward {lib_ms:.3f} ms")
+
+
+def parity_gae(torch, rng, dev, report):
+    from areal_tpu_torch.ops.gae import _scan_kernel, reference_scan_reverse
+
+    def case(R, T):
+        # a is gamma * lam inside a segment and 0 at its end and on padding
+        a = np.full((R, T), 0.97 * 0.95, np.float32)
+        b = rng.standard_normal((R, T), np.float32)
+        for r in range(R):
+            ends = rng.choice(np.arange(T), size=min(T, int(rng.integers(1, 7))), replace=False)
+            a[r, ends] = 0.0
+            tail = int(rng.integers(0, T // 4 + 1))
+            if tail:
+                a[r, T - tail:] = 0.0
+                b[r, T - tail:] = 0.0
+        return torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+
+    errs = []
+    for R, T in ((16, 4096), (5, 1000), (3, 5001), (1, 7), (300, 129)):
+        a, b = case(R, T)
+        x = _scan_kernel(a, b)
+        ref = reference_scan_reverse(a, b)
+        scale = max(1.0, ref.abs().max().item())
+        err = (x - ref).abs().max().item()
+        log(f"  gae_scan [{R}, {T}]: max_abs_err={err:.3e} against scale {scale:.3f} "
+            f"(tol {GAE_RTOL} relative)")
+        if not (err <= GAE_RTOL * scale and torch.isfinite(x).all()
+                and torch.equal(x, _scan_kernel(a, b))):
+            raise AssertionError(f"gae_scan [{R}, {T}] disagrees with its plain version")
+        errs.append(err)
+    # Timing at the PPO step's shape: the whole batch as 16 rows of 4096.
+    a, b = case(16, 4096)
+    b_ms, b_by = bound(2.0 * a.numel(), 12.0 * a.numel(), PEAK_F32_FLOPS)
+    ms = time_ms(lambda: _scan_kernel(a, b), iters=50)
+    plain_ms = time_ms(lambda: reference_scan_reverse(a, b), iters=2, warmup=1)
+    report["gae_scan_f32"] = dict(
+        name="gae_scan_f32", route="cuda", source="areal_tpu_torch/csrc/gae_scan.cu",
+        replaces="areal_tpu/ops/pallas/gae_scan.py:113", max_abs_err=max(errs), ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape="R=16 T=4096 f32")
+    log(f"  gae_scan timing [16, 4096]: kernel {ms:.4f} ms, plain (serial loop) "
+        f"{plain_ms:.1f} ms, bound {b_ms:.5f} ms ({b_by})")
+
+
 # ----------------------------------------------------------------------
 # Phases 3-5: serving
 # ----------------------------------------------------------------------
@@ -386,6 +564,12 @@ def check_results(torch, engine, cfg, params, reqs, results):
 def _kernel_class(name: str) -> str:
     if "flash_fwd_kernel" in name:
         return "flash_attn_fwd_bf16"
+    if "flash_bwd_dq_kernel" in name:
+        return "flash_attn_bwd_dq_bf16"
+    if "flash_bwd_dkv_kernel" in name:
+        return "flash_attn_bwd_dkv_bf16"
+    if "gae_scan_kernel" in name:
+        return "gae_scan_f32"
     if "paged_decode_kernel" in name:
         return "paged_decode"
     low = name.lower()
@@ -396,31 +580,38 @@ def _kernel_class(name: str) -> str:
     return "other (elementwise, norms, copies, ...)"
 
 
-def profile_window(torch, engine, reqs_fn):
-    """Run one batch of requests under torch.profiler; return the device
-    busy time by kernel class and the device idle share of the window."""
+def profile_window(torch, fn):
+    """Run fn() (which returns its wall seconds) under torch.profiler;
+    return the device busy time by kernel class and the device idle share
+    of the window."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, wall = run_requests(engine, reqs_fn())
+        wall = fn()
         torch.cuda.synchronize()
-    by_class, busy_us = {}, 0.0
+    # Device rows only (kernels, memcpys, memsets): an operator's row
+    # repeats the time of the kernels it launched.
+    by_class, by_name, busy_us = {}, {}, 0.0
     for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.self_device_time_total
         if us <= 0:
             continue
         busy_us += us
         c = _kernel_class(e.key)
         by_class[c] = by_class.get(c, 0.0) + us / 1e3
+        by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3
     busy_ms = busy_us / 1e3
     return dict(wall_ms=wall * 1e3, device_busy_ms=busy_ms,
                 device_idle_share=max(0.0, 1.0 - busy_ms / (wall * 1e3)),
-                device_ms_by_class=dict(sorted(by_class.items(), key=lambda kv: -kv[1])))
+                device_ms_by_class=dict(sorted(by_class.items(), key=lambda kv: -kv[1])),
+                top_kernels=[[k[:100], v] for k, v in
+                             sorted(by_name.items(), key=lambda kv: -kv[1])[:16]])
 
 
-def serve_phase(torch, rng, dev, cfg, params, kv_cache_dtype):
+def serve_phase(torch, rng, dev, cfg, params, kv_cache_dtype, profiled=False):
     from areal_tpu_torch import kernels
     from areal_tpu_torch.engine.serving import GenRequest, ServingEngine
 
@@ -469,6 +660,8 @@ def serve_phase(torch, rng, dev, cfg, params, kv_cache_dtype):
         log(f"  prefill {stats['prefill_tok_s']:.0f} tok/s (16 x 1024), TTFT p50 "
             f"{stats['ttft_p50_ms']:.1f} ms max {stats['ttft_max_ms']:.1f} ms; decode "
             f"{stats['decode_tok_s']:.1f} tok/s (16 slots x 128 tokens)")
+        if not profiled:
+            return stats
         # Where the time goes: profiled windows of prefill only (16 x 1024
         # prompts, 1 new token), short-context decode (the decode run
         # above) and long-context decode (16 x 3000-token prompts, 32 new
@@ -488,7 +681,7 @@ def serve_phase(torch, rng, dev, cfg, params, kv_cache_dtype):
         }
         stats["profile"] = {}
         for wname, fn in windows.items():
-            prof = profile_window(torch, engine, fn)
+            prof = profile_window(torch, lambda: run_requests(engine, fn())[1])
             stats["profile"][wname] = prof
             top = ", ".join(f"{k} {v:.1f} ms" for k, v in prof["device_ms_by_class"].items())
             log(f"  profile {wname}: wall {prof['wall_ms']:.1f} ms, device busy "
@@ -551,11 +744,293 @@ def interrupt_phase(torch, rng, dev, cfg, params):
         engine.stop()
 
 
+# ----------------------------------------------------------------------
+# Phases 6-7: training
+# ----------------------------------------------------------------------
+
+
+def sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def leaf_paths(tree, prefix=""):
+    """Names of a param tree's leaves in `optimizer.tree_leaves` order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in leaf_paths(tree[k], f"{prefix}/{k}")]
+    return [prefix.lstrip("/")]
+
+
+def _draw(rng, lo_hi) -> int:
+    return int(rng.integers(lo_hi[0], lo_hi[1] + 1))
+
+
+def rollout_sample(rng, sizes, vocab):
+    """A seeded rollout batch as the rollout workers hand it to the
+    trainer: `n_prompts` prompts with `group` responses each, prompt mask,
+    per-sequence rewards (a good and a bad answer alternate) and no-EOS
+    flags (two sequences were cut at the length limit)."""
+    from areal_tpu_torch.api.data_api import SequenceSample
+
+    n_prompts, group = sizes["n_prompts"], sizes["group"]
+    ids, pms, group_lens = [], [], []
+    for _ in range(n_prompts):
+        prompt = rng.integers(0, vocab, size=_draw(rng, sizes["prompt"]))
+        lens = []
+        for _ in range(group):
+            resp = rng.integers(0, vocab, size=_draw(rng, sizes["response"]))
+            ids.append(np.concatenate([prompt, resp]))
+            pms.append(np.concatenate([np.ones(len(prompt), np.int64),
+                                       np.zeros(len(resp), np.int64)]))
+            lens.append(len(prompt) + len(resp))
+        group_lens.append(lens)
+    n_seqs = n_prompts * group
+    no_eos = np.zeros(n_seqs, np.float32)
+    no_eos[[1, n_seqs - 2]] = 1.0
+    per_seq = [[1] * group for _ in range(n_prompts)]
+    return SequenceSample(
+        ids=[f"prompt{i}" for i in range(n_prompts)],
+        keys={"packed_input_ids", "prompt_mask", "seq_no_eos_mask", "rewards"},
+        data={"packed_input_ids": np.concatenate(ids), "prompt_mask": np.concatenate(pms),
+              "seq_no_eos_mask": no_eos,
+              "rewards": np.tile([5.0, -5.0], n_seqs // 2 + 1)[:n_seqs].astype(np.float32)},
+        seqlens={"packed_input_ids": group_lens, "prompt_mask": group_lens,
+                 "seq_no_eos_mask": per_seq, "rewards": per_seq},
+        metadata={"version_start": [0] * n_prompts, "version_end": [0] * n_prompts},
+    )
+
+
+def sft_sample(rng, n_seqs, sizes, vocab):
+    from areal_tpu_torch.api.data_api import SequenceSample
+
+    plens = [_draw(rng, sizes["prompt"]) for _ in range(n_seqs)]
+    rlens = [_draw(rng, sizes["response"]) for _ in range(n_seqs)]
+    lens = [p + r for p, r in zip(plens, rlens)]
+    pm = np.concatenate([np.arange(n) < p for n, p in zip(lens, plens)]).astype(np.int64)
+    return SequenceSample.from_default(
+        ids=[f"sft{i}" for i in range(n_seqs)], seqlens=lens,
+        data={"packed_input_ids": rng.integers(0, vocab, size=sum(lens)), "prompt_mask": pm})
+
+
+def grad_phase(torch, rng, dev, cfg, seed):
+    """Gradients of the SFT loss at full width and 2 layers: the kernel
+    path (flash forward and backward kernels) against the plain attention,
+    both on `dev`, leaf by leaf."""
+    import dataclasses
+
+    from areal_tpu_torch import kernels
+    from areal_tpu_torch.engine.optimizer import tree_leaves
+    from areal_tpu_torch.engine.torch_engine import TorchTrainEngine
+    from areal_tpu_torch.interfaces.sft import sft_loss_weight, sft_row_loss
+    from areal_tpu_torch.models import transformer
+    from areal_tpu_torch.ops.attention import reference_packed_attention
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2, param_dtype="float32")
+    params = transformer.init_params(cfg2, seed=seed, device=dev)
+    engine = TorchTrainEngine(cfg2, params, remat="full", row_len_multiple=1024,
+                              max_row_len=1024, device=dev)
+    sample = sft_sample(rng, 6, dict(prompt=(16, 128), response=(64, 512)), cfg2.vocab_size)
+    _, rows_np = engine._build_rows(sample)
+    rows = engine._device_rows(rows_np)
+    denom = sft_loss_weight(sample)
+    leaves = tree_leaves(engine.params)
+
+    def loss_and_grads():
+        loss, _ = sft_row_loss(engine._model_out(rows, "logprobs", "full"), rows)
+        grads = torch.autograd.grad(loss / denom, leaves)
+        return loss.item() / denom, grads
+
+    kernels.reset_launches()
+    loss_k, g_k = loss_and_grads()
+    counts = dict(kernels.launches)
+    # The plain path: the model's attention entry swapped for the plain
+    # version for this one call.
+    kernel_entry = transformer.packed_attention
+    transformer.packed_attention = reference_packed_attention
+    try:
+        loss_p, g_p = loss_and_grads()
+    finally:
+        transformer.packed_attention = kernel_entry
+    sync(torch, dev)
+    worst = {}
+    for name, a, b in zip(leaf_paths(engine.params), g_k, g_p):
+        top = b.float().abs().max().item()
+        worst[name] = (a.float() - b.float()).abs().max().item() / max(top, 1e-30)
+        if not torch.isfinite(a).all() or worst[name] > LEAF_TOL:
+            raise AssertionError(f"grad: leaf {name} differs by {worst[name]:.3e} of its "
+                                 f"largest reference value (tol {LEAF_TOL})")
+    if abs(loss_k - loss_p) > 1e-2 * abs(loss_p):
+        raise AssertionError(f"grad: loss {loss_k} through the kernels, {loss_p} plain")
+    if dev.type == "cuda":
+        for k in ("flash_attn_fwd_bf16", "flash_attn_bwd_dq_bf16", "flash_attn_bwd_dkv_bf16"):
+            if counts[k] <= 0:
+                raise AssertionError(f"grad: kernel {k} was not launched")
+    name, val = max(worst.items(), key=lambda kv: kv[1])
+    log(f"  rows {tuple(rows['input_ids'].shape)}, {int(denom)} loss tokens: loss "
+        f"{loss_k:.5f} (kernels) vs {loss_p:.5f} (plain); {len(worst)} leaves, worst "
+        f"{name} at {val:.3e} of max|ref| (tol {LEAF_TOL}); launches {counts}")
+    return dict(loss_kernels=loss_k, loss_plain=loss_p, worst_leaf=name, worst_rel=val,
+                per_leaf=worst, launches=counts)
+
+
+def train_phase(torch, rng, dev, cfg, seed, sizes=TRAIN_SIZES):
+    """PPO actor inference and train_step, then SFT steps, through the
+    interfaces and a TorchTrainEngine with float32 params."""
+    import dataclasses
+
+    from areal_tpu_torch import kernels
+    from areal_tpu_torch.api.data_api import MicroBatchSpec, SequenceSample
+    from areal_tpu_torch.api.model_api import Model, ModelName, make_interface
+    from areal_tpu_torch.engine.optimizer import OptimizerConfig
+    from areal_tpu_torch.engine.torch_engine import TorchTrainEngine
+    from areal_tpu_torch.interfaces import ppo, sft  # noqa: F401  (register the interfaces)
+    from areal_tpu_torch.models.transformer import count_params, init_params
+
+    cfg = dataclasses.replace(cfg, param_dtype="float32")
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = TorchTrainEngine(
+        cfg, init_params(cfg, seed=seed, device=dev),
+        optimizer_config=OptimizerConfig(lr=5e-5, warmup_steps_proportion=0.0),
+        total_train_steps=100, remat="full", row_len_multiple=sizes["row_len"],
+        max_row_len=sizes["row_len"], device=dev)
+    sync(torch, dev)
+    log(f"  engine: {cfg.n_layers} layers, {count_params(engine.params) / 1e9:.3f} B params "
+        f"({cfg.param_dtype} params and moments, {cfg.compute_dtype} compute, seeded "
+        f"random) in {time.perf_counter() - t0:.1f} s")
+    model = Model(name=ModelName("actor"), module=engine, tokenizer=None)
+    actor = make_interface("ppo_actor", n_minibatches=sizes["n_minibatches"],
+                           gae_lambda=0.95)
+    mb_spec = MicroBatchSpec(max_tokens_per_mb=sizes["max_tokens_per_mb"])
+    sample = rollout_sample(rng, sizes, cfg.vocab_size)
+    n_tok = sample.total_seqlen()
+    # Rows each minibatch packs into: the attention kernels' cost follows
+    # the rows (they skip no tile inside a row), not the tokens.
+    mb_rows = [engine._build_rows(mb)[0].n_rows for mb in
+               sample.split(MicroBatchSpec(n_mbs=sizes["n_minibatches"]))[0]]
+    probe = engine.params["layers"]["attn"]["wq"]
+    before = probe.detach()[0, :8, :8].clone()
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    behav = actor.inference(model, sample, mb_spec)
+    sync(torch, dev)
+    t_inf = time.perf_counter() - t0
+    lp = behav.data["logprobs"]
+    if not np.isfinite(lp).all() or lp.max() > 0:
+        raise AssertionError("train: behaviour logprobs not finite or > 0")
+    sl = [list(x) for x in sample.seqlens["packed_input_ids"]]
+    noise = rng.standard_normal(lp.shape).astype(np.float32) * 0.01
+    sample.update_(SequenceSample(
+        ids=list(sample.ids), keys={"packed_logprobs", "ref_logprobs"},
+        data={"packed_logprobs": lp, "ref_logprobs": lp + noise},
+        seqlens={"packed_logprobs": sl, "ref_logprobs": sl}))
+
+    per_minibatch = []
+    inner = engine.train_batch
+
+    def recording_train_batch(*args, **kwargs):
+        per_minibatch.append(inner(*args, **kwargs))
+        return per_minibatch[-1]
+
+    engine.train_batch = recording_train_batch  # to read each minibatch's stats
+    t0 = time.perf_counter()
+    try:
+        stats = actor.train_step(model, sample, mb_spec)
+    finally:
+        del engine.train_batch
+    sync(torch, dev)
+    t_ppo = time.perf_counter() - t0
+    first = per_minibatch[0]
+    log(f"  ppo: {n_tok} tokens in {len(sl) * sizes['group']} sequences; inference "
+        f"{t_inf:.2f} s ({n_tok / t_inf:.0f} tok/s); train_step {t_ppo:.2f} s "
+        f"({n_tok / t_ppo:.0f} tok/s), {len(per_minibatch)} minibatches of "
+        f"{[int(s['ppo_actor/n_mbs']) for s in per_minibatch]} micro-batches and {mb_rows} "
+        f"rows of {sizes['row_len']}; first minibatch "
+        f"importance_weight {first['ppo_actor/importance_weight']:.6f} clip_ratio "
+        f"{first['ppo_actor/clip_ratio']:.2e}; loss {stats['ppo_actor/loss']:.5f} grad_norm "
+        f"{stats['ppo_actor/grad_norm']:.4f} adv_mean {stats['ppo_actor/adv_mean']:.4f}")
+    bad = [k for k, v in stats.items() if not math.isfinite(v)]
+    if bad:
+        raise AssertionError(f"train: non-finite stats {bad}")
+    if not all(s["ppo_actor/grad_norm"] > 0 for s in per_minibatch):
+        raise AssertionError("train: a minibatch had grad norm 0")
+    if (abs(first["ppo_actor/importance_weight"] - 1.0) > 1e-3
+            or abs(first["ppo_actor/clip_ratio"]) > 1e-3):
+        raise AssertionError("train: the first minibatch is not on-policy: importance weight "
+                             f"{first['ppo_actor/importance_weight']}, clip ratio "
+                             f"{first['ppo_actor/clip_ratio']}")
+    if len(per_minibatch) != sizes["n_minibatches"] or model.version != 1 \
+            or engine.optimizer.count != sizes["n_minibatches"]:
+        raise AssertionError("train: expected one optimizer update per minibatch and "
+                             "one version step")
+    if torch.equal(before, probe.detach()[0, :8, :8]):
+        raise AssertionError("train: parameters did not change")
+
+    sft_itf = make_interface("sft")
+    batch = sft_sample(rng, sizes["sft_seqs"], sizes, cfg.vocab_size)
+    sft_tok = batch.total_seqlen()
+    sft_rows = engine._build_rows(batch)[0].n_rows
+    sft_stats, sft_walls = [], []
+    for _ in range(sizes["sft_steps"]):
+        t0 = time.perf_counter()
+        sft_stats.append(sft_itf.train_step(model, batch, mb_spec))
+        sync(torch, dev)
+        sft_walls.append(time.perf_counter() - t0)
+    counts = dict(kernels.launches)
+    losses = [s["sft/loss"] for s in sft_stats]
+    log(f"  sft: {sizes['sft_steps']} steps on {sft_tok} tokens in {sft_rows} rows: loss "
+        f"{losses}, grad_norm "
+        f"{[round(s['sft/grad_norm'], 4) for s in sft_stats]}, step wall "
+        f"{[round(w, 2) for w in sft_walls]} s ({sft_tok / min(sft_walls):.0f} tok/s best); "
+        f"launches {counts}")
+    if not all(math.isfinite(v) for s in sft_stats for v in s.values()):
+        raise AssertionError("train: non-finite SFT stats")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: SFT loss did not fall: {losses}")
+    if model.version != 1 + sizes["sft_steps"]:
+        raise AssertionError("train: version did not advance with the SFT steps")
+    if on_card:
+        for k in ("flash_attn_fwd_bf16", "flash_attn_bwd_dq_bf16", "flash_attn_bwd_dkv_bf16",
+                  "gae_scan_f32"):
+            if counts[k] <= 0:
+                raise AssertionError(f"train: kernel {k} was not launched")
+    out = dict(
+        tokens=n_tok, inference_s=t_inf, inference_tok_s=n_tok / t_inf,
+        train_step_s=t_ppo, train_step_tok_s=n_tok / t_ppo, ppo_stats=stats,
+        ppo_minibatches=per_minibatch, ppo_minibatch_rows=mb_rows, sft_tokens=sft_tok,
+        sft_rows=sft_rows, sft_losses=losses,
+        sft_step_s=sft_walls, sft_tok_s=sft_tok / min(sft_walls), launches=counts)
+    if on_card:
+        # Where the time goes: one more SFT train_batch under the profiler.
+        def one_step():
+            t0 = time.perf_counter()
+            sft_itf.train_step(model, batch, mb_spec)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        prof = profile_window(torch, one_step)
+        out["profile"] = {"sft_train_batch": prof}
+        top = ", ".join(f"{k} {v:.1f} ms" for k, v in prof["device_ms_by_class"].items())
+        log(f"  profile sft train_batch ({sft_tok} tokens): wall {prof['wall_ms']:.1f} ms, "
+            f"device busy {prof['device_busy_ms']:.1f} ms (idle share "
+            f"{prof['device_idle_share']:.3f}); {top}")
+        for name, ms in prof["top_kernels"]:
+            log(f"    {ms:8.1f} ms  {name}")
+        out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        log(f"  peak device memory {out['peak_memory_gb']:.2f} GB")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default=",".join(PHASES))
     ap.add_argument("--out", default=None, help="also write the full report here (JSON)")
+    ap.add_argument("--profile-serving", action="store_true",
+                    help="also run the serving phases' profiled windows")
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -568,6 +1043,7 @@ def main() -> int:
         log("CUDA is not available: this script runs the port on an NVIDIA GPU")
         return 2
     from areal_tpu_torch import kernels, resolve_device
+    from areal_tpu_torch.models.hf.qwen2 import r1_distill_qwen_1_5b_config
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -580,6 +1056,10 @@ def main() -> int:
     kernel_rows = {}
     t_start = time.perf_counter()
 
+    def phase_done(name, t0):
+        report["phases"].setdefault(name, {})["phase_seconds"] = time.perf_counter() - t0
+        log(f"  phase {name} took {time.perf_counter() - t0:.1f} s")
+
     log("phase build")
     secs = kernels.build_all()
     for name, text in kernels.build_logs.items():
@@ -591,45 +1071,74 @@ def main() -> int:
 
     if "parity" in phases:
         log("phase parity")
+        t0 = time.perf_counter()
         parity_flash(torch, rng, dev, kernel_rows)
         parity_paged(torch, rng, dev, kernel_rows, int8=False)
         parity_paged(torch, rng, dev, kernel_rows, int8=True)
+        parity_flash_bwd(torch, rng, dev, kernel_rows)
+        parity_gae(torch, rng, dev, kernel_rows)
         torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        phase_done("parity", t0)
 
+    cfg = r1_distill_qwen_1_5b_config()
     serving = [p for p in phases if p in ("serve_bf16", "serve_int8", "interrupt")]
     main_counts = {}
     if serving:
-        from areal_tpu_torch.models.hf.qwen2 import r1_distill_qwen_1_5b_config
         from areal_tpu_torch.models.transformer import count_params, init_params
 
-        cfg = r1_distill_qwen_1_5b_config()
         t0 = time.perf_counter()
         params = init_params(cfg, seed=args.seed, device=dev, dtype=torch.bfloat16)
         torch.cuda.synchronize()
-        log(f"model: R1-Distill-Qwen-1.5B widths, {count_params(params) / 1e9:.3f} B "
+        log(f"serving model: R1-Distill-Qwen-1.5B widths, {count_params(params) / 1e9:.3f} B "
             f"params (bf16, seeded random) in {time.perf_counter() - t0:.1f} s")
         for ph, kvd, need in (("serve_bf16", None, ("flash_attn_fwd_bf16", "paged_decode_bf16")),
                               ("serve_int8", "int8", ("flash_attn_fwd_bf16", "paged_decode_int8"))):
             if ph not in phases:
                 continue
             log(f"phase {ph}")
-            report["phases"][ph] = serve_phase(torch, rng, dev, cfg, params, kvd)
+            t0 = time.perf_counter()
+            report["phases"][ph] = serve_phase(torch, rng, dev, cfg, params, kvd,
+                                               profiled=args.profile_serving)
             counts = report["phases"][ph]["launches"]
             for k in need:
                 if counts[k] <= 0:
                     raise AssertionError(f"{ph}: kernel {k} was not launched")
                 main_counts.setdefault(k, counts[k])
             torch.cuda.empty_cache()
+            phase_done(ph, t0)
         if "interrupt" in phases:
             log("phase interrupt")
+            t0 = time.perf_counter()
             report["phases"]["interrupt"] = interrupt_phase(torch, rng, dev, cfg, params)
+            phase_done("interrupt", t0)
+        # The serving engines and pools are gone; free their weights too
+        # before the training phases.
         del params
         torch.cuda.empty_cache()
+
+    if "grad" in phases:
+        log("phase grad")
+        t0 = time.perf_counter()
+        report["phases"]["grad"] = grad_phase(torch, rng, dev, cfg, args.seed)
+        torch.cuda.empty_cache()
+        phase_done("grad", t0)
+
+    if "train" in phases:
+        log("phase train")
+        t0 = time.perf_counter()
+        report["phases"]["train"] = train_phase(torch, rng, dev, cfg, args.seed)
+        counts = report["phases"]["train"]["launches"]
+        for k in ("flash_attn_bwd_dq_bf16", "flash_attn_bwd_dkv_bf16", "gae_scan_f32"):
+            main_counts[k] = counts[k]
+        main_counts.setdefault("flash_attn_fwd_bf16", counts["flash_attn_fwd_bf16"])
+        torch.cuda.empty_cache()
+        phase_done("train", t0)
 
     kernels_line = []
     for name, row in kernel_rows.items():
         row = dict(row)
-        # null where no serve phase that runs this kernel ran
+        # null where no phase that runs this kernel on its main path ran
         row["launches"] = main_counts.get(name)
         row["kernel_ms"] = row["ms"]  # the same time under its other name
         row["card"] = card

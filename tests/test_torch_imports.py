@@ -56,6 +56,9 @@ def test_port_sources_import_no_jax():
     "areal_tpu_torch.engine.serving",
     "areal_tpu_torch.engine.serving, areal_tpu_torch.convert, "
     "areal_tpu_torch.models.hf.qwen2, areal_tpu_torch.kernels, chip_smoke",
+    "areal_tpu_torch.engine.torch_engine, areal_tpu_torch.engine.optimizer, "
+    "areal_tpu_torch.interfaces.ppo, areal_tpu_torch.interfaces.sft, "
+    "areal_tpu_torch.ops.gae, areal_tpu_torch.ops.loss",
 ])
 def test_importing_the_port_loads_no_jax(modules):
     code = (

@@ -6,7 +6,9 @@ chip_smoke.py holds each against its plain version.
   source with as many parameters as its ctypes argtypes (a mismatch
   would pass pointers as ints on the card);
 - a kernel's launcher refuses a CPU tensor (the wrappers send CPU
-  tensors to the plain version before they reach it);
+  tensors to the plain version before they reach it), a wrong dtype, a
+  non-contiguous tensor and a head_dim outside {64, 128}, all before
+  ``nvcc`` is touched;
 - with no nvcc, the first launch fails with a build error.
 """
 
@@ -17,7 +19,9 @@ import torch
 
 from areal_tpu_torch import kernels
 from areal_tpu_torch.engine.paged import _paged_decode_kernel
-from areal_tpu_torch.ops.attention import _flash_fwd
+from areal_tpu_torch.ops import attention
+from areal_tpu_torch.ops.attention import _flash_bwd, _flash_fwd
+from areal_tpu_torch.ops.gae import _scan_kernel
 
 
 def _c_params(source: str, entry: str) -> int:
@@ -32,6 +36,18 @@ def test_entry_points_match_their_c_signatures(entry):
     src = open(kernels.CSRC_DIR / kernels.SOURCES[lib]).read()
     assert _c_params(src, entry) == len(argtypes)
     assert entry in kernels.launches
+
+
+def test_every_kernel_of_the_port_is_registered():
+    assert set(kernels.ENTRY_POINTS) == set(kernels.launches) == {
+        "flash_attn_fwd_bf16", "paged_decode_bf16", "paged_decode_int8",
+        "flash_attn_bwd_dq_bf16", "flash_attn_bwd_dkv_bf16", "gae_scan_f32"}
+    assert {lib for lib, _ in kernels.ENTRY_POINTS.values()} == set(kernels.SOURCES)
+    assert kernels.ENTRY_POINTS["flash_attn_bwd_dq_bf16"][0] == "flash_attn_bwd"
+    assert kernels.ENTRY_POINTS["flash_attn_bwd_dkv_bf16"][0] == "flash_attn_bwd"
+    assert kernels.ENTRY_POINTS["gae_scan_f32"][0] == "gae_scan"
+    on_disk = {p.name for p in kernels.CSRC_DIR.glob("*.cu")}
+    assert on_disk == set(kernels.SOURCES.values())
 
 
 def test_sources_target_hopper():
@@ -68,6 +84,113 @@ def test_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         _paged_decode_kernel(q, pool, pool, torch.ones(2, dtype=torch.int32),
                              torch.ones((2, 1), dtype=torch.int32), 0.125)
+
+
+class _FakeCuda(torch.Tensor):
+    """A CPU tensor that reports a CUDA device, to reach the checks a
+    wrapper makes after the device check, where there is no card."""
+
+    @staticmethod
+    def __new__(cls, data):
+        return torch.Tensor._make_subclass(cls, data)
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+def _bwd_args(hd=64, dtype=torch.bfloat16):
+    q = _FakeCuda(torch.zeros((1, 8, 4, hd), dtype=dtype))
+    kv = _FakeCuda(torch.zeros((1, 8, 2, hd), dtype=dtype))
+    ids = _FakeCuda(torch.zeros((1, 8), dtype=torch.int32))
+    lse = _FakeCuda(torch.zeros((1, 4, 8), dtype=torch.float32))
+    return dict(q=q, k=kv, v=kv, segment_ids=ids, positions=ids, out=q, lse=lse,
+                dout=q, scale=0.125)
+
+
+def test_backward_and_scan_wrappers_refuse_cpu_tensors(monkeypatch):
+    monkeypatch.setattr(kernels, "launch", lambda *a: pytest.fail("reached the launcher"))
+    q, kv, v, ids, pos = _flash_args()
+    lse = torch.zeros((1, 4, 8))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        _flash_bwd(q, kv, v, ids, pos, q, lse, q, 0.125)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        _scan_kernel(torch.zeros(2, 8), torch.zeros(2, 8))
+
+
+@pytest.mark.parametrize("bad,match", [
+    (dict(dout=torch.float32), "dout: expected torch.bfloat16"),
+    (dict(lse=torch.bfloat16), "lse: expected torch.float32"),
+    (dict(noncontiguous="dout"), "dout: expected a contiguous"),
+    (dict(hd=32), "head_dim 64 or 128"),
+    (dict(lse_shape=(1, 8, 4)), "lse \\[R, Hq, T\\]"),
+])
+def test_backward_wrapper_refuses_what_the_kernels_do_not_take(monkeypatch, bad, match):
+    monkeypatch.setattr(kernels, "launch", lambda *a: pytest.fail("reached the launcher"))
+    args = _bwd_args(hd=bad.get("hd", 64))
+    if "dout" in bad:
+        args["dout"] = _FakeCuda(torch.zeros((1, 8, 4, 64), dtype=bad["dout"]))
+    if "lse" in bad:
+        args["lse"] = _FakeCuda(torch.zeros((1, 4, 8), dtype=bad["lse"]))
+    if "noncontiguous" in bad:
+        args["dout"] = _FakeCuda(torch.zeros((1, 4, 8, 64), dtype=torch.bfloat16).transpose(1, 2))
+    if "lse_shape" in bad:
+        args["lse"] = _FakeCuda(torch.zeros(bad["lse_shape"], dtype=torch.float32))
+    with pytest.raises(ValueError, match=match):
+        _flash_bwd(**args)
+
+
+@pytest.mark.parametrize("a,b,match", [
+    (torch.zeros(2, 8, dtype=torch.float64), torch.zeros(2, 8), "a: expected torch.float32"),
+    (torch.zeros(8, 2).T, torch.zeros(2, 8), "a: expected a contiguous"),
+    (torch.zeros(2, 8), torch.zeros(2, 9), "scan shapes"),
+    (torch.zeros(16), torch.zeros(16), "expected 2 dims"),
+])
+def test_scan_wrapper_refuses_what_the_kernel_does_not_take(monkeypatch, a, b, match):
+    monkeypatch.setattr(kernels, "launch", lambda *a: pytest.fail("reached the launcher"))
+    with pytest.raises(ValueError, match=match):
+        _scan_kernel(_FakeCuda(a), _FakeCuda(b))
+
+
+def test_autograd_function_hands_the_forward_residuals_to_the_backward(monkeypatch):
+    """The wiring of the torch.autograd.Function that a CUDA tensor takes,
+    with the two launchers replaced by the plain versions: the backward
+    receives the forward's out and logsumexp, and the gradients equal
+    autograd through the plain attention."""
+    seen = []
+
+    def fake_fwd(q, k, v, seg, pos, scale):
+        seen.append("fwd")
+        out = attention.reference_packed_attention(q, k, v, seg, pos, softmax_scale=scale)
+        mask = attention.segment_causal_mask(seg, pos)[:, None]
+        s = torch.einsum("rqhd,rkhd->rhqk", q, k.repeat_interleave(2, dim=2)) * scale
+        lse = torch.logsumexp(torch.where(mask, s, attention.NEG_INF), dim=-1)
+        return out, lse
+
+    def fake_bwd(q, k, v, seg, pos, out, lse, dout, scale):
+        seen.append("bwd")
+        assert out.shape == q.shape and lse.shape == (1, 4, 8) and dout.is_contiguous()
+        return attention.reference_packed_attention_bwd(
+            q, k, v, seg, pos, dout, softmax_scale=scale, out=out, lse=lse)
+
+    monkeypatch.setattr(attention, "_flash_fwd", fake_fwd)
+    monkeypatch.setattr(attention, "_flash_bwd", fake_bwd)
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn((1, 8, 4, 64), generator=g)
+    k = torch.randn((1, 8, 2, 64), generator=g)
+    v = torch.randn((1, 8, 2, 64), generator=g)
+    w = torch.randn((1, 8, 4, 64), generator=g)
+    seg = torch.tensor([[1, 1, 1, 2, 2, 2, 2, 0]], dtype=torch.int32)
+    pos = torch.tensor([[0, 1, 2, 0, 1, 2, 3, 0]], dtype=torch.int32)
+    grads = []
+    for fn in (lambda *a: attention._FlashAttention.apply(*a, 0.125),
+               lambda *a: attention.reference_packed_attention(*a, softmax_scale=0.125)):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        (fn(*leaves, seg, pos) * w).sum().backward()
+        grads.append([t.grad for t in leaves])
+    assert seen == ["fwd", "bwd"]
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
 
 
 def test_missing_nvcc_is_a_build_error(monkeypatch, tmp_path):
