@@ -2,11 +2,11 @@
 
 Each source under ``areal_tpu_torch/csrc/`` has a plain C interface. At
 first use it is compiled by ``nvcc`` for ``sm_90a`` into its own shared
-library under ``areal_tpu_torch/build/`` (named by a hash of the source,
-so an edited source is rebuilt) and loaded with ``ctypes``. All sources
-build in parallel, one ``nvcc`` each. Nothing here runs at import: the
-CPU tests import every module of the port on a machine with no
-``nvcc``.
+library under ``areal_tpu_torch/build/`` (named by a hash of the source
+and of the shared ``*.cuh`` headers beside it, so an edited source or
+header is rebuilt) and loaded with ``ctypes``. All sources build in
+parallel, one ``nvcc`` each. Nothing here runs at import: the CPU tests
+import every module of the port on a machine with no ``nvcc``.
 
 The wrappers (``ops/attention.flash_packed_attention`` and its backward,
 ``engine/paged.paged_decode_attention``, ``ops/gae.segment_scan_reverse``)
@@ -77,9 +77,9 @@ ENTRY_POINTS = {
     "paged_decode_int8": (
         "paged_decode", [P, P, P, P, P, P, P, I, P, I, I, I, I, I, I, I, F, P]),
     "flash_attn_bwd_dq_bf16": (
-        "flash_attn_bwd", [P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, P]),
+        "flash_attn_bwd", [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, P]),
     "flash_attn_bwd_dkv_bf16": (
-        "flash_attn_bwd", [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, P]),
+        "flash_attn_bwd", [P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, P]),
     "gae_scan_f32": ("gae_scan", [P, P, P, I, I, P]),
 }
 
@@ -103,8 +103,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
+    """The library's path, named by a hash of its source, of every shared
+    header under csrc/ (a source may include any of them) and of the flags."""
     src = (CSRC_DIR / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
@@ -136,27 +139,30 @@ def build_all(names: Sequence[str] = tuple(SOURCES)) -> float:
     return time.perf_counter() - t0
 
 
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library ``name``, built first if need be."""
+    with _lock:
+        if name not in _libs:
+            build_all([name])
+            _libs[name] = ctypes.CDLL(str(_lib_path(name)))
+        return _libs[name]
+
+
 def _function(entry: str):
     fn = _fns.get(entry)
-    if fn is not None:
-        return fn
-    with _lock:
-        if entry not in _fns:
-            lib_name, argtypes = ENTRY_POINTS[entry]
-            if lib_name not in _libs:
-                build_all([lib_name])
-                _libs[lib_name] = ctypes.CDLL(str(_lib_path(lib_name)))
-            fn = getattr(_libs[lib_name], entry)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            _fns[entry] = fn
-    return _fns[entry]
+    if fn is None:
+        lib_name, argtypes = ENTRY_POINTS[entry]
+        fn = getattr(library(lib_name), entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[entry] = fn
+    return fn
 
 
 def launch(entry: str, *args) -> None:
     """Call C entry point ``entry`` with ``args`` (tensors become their
-    data pointers) on the current CUDA stream, count the launch, and
-    raise on a CUDA error."""
+    data pointers, None a null pointer) on the current CUDA stream, count
+    the launch, and raise on a CUDA error."""
     fn = _function(entry)
     device = next(a.device for a in args if isinstance(a, torch.Tensor))
     c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]

@@ -21,12 +21,18 @@ q ``[R, T, Hq, hd]``, k/v ``[R, T, Hkv, hd]``, segment ids and positions
   backward is the dq and dk/dv kernels of ``csrc/flash_attn_bwd.cu``. A
   CUDA tensor launches the kernels or raises; a CPU tensor takes the plain
   version, with autograd through it.
+- ``tile_segment_ranges`` / ``live_tile_pairs``: the backward kernels'
+  segment-aware tile skip, as plain PyTorch. The first is the pre-pass the
+  kernels read, built for the tile that ``bwd_tile`` asks their library
+  for; the second is the pair predicate they apply, which the tests and a
+  counting launch of each kernel are held to.
 - ``packed_attention``: the model's entry, the same function. There are
   no splash, ring, Ulysses or sharded variants in the port.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -34,6 +40,7 @@ import torch
 from areal_tpu_torch import kernels
 
 NEG_INF = -2.0**30
+_NO_SEGMENT = torch.iinfo(torch.int32).max
 
 
 def segment_causal_mask(segment_ids: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
@@ -137,6 +144,41 @@ def reference_packed_attention_bwd(
     return dq, dk, dv
 
 
+def tile_segment_ranges(segment_ids: torch.Tensor, block: int) -> torch.Tensor:
+    """[R, ceil(T / block), 2] int32: for each tile of `block` tokens of
+    each row, the lowest and the highest positive segment id in it. A tile
+    of padding only gets the empty range (int32 max, 0)."""
+    R, T = segment_ids.shape
+    n = -(-T // block)
+    seg = torch.nn.functional.pad(segment_ids, (0, n * block - T)).reshape(R, n, block)
+    live = seg > 0
+    lo = torch.where(live, seg, _NO_SEGMENT).amin(dim=-1)
+    hi = torch.where(live, seg, 0).amax(dim=-1)
+    return torch.stack([lo, hi], dim=-1).to(torch.int32).contiguous()
+
+
+def live_tile_pairs(ranges: torch.Tensor) -> torch.Tensor:
+    """Bool [R, n, n], [r, i, j]: the backward kernels compute q tile i
+    against kv tile j. The pair must be causal (j <= i, equal q and kv
+    tiles) and the two tiles' segment ranges must meet; any other pair is
+    all mask, so skipping it adds exact zeros. For contiguous sequences
+    with ascending positions (the packer's rows) every kept pair holds a
+    live entry."""
+    lo, hi = ranges[..., 0], ranges[..., 1]
+    meet = (torch.maximum(lo[:, :, None], lo[:, None, :])
+            <= torch.minimum(hi[:, :, None], hi[:, None, :]))
+    n = ranges.shape[1]
+    causal = torch.ones((n, n), dtype=torch.bool, device=ranges.device).tril()
+    return meet & causal
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_tile() -> int:
+    """Rows per q tile and per kv tile of the backward kernels, as their
+    library reports it: the block their tile ranges must be built for."""
+    return int(kernels.library("flash_attn_bwd").flash_attn_bwd_tile())
+
+
 def _flash_bwd(q, k, v, segment_ids, positions, out, lse, dout, scale: float
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the two backward kernels: (dq, dk, dv) bf16. ``out`` and
@@ -162,7 +204,8 @@ def _flash_bwd(q, k, v, segment_ids, positions, out, lse, dout, scale: float
     if R > 65535 or Hq > 65535:
         raise ValueError(f"flash kernel grid limit: R={R}, Hq={Hq}")
     delta = _bwd_delta(out, dout)
-    args = (q, k, v, dout, segment_ids, positions, lse, delta)
+    ranges = tile_segment_ranges(segment_ids, bwd_tile())
+    args = (q, k, v, dout, segment_ids, positions, lse, delta, ranges)
     return (_launch_dq(*args, scale), *_launch_dkv(*args, scale))
 
 
@@ -172,23 +215,43 @@ def _bwd_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
     return (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
 
 
-def _launch_dq(q, k, v, dout, segment_ids, positions, lse, delta, scale: float):
-    """The dq kernel alone, on inputs `_flash_bwd` has checked."""
+def _pair_counts(ranges: torch.Tensor, T: int, heads: int) -> Optional[torch.Tensor]:
+    """Check that `ranges` is built for the kernels' tile; for a counting
+    launch (`heads` > 0), one zeroed int32 slot per CTA of a grid of
+    (tile, head, row)."""
+    R, n = ranges.shape[:2]
+    if n != -(-T // bwd_tile()):
+        raise ValueError(f"tile ranges of {n} tiles for T={T}: not built for the kernels' "
+                         f"{bwd_tile()}-row tile")
+    return ranges.new_zeros(R * n * heads) if heads else None
+
+
+def _launch_dq(q, k, v, dout, segment_ids, positions, lse, delta, ranges,
+               scale: float, count_pairs: bool = False):
+    """The dq kernel alone, on inputs `_flash_bwd` has checked and made.
+    With `count_pairs`, also the (q tile, kv tile) products each CTA ran,
+    as the kernel counted them: (dq, int32 [CTAs])."""
     R, T, Hq, hd = q.shape
     dq = torch.empty_like(q)
-    kernels.launch("flash_attn_bwd_dq_bf16", q, k, v, dout, segment_ids,
-                   positions, lse, delta, dq, R, T, Hq, k.shape[2], hd, float(scale))
-    return dq
+    pairs = _pair_counts(ranges, T, Hq if count_pairs else 0)
+    kernels.launch("flash_attn_bwd_dq_bf16", q, k, v, dout, segment_ids, positions,
+                   lse, delta, ranges, dq, pairs, R, T, Hq, k.shape[2], hd, float(scale))
+    return (dq, pairs) if count_pairs else dq
 
 
-def _launch_dkv(q, k, v, dout, segment_ids, positions, lse, delta, scale: float):
-    """The dk/dv kernel alone, on inputs `_flash_bwd` has checked."""
+def _launch_dkv(q, k, v, dout, segment_ids, positions, lse, delta, ranges,
+                scale: float, count_pairs: bool = False):
+    """The dk/dv kernel alone, on inputs `_flash_bwd` has checked and made.
+    With `count_pairs`, also the (q head, q tile, kv tile) products each
+    CTA ran, as the kernel counted them: (dk, dv, int32 [CTAs])."""
     R, T, Hq, hd = q.shape
+    Hkv = k.shape[2]
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    kernels.launch("flash_attn_bwd_dkv_bf16", q, k, v, dout, segment_ids,
-                   positions, lse, delta, dk, dv, R, T, Hq, k.shape[2], hd, float(scale))
-    return dk, dv
+    pairs = _pair_counts(ranges, T, Hkv if count_pairs else 0)
+    kernels.launch("flash_attn_bwd_dkv_bf16", q, k, v, dout, segment_ids, positions,
+                   lse, delta, ranges, dk, dv, pairs, R, T, Hq, Hkv, hd, float(scale))
+    return (dk, dv, pairs) if count_pairs else (dk, dv)
 
 
 class _FlashAttention(torch.autograd.Function):

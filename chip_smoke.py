@@ -43,6 +43,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -323,27 +324,126 @@ def random_seg_lens(rng, R, T, lo=2, hi=6, pad_max=512):
     return rows
 
 
-def parity_flash_bwd(torch, rng, dev, report):
+def short_seq_lens(rng, R, n, lo, hi):
+    """Per row, `n` sequence lengths drawn from lo..hi."""
+    return [rng.integers(lo, hi + 1, size=n).tolist() for _ in range(R)]
+
+
+def time_flash_bwd(torch, q, k, v, dout, seg, pos, seg_lens, out, lse, scale):
+    """Both backward kernels at one shape: their times and bounds, and the
+    plain backward's and SDPA's backward's times on the same inputs."""
+    from areal_tpu_torch.ops.attention import (
+        _bwd_delta, _launch_dkv, _launch_dq, bwd_tile, reference_packed_attention_bwd,
+        segment_causal_mask, tile_segment_ranges)
+
+    R, T, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    # Work of the run's inputs: causal pairs within each sequence, reads of
+    # valid tokens.
+    valid = [n for row in seg_lens for n in row]
+    pairs = sum(n * (n + 1) / 2.0 for n in valid)
+    product = 2.0 * pairs * hd * Hq  # flops of one [T, T] x hd product
+    tok = sum(valid)
+    q_bytes, kv_bytes = tok * Hq * hd * 2, tok * Hkv * hd * 2
+    stat_bytes = 2 * R * Hq * T * 4 + 2 * R * T * 4  # lse, delta, seg, pos
+    full_q, full_kv = R * T * Hq * hd * 2, R * T * Hkv * hd * 2  # outputs span T
+    dq_bound = bound(3 * product, 2 * q_bytes + 2 * kv_bytes + stat_bytes + full_q)
+    dkv_bound = bound(4 * product, 2 * q_bytes + 2 * kv_bytes + stat_bytes + 2 * full_kv)
+    whole_bound = bound(5 * product, 3 * q_bytes + 2 * kv_bytes + stat_bytes
+                        + full_q + 2 * full_kv)
+    delta = _bwd_delta(out, dout)
+    ranges = tile_segment_ranges(seg, bwd_tile())
+    args = (q, k, v, dout, seg, pos, lse, delta, ranges)
+    dq_ms = time_ms(lambda: _launch_dq(*args, scale), iters=10)
+    dkv_ms = time_ms(lambda: _launch_dkv(*args, scale), iters=10)
+    pre_ms = time_ms(lambda: (_bwd_delta(out, dout), tile_segment_ranges(seg, bwd_tile())),
+                     iters=10)
+    plain_ms = time_ms(lambda: reference_packed_attention_bwd(
+        q, k, v, seg, pos, dout, out=out, lse=lse), iters=3, warmup=1)
+    # Library yardstick: autograd through one SDPA call with the boolean
+    # mask (its forward untimed), which gives dq, dk and dv together.
+    group = Hq // Hkv
+    qt = q.transpose(1, 2).contiguous().requires_grad_(True)
+    kt = k.repeat_interleave(group, dim=2).transpose(1, 2).contiguous().requires_grad_(True)
+    vt = v.repeat_interleave(group, dim=2).transpose(1, 2).contiguous().requires_grad_(True)
+    mask = segment_causal_mask(seg, pos)[:, None]
+    o = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    do = dout.transpose(1, 2).contiguous()
+    lib_ms = time_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), do, retain_graph=True),
+                     iters=10)
+    return dict(
+        shape=f"R={R} T={T} Hq={Hq} Hkv={Hkv} hd={hd} valid={tok} seqs={len(valid)}",
+        dq_ms=dq_ms, dkv_ms=dkv_ms, pre_pass_ms=pre_ms, plain_ms=plain_ms, library_ms=lib_ms,
+        dq_bound=dq_bound, dkv_bound=dkv_bound, whole_bound=whole_bound)
+
+
+def log_flash_bwd_timing(t):
+    log(f"  flash_bwd timing {t['shape']}: dq {t['dq_ms']:.3f} ms (bound "
+        f"{t['dq_bound'][0]:.4f} ms, {t['dq_bound'][1]}), dk/dv {t['dkv_ms']:.3f} ms (bound "
+        f"{t['dkv_bound'][0]:.4f} ms, {t['dkv_bound'][1]}), pre-pass (delta, tile ranges) "
+        f"{t['pre_pass_ms']:.3f} ms; whole backward bound {t['whole_bound'][0]:.4f} ms "
+        f"({t['whole_bound'][1]}); plain {t['plain_ms']:.1f} ms, sdpa backward "
+        f"{t['library_ms']:.3f} ms")
+
+
+def count_tile_pairs(torch, name, q, k, v, dout, seg, pos, out, lse, scale, got):
+    """A counting launch of each backward kernel: the (q head, q tile, kv
+    tile) products its CTAs ran, as the kernel counted them, which must
+    equal the plain skip predicate's count; the counting launch's outputs
+    must be bit-equal to the plain launch's `got`. Returns the two counts
+    and whether both checks held."""
+    from areal_tpu_torch.ops.attention import (
+        _bwd_delta, _launch_dkv, _launch_dq, bwd_tile, live_tile_pairs, tile_segment_ranges)
+
+    Hq = q.shape[2]
+    ranges = tile_segment_ranges(seg, bwd_tile())
+    args = (q, k, v, dout, seg, pos, lse, _bwd_delta(out, dout), ranges, scale)
+    dq, dq_pairs = _launch_dq(*args, count_pairs=True)
+    dk, dv, dkv_pairs = _launch_dkv(*args, count_pairs=True)
+    counted = {"dq": int(dq_pairs.sum().item()), "dkv": int(dkv_pairs.sum().item())}
+    predicate = int(live_tile_pairs(ranges).sum().item()) * Hq
+    R, n = ranges.shape[:2]
+    causal_only = R * n * (n + 1) // 2 * Hq
+    ok = (counted["dq"] == predicate == counted["dkv"]
+          and all(torch.equal(a, b) for a, b in zip((dq, dk, dv), got)))
+    log(f"  flash_bwd {name} tile pairs (q head, q tile, kv tile): counted by the kernels "
+        f"dq {counted['dq']}, dk/dv {counted['dkv']}; the skip predicate (live_tile_pairs, "
+        f"from the inputs) {predicate}; causal only (from the shape) {causal_only}, so "
+        f"{counted['dq'] / causal_only:.3f} of it computed; counting launch bit-equal: "
+        f"{ok}")
+    return counted, ok
+
+
+def parity_flash_bwd(torch, rng, dev, report, case_rng):
     """Both backward kernels against the plain backward on the same
     inputs: q, k, v, dout and the forward kernel's out and logsumexp (which
-    parity_flash holds against the plain forward)."""
+    parity_flash holds against the plain forward). The short-sequence and
+    one-sequence cases draw from `case_rng`, so the draws of `rng`, and the
+    later phases' batches, are those of a run without them."""
     from areal_tpu_torch.ops.attention import (
-        _bwd_delta, _flash_bwd, _flash_fwd, _launch_dkv, _launch_dq,
-        reference_packed_attention_bwd, segment_causal_mask)
+        _flash_bwd, _flash_fwd, reference_packed_attention_bwd)
 
     cases = [
-        ("ragged_T1000", 2, 1000, 12, 2, 128, [[300, 220, 417], [999]]),
-        ("hd64", 2, 333, 8, 2, 64, [[100, 200], [5, 300, 27]]),
-        ("all_padding_row", 2, 200, 12, 2, 128, [[64, 100], []]),
+        ("ragged_T1000", rng, 2, 1000, 12, 2, 128, [[300, 220, 417], [999]]),
+        ("hd64", rng, 2, 333, 8, 2, 64, [[100, 200], [5, 300, 27]]),
+        ("all_padding_row", rng, 2, 200, 12, 2, 128, [[64, 100], []]),
+        # 32 sequences of 64-200 tokens a row (ragged T): most tile pairs
+        # under the diagonal are skipped
+        ("short_seqs_R2_T6500", case_rng, 2, 6500, 12, 2, 128,
+         short_seq_lens(case_rng, 2, 32, 64, 200)),
+        # one sequence a row: the causal-only worst case, nothing skipped
+        ("one_seq_R4_T4096", case_rng, 4, 4096, 12, 2, 128, [[4096]] * 4),
         # the training shape: rows of 4096 tokens, 2-6 sequences and a
         # padding tail each
-        ("train_R4_T4096", 4, 4096, 12, 2, 128, random_seg_lens(rng, 4, 4096)),
+        ("train_R4_T4096", rng, 4, 4096, 12, 2, 128, random_seg_lens(rng, 4, 4096)),
     ]
+    timed = ("one_seq_R4_T4096", "train_R4_T4096")
     errs = {"dq": [], "dk": [], "dv": []}
     failed = []
-    for name, R, T, Hq, Hkv, hd, seg_lens in cases:
-        q, k, v, seg, pos = flash_case(torch, rng, dev, R, T, Hq, Hkv, hd, seg_lens)
-        dout = torch.from_numpy(rng.standard_normal((R, T, Hq, hd), np.float32)).to(
+    timings, pairs = {}, {}
+    for name, gen, R, T, Hq, Hkv, hd, seg_lens in cases:
+        q, k, v, seg, pos = flash_case(torch, gen, dev, R, T, Hq, Hkv, hd, seg_lens)
+        dout = torch.from_numpy(gen.standard_normal((R, T, Hq, hd), np.float32)).to(
             dev, torch.bfloat16)
         scale = hd ** -0.5
         out, lse = _flash_fwd(q, k, v, seg, pos, scale)
@@ -364,58 +464,43 @@ def parity_flash_bwd(torch, rng, dev, report):
             errs[tname].append(err)
         log(f"  flash_bwd {name}: " + "; ".join(parts)
             + f" (limits: {GRAD_TOL} of max|ref|, row {RTOL}; two runs bit-equal)")
+        pairs[name], pairs_ok = count_tile_pairs(torch, name, q, k, v, dout, seg, pos, out,
+                                                 lse, scale, got)
+        if not pairs_ok:
+            failed.append(f"{name} tile pairs")
+        del got, again, ref
+        if name in timed:
+            timings[name] = time_flash_bwd(torch, q, k, v, dout, seg, pos, seg_lens,
+                                           out, lse, scale)
+            log_flash_bwd_timing(timings[name])
+        torch.cuda.empty_cache()
     if failed:
-        raise AssertionError(f"flash backward disagrees with its plain version or between "
-                             f"two runs: {failed}")
-    # Timing at the training shape (the last case). Work of the run's
-    # inputs: causal pairs within each sequence, reads of valid tokens.
-    valid = [n for row in seg_lens for n in row]
-    pairs = sum(n * (n + 1) / 2.0 for n in valid)
-    product = 2.0 * pairs * hd * Hq  # flops of one [T, T] x hd product
-    tok = sum(valid)
-    q_bytes, kv_bytes = tok * Hq * hd * 2, tok * Hkv * hd * 2
-    stat_bytes = 2 * R * Hq * T * 4 + 2 * R * T * 4  # lse, delta, seg, pos
-    full_q, full_kv = R * T * Hq * hd * 2, R * T * Hkv * hd * 2  # outputs span T
-    dq_bound = bound(3 * product, 2 * q_bytes + 2 * kv_bytes + stat_bytes + full_q)
-    dkv_bound = bound(4 * product, 2 * q_bytes + 2 * kv_bytes + stat_bytes + 2 * full_kv)
-    whole_bound = bound(5 * product, 3 * q_bytes + 2 * kv_bytes + stat_bytes
-                        + full_q + 2 * full_kv)
-    delta = _bwd_delta(out, dout)
-    args = (q, k, v, dout, seg, pos, lse, delta)
-    dq_ms = time_ms(lambda: _launch_dq(*args, scale), iters=10)
-    dkv_ms = time_ms(lambda: _launch_dkv(*args, scale), iters=10)
-    delta_ms = time_ms(lambda: _bwd_delta(out, dout), iters=10)
-    plain_ms = time_ms(lambda: reference_packed_attention_bwd(
-        q, k, v, seg, pos, dout, out=out, lse=lse), iters=3, warmup=1)
-    # Library yardstick: autograd through one SDPA call with the boolean
-    # mask (its forward untimed), which gives dq, dk and dv together.
-    group = Hq // Hkv
-    qt = q.transpose(1, 2).contiguous().requires_grad_(True)
-    kt = k.repeat_interleave(group, dim=2).transpose(1, 2).contiguous().requires_grad_(True)
-    vt = v.repeat_interleave(group, dim=2).transpose(1, 2).contiguous().requires_grad_(True)
-    mask = segment_causal_mask(seg, pos)[:, None]
-    o = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
-    do = dout.transpose(1, 2).contiguous()
-    lib_ms = time_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), do, retain_graph=True),
-                     iters=10)
-    shape = f"R={R} T={T} Hq={Hq} Hkv={Hkv} hd={hd} valid={tok} seqs={len(valid)}"
-    for kname, replaces, ms, (b_ms, b_by), err in (
-            ("flash_attn_bwd_dq_bf16", "areal_tpu/ops/pallas/flash_attn.py:265", dq_ms,
-             dq_bound, max(errs["dq"])),
-            ("flash_attn_bwd_dkv_bf16", "areal_tpu/ops/pallas/flash_attn.py:295", dkv_ms,
-             dkv_bound, max(errs["dk"] + errs["dv"]))):
+        raise AssertionError(f"flash backward disagrees with its plain version, between two "
+                             f"runs or with the skip predicate: {failed}")
+    # The kernels line carries the training shape, the main path's.
+    t = timings["train_R4_T4096"]
+    counted = pairs["train_R4_T4096"]
+    for kname, replaces, ms, (b_ms, b_by), err, n_pairs in (
+            ("flash_attn_bwd_dq_bf16", "areal_tpu/ops/pallas/flash_attn.py:265", t["dq_ms"],
+             t["dq_bound"], max(errs["dq"]), counted["dq"]),
+            ("flash_attn_bwd_dkv_bf16", "areal_tpu/ops/pallas/flash_attn.py:295", t["dkv_ms"],
+             t["dkv_bound"], max(errs["dk"] + errs["dv"]), counted["dkv"])):
         report[kname] = dict(
             name=kname, route="cuda", source="areal_tpu_torch/csrc/flash_attn_bwd.cu",
-            replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, library_ms=lib_ms, shape=shape,
+            replaces=replaces, max_abs_err=err, ms=ms, plain_ms=t["plain_ms"], bound_ms=b_ms,
+            bound_by=b_by, library_ms=t["library_ms"], shape=t["shape"],
+            tile_pairs_counted=n_pairs,
             note="plain_ms and library_ms time dq, dk and dv together")
     report["flash_attn_bwd_dq_bf16"]["whole_backward"] = dict(
-        ms=dq_ms + dkv_ms + delta_ms, delta_ms=delta_ms, bound_ms=whole_bound[0],
-        bound_by=whole_bound[1])
-    log(f"  flash_bwd timing {shape}: dq {dq_ms:.3f} ms (bound {dq_bound[0]:.4f} ms, "
-        f"{dq_bound[1]}), dk/dv {dkv_ms:.3f} ms (bound {dkv_bound[0]:.4f} ms, {dkv_bound[1]}), "
-        f"delta pre-pass {delta_ms:.3f} ms; whole backward bound {whole_bound[0]:.4f} ms "
-        f"({whole_bound[1]}); plain {plain_ms:.1f} ms, sdpa backward {lib_ms:.3f} ms")
+        ms=t["dq_ms"] + t["dkv_ms"] + t["pre_pass_ms"], pre_pass_ms=t["pre_pass_ms"],
+        bound_ms=t["whole_bound"][0], bound_by=t["whole_bound"][1])
+    one = timings["one_seq_R4_T4096"]
+    report["flash_attn_bwd_dq_bf16"]["one_sequence"] = dict(
+        shape=one["shape"], ms=one["dq_ms"], bound_ms=one["dq_bound"][0],
+        library_ms=one["library_ms"], plain_ms=one["plain_ms"])
+    report["flash_attn_bwd_dkv_bf16"]["one_sequence"] = dict(
+        shape=one["shape"], ms=one["dkv_ms"], bound_ms=one["dkv_bound"][0],
+        library_ms=one["library_ms"], plain_ms=one["plain_ms"])
 
 
 def parity_gae(torch, rng, dev, report):
@@ -906,8 +991,9 @@ def train_phase(torch, rng, dev, cfg, seed, sizes=TRAIN_SIZES):
     mb_spec = MicroBatchSpec(max_tokens_per_mb=sizes["max_tokens_per_mb"])
     sample = rollout_sample(rng, sizes, cfg.vocab_size)
     n_tok = sample.total_seqlen()
-    # Rows each minibatch packs into: the attention kernels' cost follows
-    # the rows (they skip no tile inside a row), not the tokens.
+    # Rows each minibatch packs into: the flash forward's cost follows the
+    # rows (it skips no tile under the diagonal), the backward's the tiles
+    # that each sequence covers.
     mb_rows = [engine._build_rows(mb)[0].n_rows for mb in
                sample.split(MicroBatchSpec(n_mbs=sizes["n_minibatches"]))[0]]
     probe = engine.params["layers"]["attn"]["wq"]
@@ -1024,6 +1110,17 @@ def train_phase(torch, rng, dev, cfg, seed, sizes=TRAIN_SIZES):
     return out
 
 
+def kernel_entry_name(mangled: str) -> str:
+    """A kernel's name and integer / bool template arguments read off its
+    mangled name (flash_bwd_dkv_kernel<128, false>), else the mangled name."""
+    m = re.search(r"\d([A-Za-z][A-Za-z_]*_kernel)I((?:L[ib]\d+E)+)E", mangled)
+    if not m:
+        return mangled
+    args = [(("false", "true")[int(v)] if t == "b" else v)
+            for t, v in re.findall(r"L([ib])(\d+)E", m.group(2))]
+    return f"{m.group(1)}<{', '.join(args)}>"
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1064,7 +1161,10 @@ def main() -> int:
     secs = kernels.build_all()
     for name, text in kernels.build_logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            entry = re.search(r"Compiling entry function '(\S+)'", line)
+            if entry:
+                log(f"  [{name}] entry {kernel_entry_name(entry.group(1))}")
+            elif "registers" in line or "spill" in line or "error" in line:
                 log(f"  [{name}] {line.strip()}")
     log(f"  built {len(kernels.SOURCES)} kernel libraries in {secs:.1f} s")
     report["phases"]["build"] = {"seconds": secs}
@@ -1075,7 +1175,8 @@ def main() -> int:
         parity_flash(torch, rng, dev, kernel_rows)
         parity_paged(torch, rng, dev, kernel_rows, int8=False)
         parity_paged(torch, rng, dev, kernel_rows, int8=True)
-        parity_flash_bwd(torch, rng, dev, kernel_rows)
+        parity_flash_bwd(torch, rng, dev, kernel_rows,
+                         np.random.default_rng([args.seed, 1]))
         parity_gae(torch, rng, dev, kernel_rows)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()

@@ -9,10 +9,16 @@ chip_smoke.py holds each against its plain version.
   tensors to the plain version before they reach it), a wrong dtype, a
   non-contiguous tensor and a head_dim outside {64, 128}, all before
   ``nvcc`` is touched;
+- the backward hands both kernels the tile ranges of its segment ids,
+  built for the tile the library reports, in the order and number of the
+  C parameters; a counting launch hands each kernel one zeroed slot per
+  CTA; ranges built for another tile are refused;
+- a library's path follows its source and the shared headers beside it;
 - with no nvcc, the first launch fails with a build error.
 """
 
 import re
+import shutil
 
 import pytest
 import torch
@@ -61,6 +67,24 @@ def test_library_path_tracks_the_source():
     paths = {kernels._lib_path(n) for n in kernels.SOURCES}
     assert len(paths) == len(kernels.SOURCES)
     assert all(p.parent == kernels.BUILD_DIR for p in paths)
+
+
+def test_library_path_tracks_the_shared_headers(monkeypatch, tmp_path):
+    """Editing a header under csrc/ renames every library (a source may
+    include it), so a stale build is never loaded."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(kernels.CSRC_DIR, csrc)
+    assert "mma_tiles.cuh" in {p.name for p in csrc.glob("*.cuh")}
+    assert '#include "mma_tiles.cuh"' in (csrc / "flash_attn_bwd.cu").read_text()
+    monkeypatch.setattr(kernels, "CSRC_DIR", csrc)
+    before = {n: kernels._lib_path(n) for n in kernels.SOURCES}
+    with open(csrc / "mma_tiles.cuh", "a") as f:
+        f.write("// edited\n")
+    after = {n: kernels._lib_path(n) for n in kernels.SOURCES}
+    assert all(before[n] != after[n] for n in kernels.SOURCES)
+    (csrc / "flash_attn_bwd.cu").write_text((csrc / "flash_attn_bwd.cu").read_text() + "\n")
+    assert kernels._lib_path("flash_attn_bwd") != after["flash_attn_bwd"]
+    assert kernels._lib_path("gae_scan") == after["gae_scan"]
 
 
 def test_reset_launches():
@@ -138,6 +162,86 @@ def test_backward_wrapper_refuses_what_the_kernels_do_not_take(monkeypatch, bad,
         args["lse"] = _FakeCuda(torch.zeros(bad["lse_shape"], dtype=torch.float32))
     with pytest.raises(ValueError, match=match):
         _flash_bwd(**args)
+
+
+def test_backward_hands_both_kernels_the_tile_ranges(monkeypatch):
+    """The launch arguments of the two backward kernels, recorded in place
+    of the launcher: tensors then ints then the scale, as many as the C
+    parameters less the stream, with the tile ranges of the segment ids
+    after delta, built for the tile the library reports (4 rows here), and
+    a null tile-pair counter last among the pointers."""
+    calls = []
+    monkeypatch.setattr(kernels, "launch", lambda entry, *a: calls.append((entry, a)))
+    monkeypatch.setattr(attention, "bwd_tile", lambda: 4)
+    args = _bwd_args(hd=64)
+    seg = torch.tensor([[1, 1, 1, 2, 2, 2, 0, 0]], dtype=torch.int32)
+    args["segment_ids"] = _FakeCuda(seg)
+    _flash_bwd(**args)
+    assert [c[0] for c in calls] == ["flash_attn_bwd_dq_bf16", "flash_attn_bwd_dkv_bf16"]
+    for entry, a in calls:
+        argtypes = kernels.ENTRY_POINTS[entry][1]
+        assert len(a) + 1 == len(argtypes)  # + the stream
+        n_ptr = argtypes.index(kernels.I)
+        assert all(isinstance(x, torch.Tensor) for x in a[:n_ptr - 1])
+        assert a[n_ptr - 1] is None
+        assert a[n_ptr:] == (1, 8, 4, 2, 64, 0.125)
+        ranges = a[8]
+        assert ranges.dtype == torch.int32 and ranges.is_contiguous()
+        assert torch.equal(ranges, attention.tile_segment_ranges(seg, 4))
+        assert ranges.tolist() == [[[1, 2], [2, 2]]]
+
+
+def _launch_inputs(tile):
+    a = _bwd_args(hd=64)
+    ranges = _FakeCuda(attention.tile_segment_ranges(torch.zeros((1, 8), dtype=torch.int32),
+                                                     tile))
+    delta = _FakeCuda(torch.zeros((1, 4, 8)))
+    return (a["q"], a["k"], a["v"], a["dout"], a["segment_ids"], a["positions"], a["lse"],
+            delta, ranges, 0.125)
+
+
+def test_counting_launches_hand_each_kernel_one_zeroed_slot_per_cta(monkeypatch):
+    """With count_pairs, each launcher passes an int32 counter of one slot
+    per CTA of its grid (tiles x heads x rows: q heads for dq, kv heads for
+    dk/dv) in the counter's place, and returns it."""
+    calls = []
+    monkeypatch.setattr(kernels, "launch", lambda entry, *a: calls.append((entry, a)))
+    monkeypatch.setattr(attention, "bwd_tile", lambda: 4)
+    _, dq_pairs = attention._launch_dq(*_launch_inputs(4), count_pairs=True)
+    *_, dkv_pairs = attention._launch_dkv(*_launch_inputs(4), count_pairs=True)
+    for (entry, a), pairs, heads in zip(calls, (dq_pairs, dkv_pairs), (4, 2)):
+        slot = kernels.ENTRY_POINTS[entry][1].index(kernels.I) - 1
+        assert a[slot] is pairs
+        assert pairs.dtype == torch.int32 and pairs.shape == (2 * heads,)
+        assert not pairs.any()
+    dq = attention._launch_dq(*_launch_inputs(4))
+    assert calls[2][1][9] is dq and calls[2][1][10] is None
+
+
+def test_launchers_refuse_ranges_built_for_another_tile(monkeypatch):
+    """The kernels take their tile count from the grid; ranges of another
+    block never reach them."""
+    monkeypatch.setattr(kernels, "launch", lambda *a: pytest.fail("reached the launcher"))
+    monkeypatch.setattr(attention, "bwd_tile", lambda: 4)
+    for launcher in (attention._launch_dq, attention._launch_dkv):
+        with pytest.raises(ValueError, match="not built for the kernels' 4-row tile"):
+            launcher(*_launch_inputs(8))
+
+
+def test_bwd_tile_is_what_the_library_reports(monkeypatch):
+    class _Lib:
+        @staticmethod
+        def flash_attn_bwd_tile():
+            return 64
+
+    asked = []
+    monkeypatch.setattr(kernels, "library", lambda name: asked.append(name) or _Lib)
+    attention.bwd_tile.cache_clear()
+    try:
+        assert attention.bwd_tile() == 64 and attention.bwd_tile() == 64
+        assert asked == ["flash_attn_bwd"]  # asked once
+    finally:
+        attention.bwd_tile.cache_clear()
 
 
 @pytest.mark.parametrize("a,b,match", [
