@@ -14,12 +14,17 @@
 - Decode attention (``paged_decode_attention``) launches the
   hand-written CUDA kernels of ``csrc/paged_decode.cu`` for CUDA tensors
   (bf16 pool or int8 pool, by the pool's type) and runs the plain
-  version ``_paged_attention_xla`` for CPU tensors.
+  version ``_paged_attention_xla`` for CPU tensors. The kernel has a
+  split-K decode mode (one page row per sequence; ``split_plan`` picks
+  the splits) and a row-tiled chunk mode (rows sharing one page row);
+  ``_paged_attention_split`` is a plain model of the decode mode's
+  arithmetic, for the tests.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+import functools
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -131,10 +136,29 @@ def _paged_attention_xla(q, k_pages, v_pages, lengths, page_indices, scale):
     return out.reshape(B, Hq, hd).to(q.dtype)
 
 
+def split_plan(B: int, Hkv: int, P: int, n_sm: int) -> Tuple[int, int]:
+    """(splits, pages a split) of a decode-mode launch over page rows of
+    P pages: about four (kv head, sequence, split) CTAs an SM (three fit
+    at once; the fourth evens out the ragged lengths), each split a whole
+    number of pages and split s owning pages [s * per, (s + 1) * per) of
+    [0, P), none empty by shape. It reads the shapes and the card only,
+    never the lengths, so the decode block never waits on the device."""
+    want = max(1, min(P, -(-4 * n_sm // max(1, B * Hkv))))
+    per = -(-P // want)
+    return -(-P // per), per
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
 def _paged_decode_kernel(q, k_pages, v_pages, lengths, page_indices, scale):
     """Launch the bf16- or int8-pool CUDA kernel by the pool's type.
     ``page_indices`` may be one page row expanded over B (row stride 0,
-    the chunked-prefill case)."""
+    the chunked-prefill case: the kernel's chunk mode); otherwise the
+    decode mode runs with the splits of ``split_plan`` and scratch for
+    their partials."""
     B, Hq, hd = q.shape
     quantized = isinstance(k_pages, tuple)
     Hkv, N, pg, _ = kv_pool_data(k_pages).shape
@@ -152,6 +176,12 @@ def _paged_decode_kernel(q, k_pages, v_pages, lengths, page_indices, scale):
     if lengths.shape != (B,) or page_indices.shape[0] != B or B > 65535:
         raise ValueError("lengths must be [B] and page_indices [B, P], B <= 65535")
     out = torch.empty_like(q)
+    stride = page_indices.stride(0)
+    splits, per = 1, P
+    if stride:
+        splits, per = split_plan(B, Hkv, P, _sm_count(q.device.index or 0))
+    partials = (q.new_empty(B * Hq * splits * (hd + 2), dtype=torch.float32)
+                if splits > 1 else None)
     if quantized:
         for name, (d, s) in (("k_pages", k_pages), ("v_pages", v_pages)):
             kernels.check_cuda_tensor(name, d, torch.int8, 4)
@@ -160,8 +190,8 @@ def _paged_decode_kernel(q, k_pages, v_pages, lengths, page_indices, scale):
                 raise ValueError(f"{name}: mismatched pool shapes")
         kernels.launch(
             "paged_decode_int8", q, k_pages[0], k_pages[1], v_pages[0],
-            v_pages[1], lengths, page_indices, page_indices.stride(0), out,
-            B, Hq, Hkv, N, pg, hd, P, float(scale))
+            v_pages[1], lengths, page_indices, stride, out, partials,
+            B, Hq, Hkv, N, pg, hd, P, splits, per, float(scale))
     else:
         for name, pool in (("k_pages", k_pages), ("v_pages", v_pages)):
             kernels.check_cuda_tensor(name, pool, torch.bfloat16, 4)
@@ -169,8 +199,54 @@ def _paged_decode_kernel(q, k_pages, v_pages, lengths, page_indices, scale):
                 raise ValueError(f"{name}: mismatched pool shapes")
         kernels.launch(
             "paged_decode_bf16", q, k_pages, v_pages, lengths, page_indices,
-            page_indices.stride(0), out, B, Hq, Hkv, N, pg, hd, P, float(scale))
+            stride, out, partials, B, Hq, Hkv, N, pg, hd, P, splits, per, float(scale))
     return out
+
+
+def _paged_attention_split(q, k_pages, v_pages, lengths, page_indices, scale,
+                           splits: int, per: int):
+    """A plain model of the decode mode's arithmetic, for the tests: each
+    split of ``per`` pages yields f32 partials (m, l, acc) over its tokens
+    below the length (an empty split gives l = 0), and the splits merge in
+    split order, skipping empty ones. Same inputs and result as
+    ``_paged_attention_xla``."""
+    B, Hq, hd = q.shape
+    Hkv, _, pg, _ = kv_pool_data(k_pages).shape
+    group = Hq // Hkv
+    idx = page_indices.long()
+
+    def gather(pool, pages):
+        if isinstance(pool, tuple):
+            d, s = pool
+            g = dequantize_kv(d[:, pages], s[:, pages][..., None], torch.float32)
+        else:
+            g = pool[:, pages].float()  # [Hkv, B, n, pg, hd]
+        return g.permute(1, 2, 3, 0, 4).reshape(B, -1, Hkv, hd)
+
+    qg = q.reshape(B, Hkv, group, hd).float()
+    ms, ls, accs = [], [], []
+    for sp in range(splits):
+        pages = idx[:, sp * per:(sp + 1) * per]
+        k, v = gather(k_pages, pages), gather(v_pages, pages)
+        tok = sp * per * pg + torch.arange(k.shape[1], device=q.device)
+        mask = (tok[None, :] < lengths[:, None])[:, None, None, :]
+        s = torch.einsum("bhgd,bshd->bhgs", qg, k) * scale
+        s = torch.where(mask, s, float("-inf"))
+        m = s.amax(dim=-1).clamp(min=NEG_INF)
+        p = torch.exp(s - m[..., None])
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bhgs,bshd->bhgd", p, v))
+    live = [l_ > 0 for l_ in ls]
+    m_all = torch.stack([torch.where(a, m, NEG_INF) for a, m in zip(live, ms)]).amax(dim=0)
+    l_sum = torch.zeros_like(m_all)
+    o_sum = torch.zeros_like(accs[0])
+    for a, m, l_, acc in zip(live, ms, ls, accs):
+        c = torch.where(a, torch.exp(m - m_all), 0.0)
+        l_sum = l_sum + l_ * c
+        o_sum = o_sum + acc * c[..., None]
+    out = torch.where((l_sum > 0)[..., None], o_sum / l_sum.clamp(min=1e-30)[..., None], 0.0)
+    return out.reshape(B, Hq, hd).to(q.dtype)
 
 
 def paged_decode_attention(
@@ -278,7 +354,8 @@ def _chunk_prefill_body(params, cfg: TransformerConfig, tokens, k_pages,
 
     The reference splits the chunk into sub-chunks to bound the TPU
     kernel's SMEM page-index operand; the CUDA kernel reads one page row
-    through a zero row stride, so the whole chunk runs as one step."""
+    through a zero row stride (its chunk mode: each K/V tile of the row is
+    loaded once for 64 rows), so the whole chunk runs as one step."""
     C = tokens.shape[0]
     rows = torch.arange(C, dtype=torch.int32, device=tokens.device)
     lengths = start + rows

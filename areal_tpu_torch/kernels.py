@@ -12,8 +12,10 @@ The wrappers (``ops/attention.flash_packed_attention`` and its backward,
 ``engine/paged.paged_decode_attention``, ``ops/gae.segment_scan_reverse``)
 pass tensor pointers and the
 current CUDA stream, raise if the C entry point returns a CUDA error,
-and add one to ``launches[name]`` per kernel launch, so a run can show
-that its main path went through each kernel.
+and add one to ``launches[name]`` per call of the entry point (one call
+may run more than one CUDA kernel: the split-K paged decode runs its
+splits, then a combine), so a run can show that its main path went
+through each kernel.
 """
 
 from __future__ import annotations
@@ -71,11 +73,11 @@ F = ctypes.c_float
 # C entry point -> (library, argtypes); every entry returns a cudaError_t.
 ENTRY_POINTS = {
     "flash_attn_fwd_bf16": (
-        "flash_attn", [P, P, P, P, P, P, P, I, I, I, I, I, F, P]),
+        "flash_attn", [P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, P]),
     "paged_decode_bf16": (
-        "paged_decode", [P, P, P, P, P, I, P, I, I, I, I, I, I, I, F, P]),
+        "paged_decode", [P, P, P, P, P, I, P, P, I, I, I, I, I, I, I, I, I, F, P]),
     "paged_decode_int8": (
-        "paged_decode", [P, P, P, P, P, P, P, I, P, I, I, I, I, I, I, I, F, P]),
+        "paged_decode", [P, P, P, P, P, P, P, I, P, P, I, I, I, I, I, I, I, I, I, F, P]),
     "flash_attn_bwd_dq_bf16": (
         "flash_attn_bwd", [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, P]),
     "flash_attn_bwd_dkv_bf16": (

@@ -17,15 +17,16 @@ q ``[R, T, Hq, hd]``, k/v ``[R, T, Hkv, hd]``, segment ids and positions
   to the input dtype before the products). The kernels are held against it.
 - ``flash_packed_attention``: the wrapper of the hand-written CUDA kernels,
   a ``torch.autograd.Function`` whose forward is ``csrc/flash_attn.cu``
-  (online softmax, causal tile skip, saves the f32 logsumexp) and whose
-  backward is the dq and dk/dv kernels of ``csrc/flash_attn_bwd.cu``. A
-  CUDA tensor launches the kernels or raises; a CPU tensor takes the plain
-  version, with autograd through it.
-- ``tile_segment_ranges`` / ``live_tile_pairs``: the backward kernels'
+  (tensor-core tiles, online softmax, segment-aware tile skip, saves the
+  f32 logsumexp) and whose backward is the dq and dk/dv kernels of
+  ``csrc/flash_attn_bwd.cu``. A CUDA tensor launches the kernels or
+  raises; a CPU tensor takes the plain version, with autograd through it.
+- ``tile_segment_ranges`` / ``live_tile_pairs``: the kernels'
   segment-aware tile skip, as plain PyTorch. The first is the pre-pass the
-  kernels read, built for the tile that ``bwd_tile`` asks their library
-  for; the second is the pair predicate they apply, which the tests and a
-  counting launch of each kernel are held to.
+  kernels read, built once per call for the tile that both libraries
+  report (``shared_tile_ranges``) and saved by the forward for the
+  backward; the second is the pair predicate they apply, which the tests
+  and a counting launch of each kernel are held to.
 - ``packed_attention``: the model's entry, the same function. There are
   no splash, ring, Ulysses or sharded variants in the port.
 """
@@ -72,10 +73,13 @@ def reference_packed_attention(
     return out.reshape(R, T, Hq, hd).to(q.dtype)
 
 
-def _flash_fwd(q, k, v, segment_ids, positions, scale: float
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _flash_fwd(q, k, v, segment_ids, positions, scale: float,
+               ranges: Optional[torch.Tensor] = None, count_pairs: bool = False):
     """Launch the CUDA kernel: (out [R, T, Hq, hd] bf16, lse [R, Hq, T]
-    f32). Raises on anything the kernel does not take."""
+    f32), and with `count_pairs` also the (q tile, kv tile) steps each CTA
+    ran, as the kernel counted them (int32 [CTAs]). ``ranges`` are the
+    tile segment ranges (built here for the library's tile when not
+    given). Raises on anything the kernel does not take."""
     R, T, Hq, hd = q.shape
     Hkv = k.shape[2]
     kernels.check_cuda_tensor("q", q, torch.bfloat16, 4)
@@ -93,11 +97,14 @@ def _flash_fwd(q, k, v, segment_ids, positions, scale: float
         raise ValueError("segment_ids / positions must be [R, T]")
     if R > 65535 or Hq > 65535:
         raise ValueError(f"flash kernel grid limit: R={R}, Hq={Hq}")
+    if ranges is None:
+        ranges = tile_segment_ranges(segment_ids, fwd_tile())
+    pairs = _pair_counts(ranges, T, Hq if count_pairs else 0, fwd_tile())
     out = torch.empty_like(q)
-    lse = torch.empty((R, Hq, T), dtype=torch.float32, device=q.device)
-    kernels.launch("flash_attn_fwd_bf16", q, k, v, segment_ids, positions,
-                   out, lse, R, T, Hq, Hkv, hd, float(scale))
-    return out, lse
+    lse = q.new_empty((R, Hq, T), dtype=torch.float32)
+    kernels.launch("flash_attn_fwd_bf16", q, k, v, segment_ids, positions, ranges,
+                   out, lse, pairs, R, T, Hq, Hkv, hd, float(scale))
+    return (out, lse, pairs) if count_pairs else (out, lse)
 
 
 def reference_packed_attention_bwd(
@@ -158,9 +165,9 @@ def tile_segment_ranges(segment_ids: torch.Tensor, block: int) -> torch.Tensor:
 
 
 def live_tile_pairs(ranges: torch.Tensor) -> torch.Tensor:
-    """Bool [R, n, n], [r, i, j]: the backward kernels compute q tile i
-    against kv tile j. The pair must be causal (j <= i, equal q and kv
-    tiles) and the two tiles' segment ranges must meet; any other pair is
+    """Bool [R, n, n], [r, i, j]: the forward and backward kernels compute
+    q tile i against kv tile j. The pair must be causal (j <= i, equal q
+    and kv tiles) and the two tiles' segment ranges must meet; any other pair is
     all mask, so skipping it adds exact zeros. For contiguous sequences
     with ascending positions (the packer's rows) every kept pair holds a
     live entry."""
@@ -179,10 +186,27 @@ def bwd_tile() -> int:
     return int(kernels.library("flash_attn_bwd").flash_attn_bwd_tile())
 
 
-def _flash_bwd(q, k, v, segment_ids, positions, out, lse, dout, scale: float
+@functools.lru_cache(maxsize=None)
+def fwd_tile() -> int:
+    """The same for the forward kernel, as its library reports it."""
+    return int(kernels.library("flash_attn").flash_attn_fwd_tile())
+
+
+def shared_tile_ranges(segment_ids: torch.Tensor) -> torch.Tensor:
+    """The tile ranges one forward and its backward share, built once for
+    the tile both libraries report; they must report the same one."""
+    if fwd_tile() != bwd_tile():
+        raise RuntimeError(f"forward tile {fwd_tile()} != backward tile {bwd_tile()}: "
+                           "one range tensor cannot serve both")
+    return tile_segment_ranges(segment_ids, fwd_tile())
+
+
+def _flash_bwd(q, k, v, segment_ids, positions, out, lse, dout, scale: float,
+               ranges: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the two backward kernels: (dq, dk, dv) bf16. ``out`` and
-    ``lse`` are the forward kernel's. Raises on anything the kernels do
+    ``lse`` are the forward kernel's, ``ranges`` the tile ranges it ran
+    with (built here when not given). Raises on anything the kernels do
     not take."""
     R, T, Hq, hd = q.shape
     Hkv = k.shape[2]
@@ -204,7 +228,8 @@ def _flash_bwd(q, k, v, segment_ids, positions, out, lse, dout, scale: float
     if R > 65535 or Hq > 65535:
         raise ValueError(f"flash kernel grid limit: R={R}, Hq={Hq}")
     delta = _bwd_delta(out, dout)
-    ranges = tile_segment_ranges(segment_ids, bwd_tile())
+    if ranges is None:
+        ranges = tile_segment_ranges(segment_ids, bwd_tile())
     args = (q, k, v, dout, segment_ids, positions, lse, delta, ranges)
     return (_launch_dq(*args, scale), *_launch_dkv(*args, scale))
 
@@ -215,14 +240,15 @@ def _bwd_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
     return (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
 
 
-def _pair_counts(ranges: torch.Tensor, T: int, heads: int) -> Optional[torch.Tensor]:
-    """Check that `ranges` is built for the kernels' tile; for a counting
-    launch (`heads` > 0), one zeroed int32 slot per CTA of a grid of
-    (tile, head, row)."""
+def _pair_counts(ranges: torch.Tensor, T: int, heads: int, tile: int
+                 ) -> Optional[torch.Tensor]:
+    """Check that `ranges` is built for the kernels' `tile`; for a
+    counting launch (`heads` > 0), one zeroed int32 slot per CTA of a grid
+    of (tile, head, row)."""
     R, n = ranges.shape[:2]
-    if n != -(-T // bwd_tile()):
+    if n != -(-T // tile):
         raise ValueError(f"tile ranges of {n} tiles for T={T}: not built for the kernels' "
-                         f"{bwd_tile()}-row tile")
+                         f"{tile}-row tile")
     return ranges.new_zeros(R * n * heads) if heads else None
 
 
@@ -233,7 +259,7 @@ def _launch_dq(q, k, v, dout, segment_ids, positions, lse, delta, ranges,
     as the kernel counted them: (dq, int32 [CTAs])."""
     R, T, Hq, hd = q.shape
     dq = torch.empty_like(q)
-    pairs = _pair_counts(ranges, T, Hq if count_pairs else 0)
+    pairs = _pair_counts(ranges, T, Hq if count_pairs else 0, bwd_tile())
     kernels.launch("flash_attn_bwd_dq_bf16", q, k, v, dout, segment_ids, positions,
                    lse, delta, ranges, dq, pairs, R, T, Hq, k.shape[2], hd, float(scale))
     return (dq, pairs) if count_pairs else dq
@@ -248,7 +274,7 @@ def _launch_dkv(q, k, v, dout, segment_ids, positions, lse, delta, ranges,
     Hkv = k.shape[2]
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    pairs = _pair_counts(ranges, T, Hkv if count_pairs else 0)
+    pairs = _pair_counts(ranges, T, Hkv if count_pairs else 0, bwd_tile())
     kernels.launch("flash_attn_bwd_dkv_bf16", q, k, v, dout, segment_ids, positions,
                    lse, delta, ranges, dk, dv, pairs, R, T, Hq, Hkv, hd, float(scale))
     return (dk, dv, pairs) if count_pairs else (dk, dv)
@@ -259,16 +285,17 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, segment_ids, positions, scale):
-        out, lse = _flash_fwd(q, k, v, segment_ids, positions, scale)
-        ctx.save_for_backward(q, k, v, segment_ids, positions, out, lse)
+        ranges = shared_tile_ranges(segment_ids)
+        out, lse = _flash_fwd(q, k, v, segment_ids, positions, scale, ranges)
+        ctx.save_for_backward(q, k, v, segment_ids, positions, out, lse, ranges)
         ctx.scale = scale
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, segment_ids, positions, out, lse = ctx.saved_tensors
+        q, k, v, segment_ids, positions, out, lse, ranges = ctx.saved_tensors
         dq, dk, dv = _flash_bwd(q, k, v, segment_ids, positions, out, lse,
-                                dout.contiguous(), ctx.scale)
+                                dout.contiguous(), ctx.scale, ranges)
         return dq, dk, dv, None, None, None
 
 

@@ -11,9 +11,11 @@ fails, and on a machine without CUDA):
                  sm_90a (one nvcc per source, in parallel).
 2. parity      - hold each kernel against its plain PyTorch version on the
                  card, at the serving and training paths' shapes, with
-                 inputs made from --seed; time kernel, plain version and
-                 (where one exists) one PyTorch library call with CUDA
-                 events.
+                 inputs made from --seed; the attention kernels' tile-pair
+                 counts against the skip predicate and two runs bit-equal;
+                 time kernel, plain version and (where one exists) one
+                 PyTorch library call (the forward and paged decode by the
+                 device time of their kernels, the rest with CUDA events).
 3. serve_bf16  - a ServingEngine at the full width of
                  DeepSeek-R1-Distill-Qwen-1.5B (seeded random weights)
                  serves a mix of requests with a bf16 KV pool; launch
@@ -116,6 +118,34 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+def device_ms(fn, names=None, iters: int = 20, warmup: int = 3) -> float:
+    """Device milliseconds per call of fn(): the time of the CUDA kernels
+    it launched whose names contain one of `names` (all of them when
+    None), summed by torch.profiler. CUDA events around a call also count
+    the host's time to enqueue it, which for a short kernel behind a
+    Python wrapper is the longer of the two."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    # A profiling window now and then comes back without its device
+    # events; such a window is taken again, up to twice.
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA
+                 and (names is None or any(n in e.key for n in names)))
+        if us > 0:
+            return us / 1e3 / iters
+    raise RuntimeError(f"the profiler saw no device time for kernels {names}")
+
+
 def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
     t_ops = flops / peak_flops * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -169,28 +199,97 @@ def plain_lse(torch, q, k, seg, pos, scale):
     return lse, mask.any(dim=-1).reshape(R, 1, T).expand(R, Hq, T)
 
 
-def parity_flash(torch, rng, dev, report):
-    from areal_tpu_torch.ops.attention import _flash_fwd, reference_packed_attention
+def time_flash_fwd(torch, q, k, v, seg, pos, seg_lens, scale, plain_iters=5):
+    """The forward kernel at one shape: its device time and bound, the
+    pre-pass (tile ranges), the whole wrapper call, and the plain
+    version's and SDPA's times on the same inputs."""
+    from areal_tpu_torch.ops.attention import (
+        _flash_fwd, fwd_tile, reference_packed_attention, segment_causal_mask,
+        tile_segment_ranges)
+
+    R, T, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    # Only valid tokens need q/k/v reads; out, lse, seg and pos span all of T.
+    valid = [n for row in seg_lens for n in row]
+    flops = sum(2.0 * n * n * hd * Hq for n in valid)
+    nbytes = (sum(valid) * (Hq + 2 * Hkv) * hd * 2 + R * T * Hq * hd * 2
+              + 2 * R * T * 4 + R * Hq * T * 4)
+    b_ms, b_by = bound(flops, nbytes)
+    ranges = tile_segment_ranges(seg, fwd_tile())
+    ms = device_ms(lambda: _flash_fwd(q, k, v, seg, pos, scale, ranges), ("flash_fwd_kernel",))
+    pre_ms = device_ms(lambda: tile_segment_ranges(seg, fwd_tile()))
+    call_ms = time_ms(lambda: _flash_fwd(q, k, v, seg, pos, scale))
+    plain_ms = time_ms(lambda: reference_packed_attention(q, k, v, seg, pos),
+                       iters=plain_iters, warmup=1)
+    # Library yardstick: one SDPA call with an explicit boolean mask (k/v
+    # expanded to the q heads and the mask built beforehand, untimed), its
+    # kernels' device time.
+    group = Hq // Hkv
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.repeat_interleave(group, dim=2).transpose(1, 2).contiguous()
+    vt = v.repeat_interleave(group, dim=2).transpose(1, 2).contiguous()
+    mask = segment_causal_mask(seg, pos)[:, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = device_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask))
+    return dict(shape=f"R={R} T={T} Hq={Hq} Hkv={Hkv} hd={hd} valid={sum(valid)} "
+                f"seqs={len(valid)}",
+                ms=ms, pre_pass_ms=pre_ms, call_ms=call_ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def parity_flash(torch, rng, dev, report, case_rng):
+    """The forward kernel against its plain version. The training-shape
+    case draws from `case_rng`, so the draws of `rng`, and the later
+    phases' batches, are those of a run without it."""
+    from areal_tpu_torch.ops.attention import (
+        _flash_fwd, fwd_tile, live_tile_pairs, reference_packed_attention, tile_segment_ranges)
 
     cases = [
         # ragged packed rows: several segments, padding tail, T % 128 != 0
-        ("ragged_T1000", 2, 1000, 12, 2, 128, [[300, 220, 417], [999]]),
-        ("T4096", 1, 4096, 12, 2, 128, [[4096]]),
-        ("hd64", 2, 333, 8, 2, 64, [[100, 200], [5, 300, 27]]),
+        ("ragged_T1000", rng, 2, 1000, 12, 2, 128, [[300, 220, 417], [999]]),
+        ("T4096", rng, 1, 4096, 12, 2, 128, [[4096]]),
+        ("hd64", rng, 2, 333, 8, 2, 64, [[100, 200], [5, 300, 27]]),
     ]
     # The serving path's prefill shape: 8 prompts of 512-1024 tokens, one
     # per row, padded to a whole number of 128-token pages.
     lens = rng.integers(512, 1025, size=8)
-    cases.append(("prefill_R8_T1024", 8, 1024, 12, 2, 128, [[int(n)] for n in lens]))
-    errs, rels = [], []
-    for name, R, T, Hq, Hkv, hd, seg_lens in cases:
-        q, k, v, seg, pos = flash_case(torch, rng, dev, R, T, Hq, Hkv, hd, seg_lens)
+    cases.append(("prefill_R8_T1024", rng, 8, 1024, 12, 2, 128, [[int(n)] for n in lens]))
+    # The training shape: rows of 4096 tokens, 2-6 sequences and a padding
+    # tail each (the backward's timed case).
+    cases.append(("train_R4_T4096", case_rng, 4, 4096, 12, 2, 128,
+                  random_seg_lens(case_rng, 4, 4096)))
+    timed = ("prefill_R8_T1024", "train_R4_T4096")
+    errs, rels, timings, counted = [], [], {}, {}
+    for name, gen, R, T, Hq, Hkv, hd, seg_lens in cases:
+        q, k, v, seg, pos = flash_case(torch, gen, dev, R, T, Hq, Hkv, hd, seg_lens)
         scale = hd ** -0.5
         out, lse = _flash_fwd(q, k, v, seg, pos, scale)
+        # Two runs bit-equal (remat runs the forward twice), and a counting
+        # launch: the (q head, q tile, kv tile) steps its CTAs ran must equal
+        # the skip predicate's count, with outputs bit-equal to the plain
+        # launch's.
+        out2, lse2 = _flash_fwd(q, k, v, seg, pos, scale)
+        ranges = tile_segment_ranges(seg, fwd_tile())
+        out3, lse3, pairs = _flash_fwd(q, k, v, seg, pos, scale, ranges, count_pairs=True)
+        counted[name] = int(pairs.sum().item())
+        predicate = int(live_tile_pairs(ranges).sum().item()) * Hq
+        n_tiles = ranges.shape[1]
+        causal_only = R * n_tiles * (n_tiles + 1) // 2 * Hq
+        same = all(torch.equal(a, b) for a, b in ((out, out2), (lse, lse2), (out, out3),
+                                                  (lse, lse3)))
+        log(f"  flash {name} tile pairs (q head, q tile, kv tile): counted by the kernel "
+            f"{counted[name]}, the skip predicate {predicate}, causal only {causal_only}; "
+            f"two runs and the counting launch bit-equal: {same}")
+        if not (same and counted[name] == predicate):
+            raise AssertionError(f"flash {name}: runs differ or the kernel's tile pairs "
+                                 f"disagree with the skip predicate")
+        del out2, lse2, out3, lse3
         ref = reference_packed_attention(q, k, v, seg, pos)
         err, rel = row_errors(out, ref)
+        del ref
         lse_ref, has_key = plain_lse(torch, q, k, seg, pos, scale)
         lse_err = (lse - lse_ref).abs()[has_key].max().item()
+        del lse_ref, has_key
         pad_zero = out.float()[seg == 0].abs().max().item() if (seg == 0).any() else 0.0
         log(f"  flash {name}: max_abs_err={err:.3e} (tol {ATOL}) max_row_rel_err={rel:.3e} "
             f"(tol {RTOL}) lse_err={lse_err:.3e} (tol {LSE_ATOL}) pad_rows_max={pad_zero:.1e}")
@@ -199,36 +298,30 @@ def parity_flash(torch, rng, dev, report):
             raise AssertionError(f"flash {name} disagrees with its plain version")
         errs.append(err)
         rels.append(rel)
-    # Timing at the serving path's prefill shape (the last case). Only
-    # valid tokens need q/k/v reads; out, lse, seg and pos span all of T.
-    valid = [n for row in seg_lens for n in row]
-    flops = sum(2.0 * n * n * hd * Hq for n in valid)
-    nbytes = (sum(valid) * (Hq + 2 * Hkv) * hd * 2 + R * T * Hq * hd * 2
-              + 2 * R * T * 4 + R * Hq * T * 4)
-    b_ms, b_by = bound(flops, nbytes)
-    ms = time_ms(lambda: _flash_fwd(q, k, v, seg, pos, scale))
-    plain_ms = time_ms(lambda: reference_packed_attention(q, k, v, seg, pos), iters=5)
-    # Library yardstick: one SDPA call with an explicit boolean mask (k/v
-    # expanded to the q heads and the mask built beforehand, untimed).
-    from areal_tpu_torch.ops.attention import segment_causal_mask
-
-    group = Hq // Hkv
-    qt = q.transpose(1, 2).contiguous()
-    kt = k.repeat_interleave(group, dim=2).transpose(1, 2).contiguous()
-    vt = v.repeat_interleave(group, dim=2).transpose(1, 2).contiguous()
-    mask = segment_causal_mask(seg, pos)[:, None]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_ms = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask))
+        if name in timed:
+            timings[name] = time_flash_fwd(torch, q, k, v, seg, pos, seg_lens, scale,
+                                           plain_iters=5 if T <= 1024 else 2)
+            t = timings[name]
+            log(f"  flash timing {t['shape']}: kernel {t['ms']:.4f} ms (device), pre-pass "
+                f"{t['pre_pass_ms']:.4f} ms, whole call {t['call_ms']:.3f} ms (events); plain "
+                f"{t['plain_ms']:.3f} ms, sdpa {t['library_ms']:.4f} ms (device), bound "
+                f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+        del q, k, v, out, lse
+        torch.cuda.empty_cache()
+    # The kernels line carries the serving path's prefill shape; the
+    # training shape rides along.
+    t = timings["prefill_R8_T1024"]
     report["flash_attn_fwd_bf16"] = dict(
         name="flash_attn_fwd_bf16", route="cuda",
         source="areal_tpu_torch/csrc/flash_attn.cu",
         replaces="areal_tpu/ops/pallas/flash_attn.py:119",
-        max_abs_err=max(errs), max_row_rel_err=max(rels), ms=ms, plain_ms=plain_ms,
-        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-        shape=f"R={R} T={T} Hq={Hq} Hkv={Hkv} hd={hd} valid={sum(valid)}",
-    )
-    log(f"  flash timing {report['flash_attn_fwd_bf16']['shape']}: kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms, sdpa {lib_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+        max_abs_err=max(errs), max_row_rel_err=max(rels), ms=t["ms"],
+        pre_pass_ms=t["pre_pass_ms"], call_ms=t["call_ms"],
+        plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+        library_ms=t["library_ms"], shape=t["shape"],
+        tile_pairs_counted=counted["prefill_R8_T1024"],
+        training_shape=dict(timings["train_R4_T4096"],
+                            tile_pairs_counted=counted["train_R4_T4096"]))
 
 
 def paged_case(torch, rng, dev, B, Hq, Hkv, hd, pg, lengths, int8, trash_rows=(),
@@ -261,56 +354,104 @@ def paged_case(torch, rng, dev, B, Hq, Hkv, hd, pg, lengths, int8, trash_rows=()
     return q, k_pool, v_pool, lens, page_indices
 
 
-def parity_paged(torch, rng, dev, report, int8: bool):
-    from areal_tpu_torch.engine.paged import _paged_attention_xla, _paged_decode_kernel
+def paged_bound(Hq, Hkv, hd, int8, lengths, n_rows, n_kv_tokens, pi_words):
+    """Least time of one paged-attention call: each row's q read and out
+    written once, the K/V of `n_kv_tokens` distinct tokens read once, the
+    page table and lengths once; two products per (row, head, token)."""
+    per_tok = Hkv * 2 * ((hd + 4) if int8 else hd * 2)  # K and V bytes
+    nbytes = n_kv_tokens * per_tok + 2 * n_rows * Hq * hd * 2 + pi_words * 4 + n_rows * 4
+    flops = float(sum(lengths)) * Hq * hd * 4
+    return bound(flops, nbytes)
+
+
+def parity_paged(torch, rng, dev, report, int8: bool, case_rng):
+    """Both modes of the paged kernel against the plain version: decode
+    steps (a page row per sequence) and chunk steps (rows of one prompt
+    sharing one page row). The timed chunk case draws from `case_rng`, so
+    the draws of `rng`, and the later phases' requests, are those of a run
+    without it."""
+    from areal_tpu_torch.engine.paged import (
+        _paged_attention_xla, _paged_decode_kernel, _sm_count, split_plan)
 
     kname = "paged_decode_int8" if int8 else "paged_decode_bf16"
     Hq, Hkv, hd = 12, 2, 128
     cases = [
-        ("B1_pg128", 1, 128, [3001], (), False),
-        ("B16_pg16_trash", 16, 16,
+        ("B1_pg128", rng, 1, 128, [3001], (), False),
+        ("B16_pg16_trash", rng, 16, 16,
          list(rng.integers(1, 4097, size=15)) + [4096], (3, 9), False),
-        ("B16_pg128", 16, 128, list(rng.integers(1, 4097, size=16)), (), False),
-        ("B1_pg16", 1, 16, [17], (), False),
+        ("B16_pg128", rng, 16, 128, list(rng.integers(1, 4097, size=16)), (), False),
+        ("B1_pg16", rng, 1, 16, [17], (), False),
         # chunked prefill: 256 rows share one page row, staggered lengths
-        ("chunk256_shared_row", 256, 128, list(2048 + np.arange(256)), (), True),
+        ("chunk256_shared_row", rng, 256, 128, list(2048 + np.arange(256)), (), True),
+        # the third 1024-token chunk of a 3000-token prompt: rows at
+        # positions 2048..3071 (952 valid, the rest inactive rows that the
+        # engine still runs) over one page row of 24 pages
+        ("chunk1024_start2048", case_rng, 1024, 128, list(2048 + 1 + np.arange(1024)), (),
+         True),
+        # 100 rows (off the 64-row tile) from position 37 (mid-page) over
+        # 16-token pages: a 64-token kv tile spans four pages
+        ("chunk100_start37_pg16", case_rng, 100, 16, list(37 + 1 + np.arange(100)), (), True),
     ]
     errs, rels = [], []
-    for name, B, pg, lengths, trash, shared in cases:
-        q, kp, vp, lens, pi = paged_case(torch, rng, dev, B, Hq, Hkv, hd, pg,
+    for name, gen, B, pg, lengths, trash, shared in cases:
+        q, kp, vp, lens, pi = paged_case(torch, gen, dev, B, Hq, Hkv, hd, pg,
                                          lengths, int8, trash, shared)
         scale = hd ** -0.5
         out = _paged_decode_kernel(q, kp, vp, lens, pi, scale)
         ref = _paged_attention_xla(q, kp, vp, lens, pi, scale)
         err, rel = row_errors(out, ref)
+        del ref
         log(f"  {kname} {name}: max_abs_err={err:.3e} (tol {ATOL}) "
             f"max_row_rel_err={rel:.3e} (tol {RTOL})")
         if not (err <= ATOL and rel <= RTOL and torch.isfinite(out.float()).all()):
             raise AssertionError(f"{kname} {name} disagrees with its plain version")
         errs.append(err)
         rels.append(rel)
+        if name == "chunk1024_start2048":
+            b_ms, b_by = paged_bound(Hq, Hkv, hd, int8, lengths, B, max(lengths), pi.shape[1])
+            chunk = dict(
+                shape=f"B={B} rows sharing one page row, lengths {min(lengths)}-"
+                      f"{max(lengths)}, Hq={Hq} Hkv={Hkv} hd={hd} pg={pg}",
+                ms=device_ms(lambda: _paged_decode_kernel(q, kp, vp, lens, pi, scale),
+                             ("paged_chunk_kernel",)),
+                call_ms=time_ms(lambda: _paged_decode_kernel(q, kp, vp, lens, pi, scale)),
+                plain_ms=time_ms(lambda: _paged_attention_xla(q, kp, vp, lens, pi, scale),
+                                 iters=3, warmup=1),
+                bound_ms=b_ms, bound_by=b_by)
+            log(f"  {kname} timing chunk {chunk['shape']}: kernel {chunk['ms']:.4f} ms "
+                f"(device), whole call {chunk['call_ms']:.4f} ms (events); plain "
+                f"{chunk['plain_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+        del q, kp, vp, out
+        torch.cuda.empty_cache()
     # Timing at the serving decode shape: 16 slots, page 128, ragged
     # contexts up to 4096 tokens.
     lengths = list(rng.integers(1024, 4097, size=16))
     q, kp, vp, lens, pi = paged_case(torch, rng, dev, 16, Hq, Hkv, hd, 128, lengths, int8)
     scale = hd ** -0.5
-    tok = float(sum(lengths))
-    per_tok = Hkv * 2 * ((hd + 4) if int8 else hd * 2)  # K and V bytes
-    nbytes = tok * per_tok + 2 * q.numel() * 2 + pi.numel() * 4 + 16 * 4
-    flops = tok * Hq * hd * 4
-    b_ms, b_by = bound(flops, nbytes)
-    ms = time_ms(lambda: _paged_decode_kernel(q, kp, vp, lens, pi, scale), iters=50)
+    b_ms, b_by = paged_bound(Hq, Hkv, hd, int8, lengths, 16, sum(lengths), pi.numel())
+    splits, per = split_plan(16, Hkv, pi.shape[1], _sm_count(q.device.index or 0))
+    out = _paged_decode_kernel(q, kp, vp, lens, pi, scale)
+    same = torch.equal(out, _paged_decode_kernel(q, kp, vp, lens, pi, scale))
+    log(f"  {kname} decode timing shape: {splits} splits of {per} pages over "
+        f"{pi.shape[1]} pages a row; two runs bit-equal: {same}")
+    if not same:
+        raise AssertionError(f"{kname}: two decode runs differ")
+    ms = device_ms(lambda: _paged_decode_kernel(q, kp, vp, lens, pi, scale),
+                   ("paged_split_kernel", "paged_combine_kernel"), iters=50)
+    call_ms = time_ms(lambda: _paged_decode_kernel(q, kp, vp, lens, pi, scale), iters=50)
     plain_ms = time_ms(lambda: _paged_attention_xla(q, kp, vp, lens, pi, scale))
     report[kname] = dict(
         name=kname, route="cuda", source="areal_tpu_torch/csrc/paged_decode.cu",
         replaces=("areal_tpu/ops/pallas/paged_decode_int8.py:109" if int8
                   else "areal_tpu/engine/paged.py:341"),
-        max_abs_err=max(errs), max_row_rel_err=max(rels), ms=ms, plain_ms=plain_ms,
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        shape=f"B=16 Hq={Hq} Hkv={Hkv} hd={hd} pg=128 sum_len={int(tok)}",
+        max_abs_err=max(errs), max_row_rel_err=max(rels), ms=ms, call_ms=call_ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"B=16 Hq={Hq} Hkv={Hkv} hd={hd} pg=128 sum_len={int(sum(lengths))}",
+        splits=splits, pages_per_split=per, chunk=chunk,
     )
-    log(f"  {kname} timing {report[kname]['shape']}: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    log(f"  {kname} timing {report[kname]['shape']}: kernel {ms:.4f} ms (device: splits and "
+        f"combine), whole call {call_ms:.4f} ms (events); plain {plain_ms:.3f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by})")
 
 
 def random_seg_lens(rng, R, T, lo=2, hi=6, pad_max=512):
@@ -655,8 +796,10 @@ def _kernel_class(name: str) -> str:
         return "flash_attn_bwd_dkv_bf16"
     if "gae_scan_kernel" in name:
         return "gae_scan_f32"
-    if "paged_decode_kernel" in name:
-        return "paged_decode"
+    if "paged_split_kernel" in name or "paged_combine_kernel" in name:
+        return "paged decode, decode steps"
+    if "paged_chunk_kernel" in name:
+        return "paged decode, chunk steps"
     low = name.lower()
     if any(s in low for s in ("gemm", "cutlass", "xmma", "nvjet", "cublas")):
         return "matmul (cuBLAS)"
@@ -1111,13 +1254,19 @@ def train_phase(torch, rng, dev, cfg, seed, sizes=TRAIN_SIZES):
 
 
 def kernel_entry_name(mangled: str) -> str:
-    """A kernel's name and integer / bool template arguments read off its
-    mangled name (flash_bwd_dkv_kernel<128, false>), else the mangled name."""
-    m = re.search(r"\d([A-Za-z][A-Za-z_]*_kernel)I((?:L[ib]\d+E)+)E", mangled)
+    """A kernel's name and template arguments (integers, bools, bf16 and
+    int8 types) read off its mangled name (paged_split_kernel<bf16, 128,
+    8>), else the mangled name."""
+    m = re.search(r"\d([A-Za-z][A-Za-z_]*_kernel)I((?:13__nv_bfloat16|a|L[ib]\d+E)+)E",
+                  mangled)
     if not m:
         return mangled
-    args = [(("false", "true")[int(v)] if t == "b" else v)
-            for t, v in re.findall(r"L([ib])(\d+)E", m.group(2))]
+    args = []
+    for tok, kind, val in re.findall(r"(13__nv_bfloat16|a|L([ib])(\d+)E)", m.group(2)):
+        if kind:
+            args.append(("false", "true")[int(val)] if kind == "b" else val)
+        else:
+            args.append("bf16" if tok.startswith("13") else "int8")
     return f"{m.group(1)}<{', '.join(args)}>"
 
 
@@ -1172,9 +1321,13 @@ def main() -> int:
     if "parity" in phases:
         log("phase parity")
         t0 = time.perf_counter()
-        parity_flash(torch, rng, dev, kernel_rows)
-        parity_paged(torch, rng, dev, kernel_rows, int8=False)
-        parity_paged(torch, rng, dev, kernel_rows, int8=True)
+        # The training-shape forward case and the timed chunk cases draw
+        # from their own generator, so the draws of `rng`, and the later
+        # phases' batches, stay those of a run without them.
+        case_rng = np.random.default_rng([args.seed, 2])
+        parity_flash(torch, rng, dev, kernel_rows, case_rng)
+        parity_paged(torch, rng, dev, kernel_rows, int8=False, case_rng=case_rng)
+        parity_paged(torch, rng, dev, kernel_rows, int8=True, case_rng=case_rng)
         parity_flash_bwd(torch, rng, dev, kernel_rows,
                          np.random.default_rng([args.seed, 1]))
         parity_gae(torch, rng, dev, kernel_rows)

@@ -9,11 +9,16 @@ chip_smoke.py holds each against its plain version.
   tensors to the plain version before they reach it), a wrong dtype, a
   non-contiguous tensor and a head_dim outside {64, 128}, all before
   ``nvcc`` is touched;
-- the backward hands both kernels the tile ranges of its segment ids,
-  built for the tile the library reports, in the order and number of the
-  C parameters; a counting launch hands each kernel one zeroed slot per
-  CTA; ranges built for another tile are refused;
-- a library's path follows its source and the shared headers beside it;
+- the forward and the backward hand their kernels the tile ranges of
+  the segment ids, built for the tile their library reports, in the
+  order and number of the C parameters; a counting launch hands each
+  kernel one zeroed slot per CTA; ranges built for another tile are
+  refused; the autograd function builds the ranges once, for the tile
+  both libraries report, and its backward gets the forward's;
+- the paged decode wrapper hands the kernel the split plan and scratch
+  of its decode mode, and none in its chunk mode (row stride 0);
+- a library's path follows its source and the shared headers beside it,
+  and every header a source includes is one of them;
 - with no nvcc, the first launch fails with a build error.
 """
 
@@ -24,6 +29,7 @@ import pytest
 import torch
 
 from areal_tpu_torch import kernels
+from areal_tpu_torch.engine import paged
 from areal_tpu_torch.engine.paged import _paged_decode_kernel
 from areal_tpu_torch.ops import attention
 from areal_tpu_torch.ops.attention import _flash_bwd, _flash_fwd
@@ -85,6 +91,20 @@ def test_library_path_tracks_the_shared_headers(monkeypatch, tmp_path):
     (csrc / "flash_attn_bwd.cu").write_text((csrc / "flash_attn_bwd.cu").read_text() + "\n")
     assert kernels._lib_path("flash_attn_bwd") != after["flash_attn_bwd"]
     assert kernels._lib_path("gae_scan") == after["gae_scan"]
+
+
+def test_every_included_header_is_a_shared_header():
+    """Each `#include "..."` of a source names a header under csrc/, so the
+    library names hash it (the flash forward and the paged chunk mode share
+    flash_tile.cuh)."""
+    headers = {p.name for p in kernels.CSRC_DIR.glob("*.cuh")}
+    assert {"mma_tiles.cuh", "flash_tile.cuh"} <= headers
+    included = set()
+    for path in [*kernels.CSRC_DIR.glob("*.cu"), *kernels.CSRC_DIR.glob("*.cuh")]:
+        included |= set(re.findall(r'#include "([^"]+)"', path.read_text()))
+    assert included <= headers
+    for src in ("flash_attn.cu", "paged_decode.cu"):
+        assert '#include "flash_tile.cuh"' in (kernels.CSRC_DIR / src).read_text()
 
 
 def test_reset_launches():
@@ -228,6 +248,88 @@ def test_launchers_refuse_ranges_built_for_another_tile(monkeypatch):
             launcher(*_launch_inputs(8))
 
 
+def _fwd_inputs(seg=None):
+    a = _bwd_args(hd=64)
+    seg = a["segment_ids"] if seg is None else _FakeCuda(seg)
+    return (a["q"], a["k"], a["v"], seg, a["positions"], 0.125)
+
+
+def test_forward_hands_the_kernel_the_tile_ranges(monkeypatch):
+    """The forward's launch arguments, recorded in place of the launcher:
+    tensors then ints then the scale, as many as the C parameters less the
+    stream, with the tile ranges of the segment ids after the positions,
+    built for the tile its library reports (4 rows here), and a null
+    tile-pair counter last among the pointers."""
+    calls = []
+    monkeypatch.setattr(kernels, "launch", lambda entry, *a: calls.append((entry, a)))
+    monkeypatch.setattr(attention, "fwd_tile", lambda: 4)
+    seg = torch.tensor([[1, 1, 1, 2, 2, 2, 0, 0]], dtype=torch.int32)
+    out, lse = _flash_fwd(*_fwd_inputs(seg))
+    [(entry, a)] = calls
+    assert entry == "flash_attn_fwd_bf16"
+    argtypes = kernels.ENTRY_POINTS[entry][1]
+    assert len(a) + 1 == len(argtypes)  # + the stream
+    n_ptr = argtypes.index(kernels.I)
+    assert all(isinstance(x, torch.Tensor) for x in a[:n_ptr - 1])
+    assert a[n_ptr - 1] is None
+    assert a[n_ptr:] == (1, 8, 4, 2, 64, 0.125)
+    ranges = a[5]
+    assert ranges.dtype == torch.int32 and ranges.is_contiguous()
+    assert torch.equal(ranges, attention.tile_segment_ranges(seg, 4))
+    assert ranges.tolist() == [[[1, 2], [2, 2]]]
+    assert a[6] is out and a[7] is lse
+    assert lse.dtype == torch.float32 and lse.shape == (1, 4, 8)
+
+
+def test_forward_takes_given_ranges_and_counts_one_zeroed_slot_per_cta(monkeypatch):
+    """Ranges handed in reach the kernel as they are; with count_pairs the
+    counter has one int32 slot per CTA of the (q tile, q head, row) grid."""
+    calls = []
+    monkeypatch.setattr(kernels, "launch", lambda entry, *a: calls.append((entry, a)))
+    monkeypatch.setattr(attention, "fwd_tile", lambda: 4)
+    seg = torch.tensor([[1, 1, 2, 2, 2, 2, 2, 2]], dtype=torch.int32)
+    ranges = _FakeCuda(attention.tile_segment_ranges(seg, 4))
+    out, lse, pairs = _flash_fwd(*_fwd_inputs(seg), ranges=ranges, count_pairs=True)
+    a = calls[0][1]
+    assert a[5] is ranges and a[8] is pairs
+    assert pairs.dtype == torch.int32 and pairs.shape == (2 * 4,) and not pairs.any()
+
+
+def test_forward_refuses_ranges_built_for_another_tile(monkeypatch):
+    monkeypatch.setattr(kernels, "launch", lambda *a: pytest.fail("reached the launcher"))
+    monkeypatch.setattr(attention, "fwd_tile", lambda: 4)
+    seg = torch.zeros((1, 8), dtype=torch.int32)
+    ranges = _FakeCuda(attention.tile_segment_ranges(seg, 8))
+    with pytest.raises(ValueError, match="not built for the kernels' 4-row tile"):
+        _flash_fwd(*_fwd_inputs(seg), ranges=ranges)
+
+
+def test_shared_tile_ranges_need_one_tile_for_both_libraries(monkeypatch):
+    seg = torch.tensor([[1, 1, 1, 2, 2, 2, 0, 0]], dtype=torch.int32)
+    monkeypatch.setattr(attention, "fwd_tile", lambda: 4)
+    monkeypatch.setattr(attention, "bwd_tile", lambda: 4)
+    assert torch.equal(attention.shared_tile_ranges(seg), attention.tile_segment_ranges(seg, 4))
+    monkeypatch.setattr(attention, "bwd_tile", lambda: 8)
+    with pytest.raises(RuntimeError, match="forward tile 4 != backward tile 8"):
+        attention.shared_tile_ranges(seg)
+
+
+def test_fwd_tile_is_what_the_library_reports(monkeypatch):
+    class _Lib:
+        @staticmethod
+        def flash_attn_fwd_tile():
+            return 64
+
+    asked = []
+    monkeypatch.setattr(kernels, "library", lambda name: asked.append(name) or _Lib)
+    attention.fwd_tile.cache_clear()
+    try:
+        assert attention.fwd_tile() == 64 and attention.fwd_tile() == 64
+        assert asked == ["flash_attn"]  # asked once
+    finally:
+        attention.fwd_tile.cache_clear()
+
+
 def test_bwd_tile_is_what_the_library_reports(monkeypatch):
     class _Lib:
         @staticmethod
@@ -258,21 +360,25 @@ def test_scan_wrapper_refuses_what_the_kernel_does_not_take(monkeypatch, a, b, m
 
 def test_autograd_function_hands_the_forward_residuals_to_the_backward(monkeypatch):
     """The wiring of the torch.autograd.Function that a CUDA tensor takes,
-    with the two launchers replaced by the plain versions: the backward
-    receives the forward's out and logsumexp, and the gradients equal
-    autograd through the plain attention."""
+    with the two launchers replaced by the plain versions: the forward gets
+    tile ranges built once for the tile both libraries report, the backward
+    receives the forward's out, logsumexp and those ranges, and the
+    gradients equal autograd through the plain attention."""
     seen = []
+    monkeypatch.setattr(attention, "fwd_tile", lambda: 4)
+    monkeypatch.setattr(attention, "bwd_tile", lambda: 4)
 
-    def fake_fwd(q, k, v, seg, pos, scale):
-        seen.append("fwd")
+    def fake_fwd(q, k, v, seg, pos, scale, ranges):
+        seen.append(("fwd", ranges.clone()))
+        assert torch.equal(ranges, attention.tile_segment_ranges(seg, 4))
         out = attention.reference_packed_attention(q, k, v, seg, pos, softmax_scale=scale)
         mask = attention.segment_causal_mask(seg, pos)[:, None]
         s = torch.einsum("rqhd,rkhd->rhqk", q, k.repeat_interleave(2, dim=2)) * scale
         lse = torch.logsumexp(torch.where(mask, s, attention.NEG_INF), dim=-1)
         return out, lse
 
-    def fake_bwd(q, k, v, seg, pos, out, lse, dout, scale):
-        seen.append("bwd")
+    def fake_bwd(q, k, v, seg, pos, out, lse, dout, scale, ranges):
+        seen.append(("bwd", ranges.clone()))
         assert out.shape == q.shape and lse.shape == (1, 4, 8) and dout.is_contiguous()
         return attention.reference_packed_attention_bwd(
             q, k, v, seg, pos, dout, softmax_scale=scale, out=out, lse=lse)
@@ -292,9 +398,48 @@ def test_autograd_function_hands_the_forward_residuals_to_the_backward(monkeypat
         leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
         (fn(*leaves, seg, pos) * w).sum().backward()
         grads.append([t.grad for t in leaves])
-    assert seen == ["fwd", "bwd"]
+    assert [name for name, _ in seen] == ["fwd", "bwd"]
+    assert torch.equal(seen[0][1], seen[1][1])
+    assert seen[1][1].tolist() == [[[1, 2], [2, 2]]]
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_paged_wrapper_hands_the_kernel_its_mode(monkeypatch, int8):
+    """Decode mode (a page row per sequence): the split plan of the shapes
+    and the SM count, and f32 scratch for the splits' partials. Chunk mode
+    (one page row expanded, row stride 0): one split, no scratch."""
+    calls = []
+    monkeypatch.setattr(kernels, "launch", lambda entry, *a: calls.append((entry, a)))
+    monkeypatch.setattr(paged, "_sm_count", lambda index: 132)
+    B, Hq, Hkv, hd, N, pg, P = 16, 12, 2, 64, 40, 16, 32
+    q = _FakeCuda(torch.zeros((B, Hq, hd), dtype=torch.bfloat16))
+    if int8:
+        pool = (_FakeCuda(torch.zeros((Hkv, N, pg, hd), dtype=torch.int8)),
+                _FakeCuda(torch.ones((Hkv, N, pg))))
+    else:
+        pool = _FakeCuda(torch.zeros((Hkv, N, pg, hd), dtype=torch.bfloat16))
+    lens = _FakeCuda(torch.ones(B, dtype=torch.int32))
+    rows = _FakeCuda(torch.zeros((B, P), dtype=torch.int32))
+    splits, per = paged.split_plan(B, Hkv, P, 132)
+    assert splits > 1
+    for pi, stride, want_splits, want_per in ((rows, P, splits, per),
+                                              (rows[:1].expand(B, P), 0, 1, P)):
+        calls.clear()
+        out = _paged_decode_kernel(q, pool, pool, lens, pi, 0.125)
+        [(entry, a)] = calls
+        assert entry == ("paged_decode_int8" if int8 else "paged_decode_bf16")
+        argtypes = kernels.ENTRY_POINTS[entry][1]
+        assert len(a) + 1 == len(argtypes)
+        at = argtypes.index(kernels.I)  # the row stride, then out and the scratch
+        assert a[at] == stride and a[at + 1] is out
+        if want_splits > 1:
+            assert a[at + 2].dtype == torch.float32
+            assert a[at + 2].numel() == B * Hq * want_splits * (hd + 2)
+        else:
+            assert a[at + 2] is None
+        assert a[at + 3:] == (B, Hq, Hkv, N, pg, hd, P, want_splits, want_per, 0.125)
 
 
 def test_missing_nvcc_is_a_build_error(monkeypatch, tmp_path):

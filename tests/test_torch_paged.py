@@ -7,6 +7,13 @@ against areal_tpu.
   reference's XLA gather path for float pools and the reference's int8
   Pallas kernel in interpret mode for int8 pools, at the shapes of
   tests/engine/test_kv_int8.py (rtol/atol 2e-5, float32);
+- the decode mode's split plan covers every page of a page row exactly
+  once, and a plain model of its split arithmetic (partials, then a
+  fixed-order combine) matches the same references, empty splits and
+  trash rows included;
+- rows of one prompt sharing one page row (the chunk mode) match the
+  reference row by row, at chunk sizes off the kernel's 64-row tile,
+  unaligned starts and 16-token pages;
 - PageAllocator and scatter_prefill behave as the reference's;
 - warp_logits gives the reference's warped logits and base_logp for all
   three tiers (rtol 1e-5). Random bits differ between the frameworks, so
@@ -101,6 +108,86 @@ def test_shared_page_row_rows_match_single_rows():
     for i in range(6):
         one = tp.paged_decode_attention(q[i:i + 1], kt, vt, lens[i:i + 1], row[None])
         np.testing.assert_allclose(both[i].numpy(), one[0].numpy(), rtol=1e-6)
+
+
+@pytest.mark.parametrize("B", [1, 16, 1024])
+@pytest.mark.parametrize("P", [1, 32, 257])
+@pytest.mark.parametrize("n_sm", [1, 132])
+def test_split_plan_covers_every_page_once(B, P, n_sm):
+    splits, per = tp.split_plan(B, 2, P, n_sm)
+    owned = [p for sp in range(splits) for p in range(sp * per, min((sp + 1) * per, P))]
+    assert owned == list(range(P))  # in order, each page once
+    assert 1 <= splits <= P and (splits - 1) * per < P <= splits * per  # no split empty
+    # whole pages cost at most half the plan's four CTAs an SM: at least two
+    # CTAs an SM where the pages allow
+    assert B * 2 * splits >= min(2 * n_sm, B * 2 * P)
+
+
+def _split_case(rng, int8, lengths, trash_rows, pg=8, P=8, Hkv=2, Hq=6, hd=16):
+    B = len(lengths)
+    N = 1 + B * P
+    jpools, tpools = _pools(rng, Hkv, N, pg, hd, int8)
+    q = rng.standard_normal((B, Hq, hd)).astype(np.float32)
+    pi = rng.permutation(np.arange(1, N)).astype(np.int32)[:B * P].reshape(B, P)
+    pi[list(trash_rows)] = tp.TRASH_PAGE  # inactive slots read the trash page
+    return q, jpools, tpools, np.asarray(lengths, np.int32), pi
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("splits,per", [(1, 8), (3, 3), (8, 1)])
+def test_split_model_matches_reference(int8, splits, per):
+    """Split counts 1, 3 and 8 over 8 pages of 8 tokens: lengths 1 and 5
+    leave every split past the first empty, 64 fills all, and rows 2 and 4
+    are trash rows (page row all trash page)."""
+    rng = np.random.default_rng(5)
+    lengths, trash = [1, 64, 30, 5, 17, 40], (2, 4)
+    q, jpools, tpools, lens, pi = _split_case(rng, int8, lengths, trash)
+    scale = 16 ** -0.5
+    if int8:  # the Pallas kernel, interpreted off-TPU
+        want = jp.paged_decode_attention(jnp.asarray(q), jpools[0], jpools[1],
+                                         jnp.asarray(lens), jnp.asarray(pi),
+                                         impl="int8_kernel")
+    else:
+        want = jp._paged_attention_xla(jnp.asarray(q), jnp.asarray(jpools[0]),
+                                       jnp.asarray(jpools[1]), jnp.asarray(lens),
+                                       jnp.asarray(pi), scale)
+    got = tp._paged_attention_split(_t(q), tpools[0], tpools[1], _t(lens), _t(pi), scale,
+                                    splits, per)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL, atol=TOL)
+    plain = tp._paged_attention_xla(_t(q), tpools[0], tpools[1], _t(lens), _t(pi), scale)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("C,start,pg", [
+    (70, 37, 16),   # off the 64-row tile, start mid-page, a 64-token tile spans 4 pages
+    (130, 128, 8),  # two whole tiles and 2 rows, page-aligned start
+    (64, 5, 16),    # one whole tile, start mid-page
+])
+def test_shared_page_row_chunk_matches_reference(C, start, pg):
+    """Rows of one prompt at positions start..start+C-1 share one page row
+    (row stride 0) with lengths start+i+1: each row equals the reference
+    run on that row alone, for float and int8 pools."""
+    rng = np.random.default_rng(C + start + pg)
+    Hkv, Hq, hd = 2, 6, 16
+    P = -(-(start + C) // pg)
+    N = P + 3
+    q = rng.standard_normal((C, Hq, hd)).astype(np.float32)
+    row = rng.permutation(np.arange(1, N)).astype(np.int32)[:P]
+    lens = (start + 1 + np.arange(C)).astype(np.int32)
+    for int8 in (False, True):
+        jpools, tpools = _pools(rng, Hkv, N, pg, hd, int8)
+        got = tp.paged_decode_attention(_t(q), tpools[0], tpools[1], _t(lens),
+                                        _t(row)[None].expand(C, P))
+        pi = np.broadcast_to(row, (C, P)).copy()
+        if int8:
+            want = jp.paged_decode_attention(jnp.asarray(q), jpools[0], jpools[1],
+                                             jnp.asarray(lens), jnp.asarray(pi),
+                                             impl="int8_kernel")
+        else:
+            want = jp._paged_attention_xla(jnp.asarray(q), jnp.asarray(jpools[0]),
+                                           jnp.asarray(jpools[1]), jnp.asarray(lens),
+                                           jnp.asarray(pi), hd ** -0.5)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL, atol=TOL)
 
 
 def test_page_allocator_matches_reference():
