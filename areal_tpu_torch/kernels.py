@@ -9,7 +9,8 @@ parallel, one ``nvcc`` each. Nothing here runs at import: the CPU tests
 import every module of the port on a machine with no ``nvcc``.
 
 The wrappers (``ops/attention.flash_packed_attention`` and its backward,
-``engine/paged.paged_decode_attention``, ``ops/gae.segment_scan_reverse``)
+``engine/paged.paged_decode_attention``, ``ops/gae.segment_scan_reverse``
+and ``ops/gae.packed_gae``)
 pass tensor pointers and the
 current CUDA stream, raise if the C entry point returns a CUDA error,
 and add one to ``launches[name]`` per call of the entry point (one call
@@ -52,6 +53,7 @@ launches: Dict[str, int] = {
     "flash_attn_bwd_dq_bf16": 0,
     "flash_attn_bwd_dkv_bf16": 0,
     "gae_scan_f32": 0,
+    "packed_gae_f32": 0,
 }
 
 NVCC_FLAGS = [
@@ -69,6 +71,7 @@ build_logs: Dict[str, str] = {}
 P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
+U = ctypes.c_uint
 
 # C entry point -> (library, argtypes); every entry returns a cudaError_t.
 ENTRY_POINTS = {
@@ -82,7 +85,8 @@ ENTRY_POINTS = {
         "flash_attn_bwd", [P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, P]),
     "flash_attn_bwd_dkv_bf16": (
         "flash_attn_bwd", [P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, P]),
-    "gae_scan_f32": ("gae_scan", [P, P, P, I, I, P]),
+    "gae_scan_f32": ("gae_scan", [P, P, P, I, I, I, I, P, P, P, U, P]),
+    "packed_gae_f32": ("gae_scan", [P, P, P, P, P, P, F, F, I, I, I, I, P, P, P, U, P]),
 }
 
 

@@ -9,18 +9,23 @@ by placing V(s_T) in ``bootstrap`` at each sequence's final token.
   vectorised across rows.
 - ``segment_scan_reverse``: x[t] = a[t] * x[t+1] + b[t] from the right per
   row. On a CUDA tensor it launches the hand-written kernel
-  ``csrc/gae_scan.cu`` or raises; on a CPU tensor it runs the plain
-  version, ``reference_scan_reverse`` (a serial loop).
+  ``csrc/gae_scan.cu`` (entry ``gae_scan_f32``) or raises; on a CPU tensor
+  it runs the plain version, ``reference_scan_reverse`` (a serial loop).
 - ``packed_gae``: the GAE recursion as that scan over per-token affine
   elements (``_gae_affine_elems``), which is what the PPO interface calls.
-  The reference's ``associative_scan`` variant and its ``impl`` choice are
-  not ported: the kernel reads (a, b) once and writes x once, which is
-  what that variant stood in for.
+  On a CUDA tensor it is one launch of the same kernel (entry
+  ``packed_gae_f32``: the elements built in its prologue, the masking in
+  its epilogue) or raises; on a CPU tensor the plain version,
+  ``reference_packed_gae``. The reference's ``associative_scan`` variant
+  and its ``impl`` choice are not ported: the kernel reads its inputs once
+  and writes its outputs once, which is what that variant stood in for.
+- ``gae_plan``: how a launch splits rows into tiles across CTAs.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import threading
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -99,7 +104,87 @@ def reference_scan_reverse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _scan_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def reference_packed_gae(rewards, values, segment_ids, bootstrap, gamma=1.0, lam=1.0):
+    """The plain version of the fused kernel: the affine elements, the
+    serial scan, the masking."""
+    a, b, valid, values32 = _gae_affine_elems(
+        rewards, values, segment_ids, bootstrap, gamma, lam)
+    return _finish_gae(reference_scan_reverse(a, b), values32, valid)
+
+
+# Elements a CTA scans at once: 256 threads x 4 (csrc/gae_scan.cu CHUNK).
+CHUNK = 1024
+# Rows of up to this many chunks stay whole: a CTA walks such a row faster
+# than a split launch starts, publishes and waits (H100 timings in PERF.md).
+WHOLE_ROW_CHUNKS = 4
+
+
+class GaePlan(NamedTuple):
+    tile: int  # elements a CTA owns, a multiple of CHUNK
+    tiles: int  # tiles a row
+    ctas: int  # R * tiles
+
+
+def gae_plan(R: int, T: int, n_sm: int) -> GaePlan:
+    """The tiles of a launch over [R, T], from the shapes and the SM count
+    only (never the data). A CTA owns a whole row and walks it a chunk at
+    a time when the row is short (at most WHOLE_ROW_CHUNKS chunks) or the
+    rows alone give every SM a CTA; otherwise each row is split into tiles
+    of one chunk across CTAs, which meet through their published
+    aggregates. Tile k of a row is [k * tile, (k + 1) * tile) cut at T."""
+    chunks = -(-T // CHUNK)
+    if chunks <= WHOLE_ROW_CHUNKS or R >= n_sm:
+        return GaePlan(chunks * CHUNK, 1, R)
+    return GaePlan(CHUNK, chunks, R * chunks)
+
+
+def ticket_tile(ticket: int, tiles: int) -> Tuple[int, int]:
+    """(row, tile) of a CTA's ticket in a split launch, as the kernel maps
+    it: row by row, within a row the rightmost tile first, so every tile a
+    CTA waits on (those right of its own) went to an earlier ticket."""
+    return ticket // tiles, tiles - 1 - ticket % tiles
+
+
+class _Scratch:
+    """A launch's tile aggregates, their flags and the ticket counter,
+    kept per device and stream across launches: the flags are zeroed once
+    and each launch stamps its own epoch, and the kernel hands the ticket
+    counter back at 0, so no memset runs per launch. A launch captured in
+    a CUDA graph would replay one epoch and could accept a flag left by
+    its previous replay, so ``_plan_args`` refuses capture."""
+
+    def __init__(self, n: int, device: torch.device, epoch: int):
+        self.agg = torch.empty((n, 2), dtype=torch.float32, device=device)
+        state = torch.zeros(n + 1, dtype=torch.int32, device=device)
+        self.ticket, self.flags = state[:1], state[1:]
+        self.epoch = epoch
+
+
+_scratch: Dict[Tuple[int, int], _Scratch] = {}
+_scratch_lock = threading.Lock()  # two launches never share an epoch
+
+
+def _plan_args(device: torch.device, R: int, T: int, plan: GaePlan | None = None) -> tuple:
+    """The C entries' trailing arguments: tile, tiles, aggregates, flags,
+    ticket and the launch's epoch (never 0, the flags' initial value).
+    ``plan`` replaces ``gae_plan``'s (the smoke times both modes at one
+    shape). Raises while the stream is being captured into a CUDA graph."""
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("the GAE kernels stamp a new epoch every launch and "
+                           "cannot be captured in a CUDA graph")
+    if plan is None:
+        plan = gae_plan(R, T, torch.cuda.get_device_properties(device).multi_processor_count)
+    n = R * plan.tiles if plan.tiles > 1 else 1
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    with _scratch_lock:
+        s = _scratch.get(key)
+        if s is None or s.agg.shape[0] < n:
+            s = _scratch[key] = _Scratch(n, device, s.epoch if s is not None else 0)
+        s.epoch = s.epoch % 0xFFFFFFFF + 1
+        return plan.tile, plan.tiles, s.agg, s.flags, s.ticket, s.epoch
+
+
+def _scan_kernel(a: torch.Tensor, b: torch.Tensor, plan: GaePlan | None = None) -> torch.Tensor:
     """Launch the CUDA scan kernel. Raises on anything it does not take."""
     kernels.check_cuda_tensor("a", a, torch.float32, 2)
     kernels.check_cuda_tensor("b", b, torch.float32, 2)
@@ -107,8 +192,29 @@ def _scan_kernel(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"scan shapes: a {tuple(a.shape)}, b {tuple(b.shape)}")
     R, T = a.shape
     x = torch.empty_like(b)
-    kernels.launch("gae_scan_f32", a, b, x, R, T)
+    kernels.launch("gae_scan_f32", a, b, x, R, T, *_plan_args(a.device, R, T, plan))
     return x
+
+
+def _packed_gae_kernel(rewards, values, segment_ids, bootstrap, gamma, lam, plan=None):
+    """Launch the fused GAE kernel: (advantages, returns). Float inputs are
+    cast to float32 and made contiguous; segment ids must be int32.
+    Raises on anything the kernel does not take."""
+    rewards, values, bootstrap = (
+        t.float().contiguous() for t in (rewards, values, bootstrap))
+    for name, t in (("rewards", rewards), ("values", values), ("bootstrap", bootstrap)):
+        kernels.check_cuda_tensor(name, t, torch.float32, 2)
+    kernels.check_cuda_tensor("segment_ids", segment_ids, torch.int32, 2)
+    shapes = {tuple(t.shape) for t in (rewards, values, segment_ids, bootstrap)}
+    if len(shapes) != 1 or len({t.device for t in (rewards, values, segment_ids,
+                                                   bootstrap)}) != 1:
+        raise ValueError(f"GAE inputs differ in shape or device: {sorted(shapes)}")
+    R, T = rewards.shape
+    adv, ret = torch.empty_like(rewards), torch.empty_like(rewards)
+    kernels.launch("packed_gae_f32", rewards, values, segment_ids, bootstrap, adv, ret,
+                   float(gamma), float(gamma * lam), R, T,
+                   *_plan_args(rewards.device, R, T, plan))
+    return adv, ret
 
 
 def segment_scan_reverse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -128,8 +234,8 @@ def packed_gae(
     gamma: float = 1.0,
     lam: float = 1.0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``gae_rows`` semantics through ``segment_scan_reverse``."""
-    a, b, valid, values32 = _gae_affine_elems(
-        rewards, values, segment_ids, bootstrap, gamma, lam)
-    adv = segment_scan_reverse(a.contiguous(), b.contiguous())
-    return _finish_gae(adv, values32, valid)
+    """``gae_rows`` semantics: one launch of the fused kernel on a CUDA
+    tensor, the plain version on a CPU tensor."""
+    if rewards.device.type == "cpu":
+        return reference_packed_gae(rewards, values, segment_ids, bootstrap, gamma, lam)
+    return _packed_gae_kernel(rewards, values, segment_ids, bootstrap, gamma, lam)

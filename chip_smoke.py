@@ -14,8 +14,9 @@ fails, and on a machine without CUDA):
                  inputs made from --seed; the attention kernels' tile-pair
                  counts against the skip predicate and two runs bit-equal;
                  time kernel, plain version and (where one exists) one
-                 PyTorch library call (the forward and paged decode by the
-                 device time of their kernels, the rest with CUDA events).
+                 PyTorch library call (the forward, paged decode and both
+                 GAE entries by the device time of their kernels beside
+                 the whole call, the backward with CUDA events).
 3. serve_bf16  - a ServingEngine at the full width of
                  DeepSeek-R1-Distill-Qwen-1.5B (seeded random weights)
                  serves a mix of requests with a bf16 KV pool; launch
@@ -31,8 +32,8 @@ fails, and on a machine without CUDA):
                  R1-Distill-Qwen-1.5B (float32 params, bf16 compute): PPO
                  actor inference, one train_step (GAE, advantage
                  normalization, 4 minibatch updates), then 3 SFT steps;
-                 launch counts of the forward, both backward and the GAE
-                 kernels must be > 0.
+                 launch counts of the forward, both backward kernels and
+                 the fused GAE entry (packed_gae_f32) must be > 0.
 
 Before the last line it prints the card's name and power limit (as
 nvidia-smi reports them) and one {"kernels": [...]} JSON line; the last
@@ -75,6 +76,17 @@ LSE_ATOL = 1e-3  # f32 logsumexp
 GRAD_TOL = 2e-2
 ROW_FLOOR = 1e-3
 GAE_RTOL = 1e-5  # f32 scan, against max(1, max|ref|)
+# Operations a token of the fused GAE entry: delta (3), the scan's
+# multiply-add (2), x + V (1).
+PACKED_GAE_FLOPS = 6.0
+# The PPO step's batch as rows of 4096; few long chain-of-thought rows; a
+# large batch (512 prompts x 16 answers x 2k tokens).
+GAE_TIMING_SHAPES = ((16, 4096), (2, 32768), (4096, 4096))
+# Shapes at which both GAE plan modes (a whole row a CTA; one-chunk tiles
+# across CTAs) are timed beside each other, on both sides of each of
+# gae_plan's two conditions (rows of at most 4 chunks; R >= SMs, 132).
+GAE_PLAN_SHAPES = ((64, 4096), (4096, 4096), (66, 8192), (66, 16384), (132, 16384),
+                   (33, 32768))
 # SFT-loss gradients through the kernels against the plain attention, bf16
 # compute end to end: per leaf, against the leaf's largest reference value.
 LEAF_TOL = 5e-2
@@ -118,12 +130,16 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, names=None, iters: int = 20, warmup: int = 3) -> float:
+def device_ms(fn, names=None, iters: int = 20, warmup: int = 3, per_call=None) -> float:
     """Device milliseconds per call of fn(): the time of the CUDA kernels
     it launched whose names contain one of `names` (all of them when
     None), summed by torch.profiler. CUDA events around a call also count
     the host's time to enqueue it, which for a short kernel behind a
-    Python wrapper is the longer of the two."""
+    Python wrapper is the longer of the two. `per_call`, where given, is
+    how many such kernels one call launches: the time is then the mean of
+    the launches the profiler saw, times `per_call`, so a window that lost
+    some of its device events still reads true; one that lost more than
+    half is taken again."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -131,19 +147,25 @@ def device_ms(fn, names=None, iters: int = 20, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    # A profiling window now and then comes back without its device
-    # events; such a window is taken again, up to twice.
-    for _ in range(3):
+    # A profiling window now and then comes back without some or all of
+    # its device events; such a window is taken again, up to four times.
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA
-                 and (names is None or any(n in e.key for n in names)))
-        if us > 0:
+        seen = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                and (names is None or any(n in e.key for n in names))]
+        us = sum(e.self_device_time_total for e in seen)
+        if us > 0 and per_call is None:
             return us / 1e3 / iters
-    raise RuntimeError(f"the profiler saw no device time for kernels {names}")
+        n = sum(e.count for e in seen)
+        if us > 0 and 2 * n >= per_call * iters:
+            if n != per_call * iters:
+                log(f"  profiler: {n} of {per_call * iters} launches of {names} seen")
+            return us / 1e3 / n * per_call
+    raise RuntimeError(f"the profiler saw no device time, or not all launches, for kernels "
+                       f"{names}")
 
 
 def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
@@ -644,8 +666,46 @@ def parity_flash_bwd(torch, rng, dev, report, case_rng):
         library_ms=one["library_ms"], plain_ms=one["plain_ms"])
 
 
-def parity_gae(torch, rng, dev, report):
-    from areal_tpu_torch.ops.gae import _scan_kernel, reference_scan_reverse
+def gae_batch(rng, R, T, seg_len):
+    """A packed PPO batch for GAE as numpy [R, T] arrays: rewards, values,
+    int32 segment ids and bootstraps. Each row holds segments of
+    seg_len[0]..seg_len[1] tokens with 0-2 padding tokens between them and
+    a padding tail (the segment it meets is cut there). Rewards are a small
+    per-token (KL-like) term plus a score at each segment's last token;
+    about half the segments are truncated and bootstrap there."""
+    seg = np.zeros((R, T), np.int32)
+    for r in range(R):
+        used = T - int(rng.integers(0, T // 8 + 1))
+        t, s = int(rng.integers(0, 3)), 1
+        while t < used:
+            end = min(t + int(rng.integers(seg_len[0], seg_len[1] + 1)), used)
+            seg[r, t:end] = s
+            s += 1
+            t = end + int(rng.integers(0, 3))
+    valid = seg > 0
+    nxt = np.concatenate([seg[:, 1:], np.zeros((R, 1), np.int32)], axis=1)
+    last = valid & (seg != nxt)
+    rew = rng.standard_normal((R, T), np.float32) * np.float32(0.01)
+    rew[last] += rng.standard_normal(int(last.sum()), np.float32)
+    val = rng.standard_normal((R, T), np.float32) * valid
+    boot = np.zeros((R, T), np.float32)
+    trunc = last & (rng.random((R, T)) < 0.5)
+    boot[trunc] = rng.standard_normal(int(trunc.sum()), np.float32)
+    return rew * valid, val, seg, boot
+
+
+def parity_gae(torch, rng, dev, report, gae_rng):
+    """Both GAE entries against their plain versions (the serial scan
+    loop; the affine elements, that loop and the masking), two runs of
+    each bit-equal, then device time, call time and bound at three
+    shapes. The scan's five random cases and its [16, 4096] timing input
+    draw from `rng`, the packed batches from `gae_rng`, which keeps the
+    later phases' batches those of earlier versions of this script."""
+    from areal_tpu_torch.ops.gae import (
+        CHUNK, GaePlan, _gae_affine_elems, _packed_gae_kernel, _scan_kernel, gae_plan,
+        reference_packed_gae, reference_scan_reverse)
+
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def case(R, T):
         # a is gamma * lam inside a segment and 0 at its end and on padding
@@ -660,31 +720,121 @@ def parity_gae(torch, rng, dev, report):
                 b[r, T - tail:] = 0.0
         return torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
 
-    errs = []
+    errs = {"gae_scan_f32": [], "packed_gae_f32": []}
+
+    def check(kname, label, got, ref, again, zero=None):
+        scale = max(1.0, max(r.abs().max().item() for r in ref))
+        err = max((g - r).abs().max().item() for g, r in zip(got, ref))
+        same = all(torch.equal(g, h) for g, h in zip(got, again))
+        zeros = zero is None or all(bool((g[zero] == 0).all()) for g in got)
+        log(f"  {kname} {label}: max_abs_err={err:.3e} against scale {scale:.3f} "
+            f"(tol {GAE_RTOL} relative); two runs bit-equal: {same}; zeros outside "
+            f"segments: {zeros}")
+        if not (err <= GAE_RTOL * scale and all(torch.isfinite(g).all() for g in got)
+                and same and zeros):
+            raise AssertionError(f"{kname} {label} disagrees with its plain version")
+        errs[kname].append((err, err / scale))
+
     for R, T in ((16, 4096), (5, 1000), (3, 5001), (1, 7), (300, 129)):
         a, b = case(R, T)
-        x = _scan_kernel(a, b)
-        ref = reference_scan_reverse(a, b)
-        scale = max(1.0, ref.abs().max().item())
-        err = (x - ref).abs().max().item()
-        log(f"  gae_scan [{R}, {T}]: max_abs_err={err:.3e} against scale {scale:.3f} "
-            f"(tol {GAE_RTOL} relative)")
-        if not (err <= GAE_RTOL * scale and torch.isfinite(x).all()
-                and torch.equal(x, _scan_kernel(a, b))):
-            raise AssertionError(f"gae_scan [{R}, {T}] disagrees with its plain version")
-        errs.append(err)
-    # Timing at the PPO step's shape: the whole batch as 16 rows of 4096.
-    a, b = case(16, 4096)
-    b_ms, b_by = bound(2.0 * a.numel(), 12.0 * a.numel(), PEAK_F32_FLOPS)
-    ms = time_ms(lambda: _scan_kernel(a, b), iters=50)
-    plain_ms = time_ms(lambda: reference_scan_reverse(a, b), iters=2, warmup=1)
-    report["gae_scan_f32"] = dict(
-        name="gae_scan_f32", route="cuda", source="areal_tpu_torch/csrc/gae_scan.cu",
-        replaces="areal_tpu/ops/pallas/gae_scan.py:113", max_abs_err=max(errs), ms=ms,
-        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        shape="R=16 T=4096 f32")
-    log(f"  gae_scan timing [16, 4096]: kernel {ms:.4f} ms, plain (serial loop) "
-        f"{plain_ms:.1f} ms, bound {b_ms:.5f} ms ({b_by})")
+        check("gae_scan_f32", f"[{R}, {T}] random", [_scan_kernel(a, b)],
+              [reference_scan_reverse(a, b)], [_scan_kernel(a, b)])
+    # Packed batches: the five shapes with short segments, then gamma =
+    # lam = 1 (the PPO default: a = 1, float32 sums over thousands of
+    # tokens), few long rows, and a large batch.
+    cases = [(R, T, (3, 400), 0.97, 0.95)
+             for R, T in ((16, 4096), (5, 1000), (3, 5001), (1, 7), (300, 129))]
+    cases += [(8, 16384, (2048, 12288), 1.0, 1.0), (2, 32768, (2048, 24576), 1.0, 0.95),
+              (4096, 4096, (64, 3072), 0.97, 0.95)]
+    for R, T, seg_len, gamma, lam in cases:
+        rew, val, seg, boot = (torch.from_numpy(x).to(dev)
+                               for x in gae_batch(gae_rng, R, T, seg_len))
+        label = f"[{R}, {T}] segments {seg_len[0]}-{seg_len[1]} gamma {gamma} lam {lam}"
+        a, b, _, _ = _gae_affine_elems(rew, val, seg, boot, gamma, lam)
+        check("gae_scan_f32", label, [_scan_kernel(a, b)], [reference_scan_reverse(a, b)],
+              [_scan_kernel(a, b)])
+        check("packed_gae_f32", label, _packed_gae_kernel(rew, val, seg, boot, gamma, lam),
+              reference_packed_gae(rew, val, seg, boot, gamma, lam),
+              _packed_gae_kernel(rew, val, seg, boot, gamma, lam), zero=seg == 0)
+        del rew, val, seg, boot, a, b
+        torch.cuda.empty_cache()
+
+    # Timing: the PPO step's shape (the whole batch as 16 rows of 4096),
+    # few long rows, a large batch. The plain loop (one serial step a
+    # token) is timed at the first only.
+    scan_in = case(16, 4096)
+    timings = {"gae_scan_f32": [], "packed_gae_f32": []}
+    for i, (R, T) in enumerate(GAE_TIMING_SHAPES):
+        rew, val, seg, boot = (torch.from_numpy(x).to(dev)
+                               for x in gae_batch(gae_rng, R, T, (64, 3072)))
+        a, b = scan_in if i == 0 else _gae_affine_elems(rew, val, seg, boot, 0.97, 0.95)[:2]
+        plan = gae_plan(R, T, n_sm)
+        n = R * T
+        for kname, fn, plain, nbytes, flops in (
+                ("gae_scan_f32", lambda: _scan_kernel(a, b),
+                 lambda: reference_scan_reverse(a, b), 12.0, 2.0),
+                ("packed_gae_f32", lambda: _packed_gae_kernel(rew, val, seg, boot, 0.97, 0.95),
+                 lambda: reference_packed_gae(rew, val, seg, boot, 0.97, 0.95), 24.0,
+                 PACKED_GAE_FLOPS)):
+            b_ms, b_by = bound(flops * n, nbytes * n, PEAK_F32_FLOPS)
+            t = dict(shape=[R, T], ms=device_ms(fn, ["gae_"], iters=50, per_call=1),
+                     call_ms=time_ms(fn, iters=50), bound_ms=b_ms, bound_by=b_by,
+                     tile=plan.tile, tiles_per_row=plan.tiles, ctas=plan.ctas)
+            if i == 0:
+                t["plain_ms"] = time_ms(plain, iters=2, warmup=1)
+            timings[kname].append(t)
+            log(f"  {kname} timing [{R}, {T}]: kernel {t['ms']:.5f} ms (device), whole call "
+                f"{t['call_ms']:.5f} ms (events); bound {b_ms:.5f} ms ({b_by}); "
+                f"{plan.tiles} tiles of {plan.tile} a row, {plan.ctas} CTAs"
+                + (f"; plain {t['plain_ms']:.1f} ms" if i == 0 else ""))
+        del rew, val, seg, boot, a, b
+        torch.cuda.empty_cache()
+
+    # Both plan modes at each shape, whatever gae_plan picks there: a whole
+    # row a CTA against one-chunk tiles across CTAs, on the same inputs,
+    # held to each other within GAE_RTOL.
+    modes = []
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for R, T in GAE_PLAN_SHAPES:
+        a = torch.where(torch.rand((R, T), generator=gen, device=dev) < 1e-3, 0.0,
+                        0.97 * 0.95).float()
+        b = torch.randn((R, T), generator=gen, device=dev)
+        seg = (torch.arange(T, device=dev, dtype=torch.int32) // 1500 + 1).expand(R, T)
+        seg = torch.where(torch.arange(T, device=dev) < T - T // 16, seg, 0).contiguous()
+        chunks = -(-T // CHUNK)
+        whole, split = GaePlan(chunks * CHUNK, 1, R), GaePlan(CHUNK, chunks, R * chunks)
+        row = dict(shape=[R, T], chosen="whole" if gae_plan(R, T, n_sm) == whole else "split")
+        for kname, fn in (
+                ("gae_scan_f32", lambda plan: (_scan_kernel(a, b, plan),)),
+                ("packed_gae_f32", lambda plan: _packed_gae_kernel(b, a, seg, b, 0.97, 0.95,
+                                                                   plan))):
+            outs = [fn(whole), fn(split)]
+            scale = max(1.0, outs[0][0].abs().max().item())
+            err = max((u - w).abs().max().item() for u, w in zip(*outs))
+            if not err <= GAE_RTOL * scale:
+                raise AssertionError(f"{kname} [{R}, {T}]: the two plan modes differ by {err}")
+            row[kname] = dict(
+                whole_ms=device_ms(lambda: fn(whole), ["gae_"], iters=30, per_call=1),
+                split_ms=device_ms(lambda: fn(split), ["gae_"], iters=30, per_call=1))
+            log(f"  {kname} plan modes [{R}, {T}] ({row['chosen']} chosen): whole rows "
+                f"{row[kname]['whole_ms']:.5f} ms, split {row[kname]['split_ms']:.5f} ms "
+                f"(device); modes agree to {err:.2e}")
+        modes.append(row)
+        del a, b, seg, outs
+        torch.cuda.empty_cache()
+
+    for kname in timings:
+        first = timings[kname][0]
+        report[kname] = dict(
+            name=kname, route="cuda", source="areal_tpu_torch/csrc/gae_scan.cu",
+            replaces="areal_tpu/ops/pallas/gae_scan.py:113",
+            max_abs_err=max(e for e, _ in errs[kname]),
+            max_rel_err=max(r for _, r in errs[kname]), ms=first["ms"],
+            call_ms=first["call_ms"], plain_ms=first["plain_ms"],
+            bound_ms=first["bound_ms"], bound_by=first["bound_by"], library_ms=None,
+            shape="R=16 T=4096 f32", tiles_per_row=first["tiles_per_row"],
+            ctas=first["ctas"], timings=timings[kname],
+            plan_modes=[dict(shape=m["shape"], chosen=m["chosen"], **m[kname]) for m in modes])
 
 
 # ----------------------------------------------------------------------
@@ -794,6 +944,8 @@ def _kernel_class(name: str) -> str:
         return "flash_attn_bwd_dq_bf16"
     if "flash_bwd_dkv_kernel" in name:
         return "flash_attn_bwd_dkv_bf16"
+    if "packed_gae_kernel" in name:
+        return "packed_gae_f32"
     if "gae_scan_kernel" in name:
         return "gae_scan_f32"
     if "paged_split_kernel" in name or "paged_combine_kernel" in name:
@@ -1223,7 +1375,7 @@ def train_phase(torch, rng, dev, cfg, seed, sizes=TRAIN_SIZES):
         raise AssertionError("train: version did not advance with the SFT steps")
     if on_card:
         for k in ("flash_attn_fwd_bf16", "flash_attn_bwd_dq_bf16", "flash_attn_bwd_dkv_bf16",
-                  "gae_scan_f32"):
+                  "packed_gae_f32"):
             if counts[k] <= 0:
                 raise AssertionError(f"train: kernel {k} was not launched")
     out = dict(
@@ -1330,7 +1482,7 @@ def main() -> int:
         parity_paged(torch, rng, dev, kernel_rows, int8=True, case_rng=case_rng)
         parity_flash_bwd(torch, rng, dev, kernel_rows,
                          np.random.default_rng([args.seed, 1]))
-        parity_gae(torch, rng, dev, kernel_rows)
+        parity_gae(torch, rng, dev, kernel_rows, np.random.default_rng([args.seed, 3]))
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         phase_done("parity", t0)
@@ -1383,7 +1535,8 @@ def main() -> int:
         t0 = time.perf_counter()
         report["phases"]["train"] = train_phase(torch, rng, dev, cfg, args.seed)
         counts = report["phases"]["train"]["launches"]
-        for k in ("flash_attn_bwd_dq_bf16", "flash_attn_bwd_dkv_bf16", "gae_scan_f32"):
+        for k in ("flash_attn_bwd_dq_bf16", "flash_attn_bwd_dkv_bf16", "gae_scan_f32",
+                  "packed_gae_f32"):
             main_counts[k] = counts[k]
         main_counts.setdefault("flash_attn_fwd_bf16", counts["flash_attn_fwd_bf16"])
         torch.cuda.empty_cache()
@@ -1394,6 +1547,9 @@ def main() -> int:
         row = dict(row)
         # null where no phase that runs this kernel on its main path ran
         row["launches"] = main_counts.get(name)
+        if name == "gae_scan_f32":
+            row["note"] = ("the scan entry (segment_scan_reverse); the PPO path runs the same "
+                           "kernel body through packed_gae_f32, so its count there is 0")
         row["kernel_ms"] = row["ms"]  # the same time under its other name
         row["card"] = card
         kernels_line.append(row)

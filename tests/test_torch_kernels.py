@@ -33,7 +33,7 @@ from areal_tpu_torch.engine import paged
 from areal_tpu_torch.engine.paged import _paged_decode_kernel
 from areal_tpu_torch.ops import attention
 from areal_tpu_torch.ops.attention import _flash_bwd, _flash_fwd
-from areal_tpu_torch.ops.gae import _scan_kernel
+from areal_tpu_torch.ops.gae import _packed_gae_kernel, _scan_kernel
 
 
 def _c_params(source: str, entry: str) -> int:
@@ -53,11 +53,13 @@ def test_entry_points_match_their_c_signatures(entry):
 def test_every_kernel_of_the_port_is_registered():
     assert set(kernels.ENTRY_POINTS) == set(kernels.launches) == {
         "flash_attn_fwd_bf16", "paged_decode_bf16", "paged_decode_int8",
-        "flash_attn_bwd_dq_bf16", "flash_attn_bwd_dkv_bf16", "gae_scan_f32"}
+        "flash_attn_bwd_dq_bf16", "flash_attn_bwd_dkv_bf16", "gae_scan_f32",
+        "packed_gae_f32"}
     assert {lib for lib, _ in kernels.ENTRY_POINTS.values()} == set(kernels.SOURCES)
     assert kernels.ENTRY_POINTS["flash_attn_bwd_dq_bf16"][0] == "flash_attn_bwd"
     assert kernels.ENTRY_POINTS["flash_attn_bwd_dkv_bf16"][0] == "flash_attn_bwd"
     assert kernels.ENTRY_POINTS["gae_scan_f32"][0] == "gae_scan"
+    assert kernels.ENTRY_POINTS["packed_gae_f32"][0] == "gae_scan"
     on_disk = {p.name for p in kernels.CSRC_DIR.glob("*.cu")}
     assert on_disk == set(kernels.SOURCES.values())
 
@@ -356,6 +358,48 @@ def test_scan_wrapper_refuses_what_the_kernel_does_not_take(monkeypatch, a, b, m
     monkeypatch.setattr(kernels, "launch", lambda *a: pytest.fail("reached the launcher"))
     with pytest.raises(ValueError, match=match):
         _scan_kernel(_FakeCuda(a), _FakeCuda(b))
+
+
+@pytest.mark.parametrize("bad,match", [
+    (dict(seg=torch.int64), "segment_ids: expected torch.int32"),
+    (dict(seg_shape=(2, 9)), "differ in shape"),
+    (dict(shape=(16,)), "expected 2 dims"),
+])
+def test_packed_gae_wrapper_refuses_what_the_kernel_does_not_take(monkeypatch, bad, match):
+    """The fused GAE entry takes float inputs of any float type (cast to
+    float32, made contiguous) and int32 segment ids of the same shape."""
+    monkeypatch.setattr(kernels, "launch", lambda *a: pytest.fail("reached the launcher"))
+    shape = bad.get("shape", (2, 8))
+    floats = [_FakeCuda(torch.zeros(shape, dtype=torch.bfloat16)) for _ in range(3)]
+    seg = _FakeCuda(torch.zeros(bad.get("seg_shape", shape), dtype=bad.get("seg", torch.int32)))
+    with pytest.raises(ValueError, match=match):
+        _packed_gae_kernel(floats[0], floats[1], seg, floats[2], 1.0, 0.95)
+
+
+def test_gae_wrappers_pass_arguments_of_their_c_types(monkeypatch):
+    """Both GAE entries' launch arguments, recorded in place of the
+    launcher: one per C parameter less the stream, a tensor for each
+    pointer, ints for ints, floats for floats (gamma and gamma * lam), the
+    plan and scratch of ``_plan_args`` last."""
+    from areal_tpu_torch.ops import gae
+
+    calls = []
+    monkeypatch.setattr(kernels, "launch", lambda entry, *a: calls.append((entry, a)))
+    scratch = [_FakeCuda(torch.zeros(k, dtype=torch.int32)) for k in (8, 4, 1)]
+    monkeypatch.setattr(gae, "_plan_args", lambda dev, R, T, plan: (1024, 4, *scratch, 9))
+    a = _FakeCuda(torch.zeros((2, 8)))
+    seg = _FakeCuda(torch.ones((2, 8), dtype=torch.int32))
+    x = _scan_kernel(a, a)
+    adv, ret = _packed_gae_kernel(a, a, seg, a, 0.97, 0.95)
+    assert [c[0] for c in calls] == ["gae_scan_f32", "packed_gae_f32"]
+    c_type = {kernels.P: torch.Tensor, kernels.I: int, kernels.F: float, kernels.U: int}
+    for entry, args in calls:
+        argtypes = kernels.ENTRY_POINTS[entry][1]
+        assert len(args) + 1 == len(argtypes)  # + the stream
+        assert all(isinstance(v, c_type[t]) for v, t in zip(args, argtypes))
+        assert args[-6:-4] == (1024, 4) and args[-1] == 9
+    assert calls[0][1][2] is x and calls[1][1][4:6] == (adv, ret)
+    assert calls[1][1][6:10] == (0.97, 0.97 * 0.95, 2, 8)
 
 
 def test_autograd_function_hands_the_forward_residuals_to_the_backward(monkeypatch):
