@@ -18,24 +18,36 @@ Eager PyTorch compiles nothing per shape, so, unlike the reference,
 prefill rows are not padded to power-of-two batches or bucketed
 lengths: a prefill batch is padded only to a whole number of pages.
 
-Not in this slice (later ones): prefix cache, KV tier / handoff /
-export, speculative decoding, int8 weights, mesh / tensor parallelism,
-tracing, fault points, latency histograms and the env knobs.
+The surface a generation server calls is the reference's: request
+priority classes with starvation aging, the qid-keyed prefix cache
+(``prefix_cache_tokens``: a finished request parks its pages under its
+qid and a resubmission extending them prefills only the delta),
+token-budget admission (``prefill_token_budget``), the prefill/decode
+interleave (``decode_blocks_per_admit``), TTFT / ITL histograms, the
+queue counters and ``metrics()`` with the reference's key set (the
+features the port lacks read their disabled values), ``warm`` and the
+stale-update checks behind ``/update_weights_from_disk``.
+
+Not ported yet: KV tier / handoff / export, speculative decoding, int8
+weights, mesh / tensor parallelism, the staged cutover of the weight
+plane and the env knobs.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import logging
 import queue
 import threading
 import time
-from typing import Callable, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from areal_tpu_torch import resolve_device, torch_dtype
+from areal_tpu_torch.base.latency import LatencyHistogram, percentile_from_counts
 from areal_tpu_torch.engine.paged import (
     TRASH_PAGE,
     PageAllocator,
@@ -62,9 +74,16 @@ class GenRequest:
     top_p: float = 1.0
     top_k: int = -1
     stop_token_ids: Tuple[int, ...] = ()
+    # Admission class, lower admits first: 0 = session continuation /
+    # interrupted re-prefill, 1 = fresh request. The engine also promotes
+    # a request whose qid holds a parked prefix to class 0.
+    priority: int = 1
     # resolved by the engine loop:
     done_cb: Optional[Callable[["GenResult"], None]] = None
     submit_time: float = 0.0
+    # Admission rounds this request sat in the backlog while others
+    # admitted ahead of it (starvation aging).
+    starved_rounds: int = 0
 
 
 @dataclasses.dataclass
@@ -113,7 +132,17 @@ def _prefill_batch(params, cfg: TransformerConfig, input_ids, lengths):
 
 
 class ServingEngine:
-    """Slot-pool continuous-batching engine driven by a background thread."""
+    """Slot-pool continuous-batching engine driven by a background thread.
+
+    Engine-loop state (the backlog, prefix cache, page allocator, pools,
+    device control state, page table and slot bookkeeping) is owned by
+    the loop thread and has no locks; other threads read the loop's
+    snapshots (``_backlog_len``, ``_kv_pages_free``) and host counters."""
+
+    # Admission rounds a class-1 request may be passed over before it is
+    # promoted to class 0, so a sustained continuation stream cannot
+    # starve fresh requests.
+    STARVATION_ROUNDS = 16
 
     def __init__(
         self,
@@ -129,7 +158,10 @@ class ServingEngine:
         prefill_max_batch: int = 8,
         prefill_chunk: Optional[int] = None,
         chunked_prefill_per_lap: int = 2,
+        prefix_cache_tokens: Optional[int] = None,
         kv_cache_dtype: Optional[str] = None,
+        prefill_token_budget: Optional[int] = None,
+        decode_blocks_per_admit: int = 1,
         device="cuda",
     ):
         if cfg.moe is not None:
@@ -147,6 +179,12 @@ class ServingEngine:
         if kv_cache_dtype not in (None, "model", "int8"):
             raise ValueError(
                 f"kv_cache_dtype={kv_cache_dtype!r}: expected None, 'model', or 'int8'")
+        if prefix_cache_tokens is not None and prefix_cache_tokens < 0:
+            raise ValueError("prefix_cache_tokens must be >= 0 or None")
+        if prefill_token_budget is not None and prefill_token_budget < 1:
+            raise ValueError("prefill_token_budget must be >= 1 or None")
+        if decode_blocks_per_admit < 1:
+            raise ValueError("decode_blocks_per_admit must be >= 1")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.params = _to_device(params, self.device)
@@ -157,9 +195,27 @@ class ServingEngine:
         self.block_steps = decode_block_steps
         self.prefill_max_batch = prefill_max_batch
         # Prompts longer than this prefill chunk by chunk through the
-        # paged decode step instead of the batched packed forward.
+        # paged decode step instead of the batched packed forward; so do
+        # the deltas of prefix-cache hits.
         self.prefill_chunk = prefill_chunk
         self.chunked_prefill_per_lap = chunked_prefill_per_lap
+        # Token-budget admission: a round admits new prompts only while
+        # their uncached prefill tokens fit (the first always admits).
+        self.prefill_token_budget = prefill_token_budget
+        # Decode blocks between admission rounds (1 = admit every lap);
+        # the first lap always admits.
+        self.decode_blocks_per_admit = decode_blocks_per_admit
+        self._blocks_since_admit = decode_blocks_per_admit
+        # qid -> (covered tokens, pages) of finished requests, LRU first;
+        # budget-bounded in tokens, evicted under pool pressure, flushed
+        # on weight swaps (old-weight KV is invalid). 0 disables.
+        self.prefix_cache_tokens = prefix_cache_tokens or 0
+        self._prefix_cache: "collections.OrderedDict[str, Tuple[List[int], List[int]]]" = (
+            collections.OrderedDict())
+        self._cached_tokens = 0
+        self.prefix_cache_hits = 0
+        self.prefix_tokens_reused = 0
+        self.total_requests = 0
         self.eos_token_id = eos_token_id
         self.kv_cache_dtype = kv_cache_dtype
         self.version = 0
@@ -200,17 +256,25 @@ class ServingEngine:
         self._host_tp = np.ones((B,), np.float32)
         self._host_tk = np.full((B,), -1, np.int32)
         self._eos_global = torch.from_numpy(self._eos_mask_np()).to(dev)
+        # Host->device stagings on the admit/decode path (loop thread).
+        self.h2d_transfers = 0
+        self.h2d_bytes = 0
 
         self._slot_req: List[Optional[GenRequest]] = [None] * B
         self._slot_out: List[List[int]] = [[] for _ in range(B)]
         self._slot_lp: List[List[float]] = [[] for _ in range(B)]
         self._slot_vstart: List[int] = [0] * B
         self._slot_pages: List[List[int]] = [[] for _ in range(B)]
+        # Wall time of each slot's last token delivery (ITL samples).
+        self._slot_emit_t = [0.0] * B
 
         self._queue: "queue.Queue[GenRequest]" = queue.Queue()
         self._backlog: List[GenRequest] = []  # engine-thread only
+        # qid -> accepted, not yet admitted requests: their parked
+        # prefixes are evicted last. Updated under _fatal_lock.
+        self._queued_qids: Dict[str, int] = {}
         # The batch inside _admit_impl, reachable by _fail_all.
-        self._admit_inflight: List[Tuple[int, GenRequest, int, List[int]]] = []
+        self._admit_inflight: List[Tuple[int, GenRequest, int, List[int], int]] = []
         self._lock = threading.Lock()
         self._interrupt = threading.Event()
         self._pending_params = None
@@ -225,7 +289,24 @@ class ServingEngine:
         self._thread: Optional[threading.Thread] = None
         self.fatal_error: Optional[BaseException] = None
         self._fatal_lock = threading.Lock()
+        # Host counters read by metrics() from other threads.
         self.decode_blocks = 0  # decode blocks run (the loop's lap count)
+        self.n_running = 0
+        self.n_used_tokens = 0
+        self.ttft_hist = LatencyHistogram()
+        self.itl_hist = LatencyHistogram()
+        # Prompt tokens accepted but not yet admitted (the server's
+        # admission watermark); under _fatal_lock.
+        self.queued_prompt_tokens = 0
+        self.total_generated = 0
+        self.n_preempted = 0
+        self.last_weight_swap_s = 0.0
+        self.last_weight_stage_s = 0.0
+        # Prefixes evicted while their KV was valid (no tier to spill to).
+        self._kv_lost_evict = 0
+        # Off-thread snapshots of loop-only state, refreshed every lap.
+        self._backlog_len = 0
+        self._kv_pages_free = self._allocator.n_free
 
     # ------------------------------------------------------------------
     # Public API
@@ -247,7 +328,62 @@ class ServingEngine:
                     f"serving engine loop died: {self.fatal_error!r}"
                 ) from self.fatal_error
             req.submit_time = time.monotonic()
+            self.total_requests += 1
+            self.queued_prompt_tokens += len(req.input_ids)
+            self._queued_qids[req.qid] = self._queued_qids.get(req.qid, 0) + 1
             self._queue.put(req)
+
+    def warm(self, prompt_lens: List[int], max_new_tokens: Optional[int] = None,
+             timeout_s: float = 1800.0) -> float:
+        """Run one throwaway greedy request per prompt length through the
+        live loop (prefill, decode block, first-token sampling: cuBLAS
+        handles, the allocator and the kernels' first launches), before a
+        server takes traffic. Returns seconds spent. Must be called after
+        start(); raises on timeout or on a request that failed."""
+        if self._thread is None:
+            raise RuntimeError("warm() requires start()")
+        if max_new_tokens is None:
+            max_new_tokens = 2 * self.block_steps
+        done = threading.Event()
+        got: List[GenResult] = []
+        n = len(prompt_lens)
+
+        def cb(res):
+            got.append(res)
+            if len(got) == n:
+                done.set()
+
+        t0 = time.perf_counter()
+        for i, plen in enumerate(prompt_lens):
+            self.submit(GenRequest(
+                qid=f"__warm{i}", input_ids=[1] * max(1, int(plen)),
+                max_new_tokens=max_new_tokens, min_new_tokens=max_new_tokens,
+                greedy=True, done_cb=cb,
+            ))
+        if not done.wait(timeout_s):
+            raise TimeoutError(f"serving warm stalled: {len(got)}/{n} within {timeout_s:.0f}s")
+        errs = [r.error for r in got if r.error]
+        if errs:
+            raise RuntimeError(f"serving warm failed: {errs[0]}")
+        dt = time.perf_counter() - t0
+        logger.info(f"serving warm: {n} request(s), {dt:.1f}s")
+        return dt
+
+    def is_stale_update(self, version: Optional[int]) -> bool:
+        """True iff update_params(version=version) would drop the update
+        as stale, so a caller can skip loading the weights at all."""
+        if version is None:
+            return False
+        with self._stage_lock:
+            return version <= self._highest_pinned
+
+    def escalate_pending_interrupt(self):
+        """Interrupt running requests iff a staged update is waiting to
+        apply (a bare interrupt with nothing pending would cut running
+        requests for nothing)."""
+        with self._lock:
+            if self._pending_params is not None:
+                self._interrupt.set()
 
     def update_params(self, params, allow_interrupt: bool = True,
                       version: Optional[int] = None):
@@ -256,19 +392,19 @@ class ServingEngine:
         it, admission pauses and the swap happens once running requests
         drain. ``version`` pins the new weight version to the trainer's.
 
-        The host->device copy runs HERE, on the caller's thread (leaves
-        keep the live params' dtypes), so decoding continues while the
-        weights stream in; the serve loop's swap is a pointer flip.
+        The host->device copy runs HERE, on the caller's thread, onto the
+        engine's device by name (leaves keep the live params' dtypes), so
+        decoding continues while the weights stream in; the serve loop's
+        swap is a pointer flip. Its seconds land in last_weight_stage_s.
         Concurrent callers are serialized, and a pinned update not newer
-        than the highest pinned version staged is dropped."""
+        than the highest pinned version staged is dropped (still honoring
+        the interrupt escalation)."""
         with self._stage_lock:
             if version is not None and version <= self._highest_pinned:
                 logger.info(f"dropping stale weight update v{version} "
-                            f"(highest pinned v{self._highest_pinned})")
+                            f"(highest pinned v{self._highest_pinned}, live v{self.version})")
                 if allow_interrupt:
-                    with self._lock:
-                        if self._pending_params is not None:
-                            self._interrupt.set()
+                    self.escalate_pending_interrupt()
                 return
             with self._lock:
                 # Never stack staged copies: drop a not-yet-applied one
@@ -277,9 +413,11 @@ class ServingEngine:
                     self._highest_pinned = self._applied_pinned
                 self._pending_params = None
                 self._pending_version = None
+            t0 = time.monotonic()
             staged = _to_device(params, self.device, like=self.params)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
+            self.last_weight_stage_s = time.monotonic() - t0
             with self._lock:
                 self._pending_params = staged
                 self._pending_version = version
@@ -287,6 +425,80 @@ class ServingEngine:
                     self._highest_pinned = max(self._highest_pinned, version)
         if allow_interrupt:
             self._interrupt.set()
+
+    @property
+    def queue_depth(self) -> int:
+        """Requests accepted but not yet admitted to a slot (the
+        loop-maintained backlog snapshot plus the submit queue)."""
+        return self._queue.qsize() + self._backlog_len
+
+    def latency_snapshot(self, reset: bool = False) -> Dict[str, Any]:
+        """Raw TTFT / ITL bucket counts (base/latency.py edges) and
+        percentiles; reset=True zeroes the histograms."""
+        ttft = self.ttft_hist.counts(reset=reset)
+        itl = self.itl_hist.counts(reset=reset)
+        return {
+            "ttft_counts": ttft,
+            "itl_counts": itl,
+            "ttft_p50_ms": percentile_from_counts(ttft, 50.0),
+            "ttft_p99_ms": percentile_from_counts(ttft, 99.0),
+            "itl_p50_ms": percentile_from_counts(itl, 50.0),
+            "itl_p99_ms": percentile_from_counts(itl, 99.0),
+        }
+
+    def metrics(self) -> Dict[str, float]:
+        """The reference engine's metrics, key for key. Features the port
+        lacks read their disabled values: MoE, speculative decoding and
+        the KV export / import / spill / restore counters 0.0, and no
+        ``kv_tier_*`` keys (no tier). The decode control state lives on
+        the device between blocks, so ``decode_resident`` reads 1.0."""
+        return {
+            "num_running_reqs": float(self.n_running),
+            "num_used_tokens": float(self.n_used_tokens),
+            "total_generated": float(self.total_generated),
+            "queue_depth": float(self.queue_depth),
+            "queued_prompt_tokens": float(self.queued_prompt_tokens),
+            "ttft_p50_ms": self.ttft_hist.percentile(50.0),
+            "ttft_p99_ms": self.ttft_hist.percentile(99.0),
+            "itl_p50_ms": self.itl_hist.percentile(50.0),
+            "itl_p99_ms": self.itl_hist.percentile(99.0),
+            "ttft_count": float(self.ttft_hist.total()),
+            "itl_count": float(self.itl_hist.total()),
+            "kv_pages_free": float(self._kv_pages_free),
+            "kv_pages_total": float(self.n_pages - 1),
+            "h2d_transfers_total": float(self.h2d_transfers),
+            "h2d_bytes_total": float(self.h2d_bytes),
+            "decode_blocks_total": float(self.decode_blocks),
+            "h2d_per_decode_block": float(self.h2d_transfers) / max(1.0, float(self.decode_blocks)),
+            "decode_resident": 1.0,
+            "moe_drop_rate": 0.0,
+            "moe_router_entropy": 0.0,
+            "num_preempted_reqs": float(self.n_preempted),
+            "last_weight_swap_s": float(self.last_weight_swap_s),
+            "last_weight_stage_s": float(self.last_weight_stage_s),
+            "last_weight_cutover_s": 0.0,
+            "prefix_cache_hits": float(self.prefix_cache_hits),
+            "prefix_tokens_reused": float(self.prefix_tokens_reused),
+            "prefix_cached_tokens": float(self._cached_tokens),
+            "total_requests": float(self.total_requests),
+            "kv_export_total": 0.0,
+            "kv_export_bytes": 0.0,
+            "last_kv_export_ms": 0.0,
+            "kv_import_total": 0.0,
+            "kv_import_bytes": 0.0,
+            "last_kv_import_ms": 0.0,
+            "kv_spill_total": 0.0,
+            "kv_spill_bytes": 0.0,
+            "kv_spill_tokens": 0.0,
+            "kv_restore_total": 0.0,
+            "kv_restore_host": 0.0,
+            "kv_restore_disk": 0.0,
+            "kv_restore_tokens": 0.0,
+            "kv_prefix_lost_total": float(self._kv_lost_evict),
+            "spec_tokens_per_step": 0.0,
+            "spec_emitted_tokens": 0.0,
+            "spec_active_steps": 0.0,
+        }
 
     # ------------------------------------------------------------------
     # Engine-thread internals
@@ -317,25 +529,66 @@ class ServingEngine:
                 self._backlog.append(self._queue.get_nowait())
         except queue.Empty:
             pass
+        self._backlog_len = len(self._backlog)
 
-    def _takes_chunked_path(self, plen: int) -> bool:
-        return bool(self.prefill_chunk and plen > self.prefill_chunk)
+    def _pop_backlog(self, idx: int = 0) -> GenRequest:
+        req = self._backlog.pop(idx)
+        self._backlog_len = len(self._backlog)
+        with self._fatal_lock:
+            self.queued_prompt_tokens = max(0, self.queued_prompt_tokens - len(req.input_ids))
+            n = self._queued_qids.get(req.qid, 0)
+            if n > 1:
+                self._queued_qids[req.qid] = n - 1
+            else:
+                self._queued_qids.pop(req.qid, None)
+        return req
+
+    def _effective_priority(self, req: GenRequest) -> int:
+        if req.starved_rounds >= self.STARVATION_ROUNDS:
+            return 0
+        # A parked prefix marks a session continuation whatever the
+        # declared class: its KV is already paid for.
+        if req.qid in self._prefix_cache:
+            return 0
+        return req.priority
+
+    def _order_backlog(self):
+        """Class 0 (continuations, interrupted re-prefills, aged fresh
+        requests) ahead of class 1; FIFO within a class (stable sort)."""
+        if any(self._effective_priority(r) != 0 for r in self._backlog):
+            self._backlog.sort(key=self._effective_priority)
+
+    def _takes_chunked_path(self, req: GenRequest, plen: int,
+                            cached_use: Optional[int] = None) -> bool:
+        """Whether a prompt runs the one-at-a-time chunked prefill: every
+        prefix-cache hit (only the delta past cached_use needs compute)
+        and fresh prompts longer than prefill_chunk. With cached_use=None
+        this predicts from any parked entry (the per-lap cap's guess,
+        before the prefix is validated)."""
+        hit = req.qid in self._prefix_cache if cached_use is None else cached_use > 0
+        return hit or bool(self.prefill_chunk and plen > self.prefill_chunk)
 
     def _h2d(self, arr: np.ndarray) -> torch.Tensor:
+        self.h2d_transfers += 1
+        self.h2d_bytes += int(arr.nbytes)
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
-    def _chunked_prefill_one(self, input_ids: List[int], pages: List[int]):
-        """Prefill one prompt chunk by chunk into its pages; returns the
-        float32 [V] logits of its last token."""
-        C = self.prefill_chunk
+    def _chunked_prefill_one(self, input_ids: List[int], pages: List[int], start: int = 0):
+        """Prefill one prompt chunk by chunk into its pages from position
+        ``start`` (nonzero for a prefix-cache hit: the positions below it
+        already hold valid KV in ``pages``, and ``start`` may fall inside
+        a page); returns the float32 [V] logits of its last token. A chunk
+        is prefill_chunk tokens (the page size when chunking is off),
+        padded to a whole number of pages."""
+        C = self.prefill_chunk or self.page_size
         self._ensure_pool()
         prow = np.full((self.max_pages,), TRASH_PAGE, np.int32)
         prow[: len(pages)] = pages
         prow_dev = self._h2d(prow)
         last = None
-        for s0 in range(0, len(input_ids), C):
+        for s0 in range(start, len(input_ids), C):
             seg = input_ids[s0: s0 + C]
-            toks = np.zeros((C,), np.int32)
+            toks = np.zeros((min(C, _round_up(len(seg), self.page_size)),), np.int32)
             toks[: len(seg)] = seg
             last = _chunk_prefill_body(
                 self.params, self.cfg, self._h2d(toks), self._k_pages,
@@ -345,7 +598,8 @@ class ServingEngine:
 
     def _admit(self):
         """Fill free slots from the backlog with one batched prefill (and
-        chunked prefills for long prompts) and one device state update."""
+        chunked prefills for long prompts and cache hits) and one device
+        state update."""
         batch = self._admit_inflight
         batch.clear()
         self._admit_impl(batch)
@@ -353,21 +607,36 @@ class ServingEngine:
 
     def _admit_impl(self, batch):
         # A pending non-interrupting swap stops admission so running
-        # requests drain and the swap can land.
+        # requests drain and the swap can land (before the interleave
+        # counter reset: admission retries the lap after it lands).
         if self._pending_params is not None:
             return
+        self._blocks_since_admit = 0
         self._drain_queue()
+        self._order_backlog()
         free = self._free_slots()
         n_chunked = 0
+        tok_budget = self.prefill_token_budget
         while free and self._backlog and len(batch) < self.prefill_max_batch:
             req = self._backlog[0]
             plen = len(req.input_ids)
-            if self._takes_chunked_path(plen) and n_chunked >= self.chunked_prefill_per_lap:
+            if self._takes_chunked_path(req, plen) and n_chunked >= self.chunked_prefill_per_lap:
                 break
+            # The round's budget counts uncached tokens, estimated from
+            # the parked prefix before it is validated; the first
+            # admission of a round always proceeds.
+            est_new = plen
+            if tok_budget is not None:
+                ent = self._prefix_cache.get(req.qid)
+                if ent is not None:
+                    est_new = plen - min(len(ent[0]), plen - 1)
+                est_new = max(1, est_new)
+                if batch and est_new > tok_budget:
+                    break
             if plen + req.max_new_tokens > self.S:
                 req.max_new_tokens = max(0, self.S - plen)
             if plen >= self.S or req.max_new_tokens == 0:
-                self._backlog.pop(0)
+                self._pop_backlog()
                 self._finish_host(req, [], [], no_eos=True, interrupted=False,
                                   vstart=self.version)
                 continue
@@ -375,7 +644,7 @@ class ServingEngine:
             if n_need > self.n_pages - 1:
                 # The prompt alone exceeds the whole pool: reject now
                 # instead of blocking everything behind it forever.
-                self._backlog.pop(0)
+                self._pop_backlog()
                 logger.warning(f"rejecting {req.qid}: prompt needs {n_need} "
                                f"pages, pool has {self.n_pages - 1}")
                 self._finish_host(req, [], [], no_eos=True, interrupted=False,
@@ -385,26 +654,59 @@ class ServingEngine:
             # not preempted before it produces a block.
             n_reserve = pages_needed(plen + self.block_steps, self.page_size)
             n_reserve = min(n_reserve, self.max_pages, self.n_pages - 1)
-            pages = self._allocator.alloc(n_reserve)
+            # Prefix-cache lookup: a resubmission whose prompt extends the
+            # parked tokens keeps those pages and prefills only the delta
+            # (positions cached_use..plen-1).
+            pages = None
+            cached_use = 0
+            ent = self._prefix_cache.pop(req.qid, None)
+            if ent is not None:
+                ctoks, cpages = ent
+                self._cached_tokens -= len(ctoks)
+                use = min(len(ctoks), plen - 1)
+                if use >= self.page_size and ctoks[:use] == req.input_ids[:use]:
+                    if len(cpages) < n_reserve:
+                        got = self._alloc_pages(n_reserve - len(cpages))
+                        if got is None:
+                            # Pool pressure mid-extension: re-park the
+                            # entry and stop admitting.
+                            self._prefix_cache[req.qid] = ent
+                            self._cached_tokens += len(ctoks)
+                            break
+                        cpages = cpages + got
+                    pages = cpages
+                    cached_use = use
+                    self.prefix_cache_hits += 1
+                    self.prefix_tokens_reused += use
+                else:
+                    self._allocator.free(cpages)
             if pages is None:
-                break  # pool pressure: wait for frees
-            self._backlog.pop(0)
-            batch.append((free.pop(0), req, plen, pages))
-            if self._takes_chunked_path(plen):
+                pages = self._alloc_pages(n_reserve)
+                if pages is None:
+                    break  # pool pressure: wait for frees
+            self._pop_backlog()
+            batch.append((free.pop(0), req, plen, pages, cached_use))
+            if tok_budget is not None:
+                tok_budget = max(0, tok_budget - est_new)
+            if self._takes_chunked_path(req, plen, cached_use):
                 n_chunked += 1
         if not batch:
             return
+        # Starvation aging: only requests passed over by a round that
+        # admitted someone age.
+        for r in self._backlog:
+            r.starved_rounds += 1
         # Chunked entries first so logits rows stay aligned with `batch`.
-        long = [e for e in batch if self._takes_chunked_path(e[2])]
-        short = [e for e in batch if not self._takes_chunked_path(e[2])]
+        long = [e for e in batch if self._takes_chunked_path(e[1], e[2], e[4])]
+        short = [e for e in batch if not self._takes_chunked_path(e[1], e[2], e[4])]
         batch[:] = long + short
-        rows = [self._chunked_prefill_one(req.input_ids, pages)
-                for _, req, _, pages in long]
+        rows = [self._chunked_prefill_one(req.input_ids, pages, start=cu)
+                for _, req, _, pages, cu in long]
         if short:
-            pad = _round_up(max(p for _, _, p, _ in short), self.page_size)
+            pad = _round_up(max(p for _, _, p, _, _ in short), self.page_size)
             ids = np.zeros((len(short), pad), np.int32)
             lens = np.zeros((len(short),), np.int32)
-            for i, (_, req, plen, _) in enumerate(short):
+            for i, (_, req, plen, _, _) in enumerate(short):
                 ids[i, :plen] = req.input_ids
                 lens[i] = plen
             short_logits, k_pref, v_pref = _prefill_batch(
@@ -413,7 +715,7 @@ class ServingEngine:
             # writes later; prompt padding chunks go to the trash page.
             n_chunks = pad // self.page_size
             flat = np.full((len(short), n_chunks), TRASH_PAGE, np.int32)
-            for i, (_, _, plen_i, pages) in enumerate(short):
+            for i, (_, _, plen_i, pages, _) in enumerate(short):
                 n_p = pages_needed(plen_i, self.page_size)
                 flat[i, :n_p] = pages[:n_p]
             self._ensure_pool()
@@ -437,9 +739,14 @@ class ServingEngine:
             tier=select_tier(tps, tks, None, self.cfg.vocab_size),
         )
         first = torch.stack([toks.float(), lps], dim=1).cpu().numpy()  # one fetch
+        # The first tokens are on the host: TTFT = submit -> now.
+        t_first = time.monotonic()
+        for slot_i, req_i, *_ in batch:
+            self.ttft_hist.add((t_first - req_i.submit_time) * 1000.0)
+            self._slot_emit_t[slot_i] = t_first
 
         adm = []  # (slot, plen, tok, budget, min_remaining, temp, top_p, top_k, greedy)
-        for i, (slot, req, plen, pages) in enumerate(batch):
+        for i, (slot, req, plen, pages, _) in enumerate(batch):
             tok_i, lp_f = int(first[i, 0]), float(first[i, 1])
             # A stale deactivation from this slot's previous request must
             # not clobber the fresh activation.
@@ -453,7 +760,8 @@ class ServingEngine:
             self._page_table[slot, : len(pages)] = pages
             self._pt_dirty = True
             # The cache fill excludes the pending next-input token: the
-            # first decode step writes the first token's K/V at plen.
+            # first decode step writes the first token's K/V at plen. A
+            # request that finishes here still parks its prompt's KV.
             self._len[slot] = plen
             is_eos = tok_i in self._eos_set(req)
             budget_left = req.max_new_tokens - 1
@@ -487,10 +795,57 @@ class ServingEngine:
         top_ks[slots] = ints[:, 5]
         greedy[slots] = ints[:, 6] > 0
 
+    def _evict_one_prefix(self, pinned: Optional[set] = None, lost: bool = True) -> bool:
+        """Free the least-recently-used parked prefix, skipping qids in
+        ``pinned`` (a request for them is queued). With no tier to spill
+        to, evicting valid KV counts as a prefix loss; ``lost=False`` is
+        the weight-swap flush, whose KV is stale anyway. Returns False
+        when nothing (unpinned) is evictable."""
+        if not self._prefix_cache:
+            return False
+        qid = None
+        if pinned:
+            qid = next((q for q in self._prefix_cache if q not in pinned), None)
+            if qid is None:
+                return False
+            toks, pages = self._prefix_cache.pop(qid)
+        else:
+            qid, (toks, pages) = self._prefix_cache.popitem(last=False)
+        if lost:
+            self._kv_lost_evict += 1
+        self._allocator.free(pages)
+        self._cached_tokens -= len(toks)
+        return True
+
+    def _flush_prefix_cache(self):
+        while self._evict_one_prefix(lost=False):
+            pass
+
+    def _pinned_qids(self) -> set:
+        """Qids with an accepted, not yet admitted request: their parked
+        KV is about to be consumed."""
+        with self._fatal_lock:
+            return set(self._queued_qids)
+
+    def _alloc_pages(self, n: int) -> Optional[List[int]]:
+        """Allocate, evicting parked prefixes under pressure (those with a
+        queued consumer last): speculative cache pages never cost an
+        active request its admission or its next decode block."""
+        got = self._allocator.alloc(n)
+        if got is not None:
+            return got
+        pinned = self._pinned_qids()
+        while got is None and self._evict_one_prefix(pinned):
+            got = self._allocator.alloc(n)
+        while got is None and self._evict_one_prefix():
+            got = self._allocator.alloc(n)
+        return got
+
     def _ensure_pages(self):
         """Grow each active slot's pages to cover the next decode block;
         preempt (interrupt-partial) the slot itself when the pool is dry
-        (the client resubmits with the prefix once pages free up)."""
+        even after evicting parked prefixes (the client resubmits with
+        the prefix once pages free up)."""
         for slot in range(self.B):
             req = self._slot_req[slot]
             if req is None or self._pending_deact[slot]:
@@ -506,8 +861,9 @@ class ServingEngine:
             cur = len(self._slot_pages[slot])
             if need <= cur:
                 continue
-            got = self._allocator.alloc(need - cur)
+            got = self._alloc_pages(need - cur)
             if got is None:
+                self.n_preempted += 1
                 self._finish_slot(slot, hit_eos=False, interrupted=True)
                 continue
             self._page_table[slot, cur:need] = got
@@ -534,6 +890,7 @@ class ServingEngine:
             no_eos=no_eos, interrupted=interrupted, version_start=vstart,
             version_end=self.version, latency=time.monotonic() - req.submit_time,
         )
+        self.total_generated += len(out)
         if req.done_cb:
             req.done_cb(res)
 
@@ -544,8 +901,29 @@ class ServingEngine:
             no_eos=not hit_eos, interrupted=interrupted,
             vstart=self._slot_vstart[slot],
         )
-        if self._slot_pages[slot]:
-            self._allocator.free(self._slot_pages[slot])
+        pages = self._slot_pages[slot]
+        if pages:
+            # Park the sequence's KV under its qid (budget permitting): the
+            # covered tokens are the prompt plus the emitted tokens whose
+            # K/V landed in the pool (_len excludes the pending input).
+            covered = (list(req.input_ids) + self._slot_out[slot])[: int(self._len[slot])]
+            # A pending weight swap invalidates this KV the moment it lands.
+            if (self.prefix_cache_tokens and len(covered) >= self.page_size
+                    and self._pending_params is None):
+                old = self._prefix_cache.pop(req.qid, None)
+                if old is not None:
+                    self._allocator.free(old[1])
+                    self._cached_tokens -= len(old[0])
+                self._prefix_cache[req.qid] = (covered, pages)
+                self._cached_tokens += len(covered)
+                # The budget trim spares prefixes with a queued consumer
+                # (only hard pool pressure takes them, in _alloc_pages).
+                trim_pinned = self._pinned_qids()
+                while (self._cached_tokens > self.prefix_cache_tokens
+                       and self._evict_one_prefix(trim_pinned)):
+                    pass
+            else:
+                self._allocator.free(pages)
         self._slot_req[slot] = None
         self._slot_out[slot] = []
         self._slot_lp[slot] = []
@@ -573,9 +951,16 @@ class ServingEngine:
             if pending is not None and version is not None:
                 self._applied_pinned = max(self._applied_pinned, version)
         if pending is not None:
+            # Parked prefixes hold KV computed under the old weights.
+            self._flush_prefix_cache()
+            t0 = time.monotonic()
             self.params = pending  # staged on the updater's thread
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.last_weight_swap_s = time.monotonic() - t0
             self.version = version if version is not None else self.version + 1
-            logger.info(f"serving engine weights updated to v{self.version}")
+            logger.info(f"serving engine weights updated to v{self.version} "
+                        f"in {self.last_weight_swap_s:.3f}s")
         self._interrupt.clear()
 
     def _flush_device_control(self):
@@ -611,6 +996,7 @@ class ServingEngine:
         self._slot_req = [None] * len(self._slot_req)
         reqs.extend(self._backlog)
         self._backlog.clear()
+        self._backlog_len = 0
         seen = {id(r) for r in reqs}
         reqs.extend(e[1] for e in self._admit_inflight if id(e[1]) not in seen)
         self._admit_inflight.clear()
@@ -620,6 +1006,8 @@ class ServingEngine:
                     reqs.append(self._queue.get_nowait())
                 except queue.Empty:
                     break
+            self.queued_prompt_tokens = 0
+            self._queued_qids.clear()
         for req in reqs:
             if req.done_cb:
                 try:
@@ -636,21 +1024,31 @@ class ServingEngine:
         self._ensure_pool()
         n = self.block_steps
         while not self._stop.is_set():
+            # Off-thread telemetry snapshots of loop-only state.
+            self._backlog_len = len(self._backlog)
+            self._kv_pages_free = self._allocator.n_free
             if self._interrupt.is_set():
                 self._interrupt_all()
                 self._apply_pending_params()
-            self._admit()
+            # Prefill/decode interleave: admission (prefill on this
+            # thread) every decode_blocks_per_admit blocks, or when idle.
+            if (self._blocks_since_admit >= self.decode_blocks_per_admit
+                    or not any(r is not None for r in self._slot_req)):
+                self._admit()
             if not any(r is not None for r in self._slot_req):
                 # idle: apply updates immediately, then wait for work
                 if self._pending_params is not None:
                     self._apply_pending_params()
                 time.sleep(0.002)
+                self.n_running = 0
                 continue
             self._ensure_pages()
             self._flush_device_control()
             running = [r is not None for r in self._slot_req]
             if not any(running):
                 continue
+            self.n_running = sum(running)
+            self.n_used_tokens = int(self._len.sum())
 
             (lengths, next_input, active, remaining, min_remaining,
              temps, top_ps, top_ks, greedy) = self._dstate
@@ -661,6 +1059,7 @@ class ServingEngine:
             # tier's rounded tail (ops/sampling.warp_logits).
             tier = select_tier(self._host_tp, self._host_tk, np.asarray(running),
                                self.cfg.vocab_size)
+            t_blk0 = time.monotonic()
             (packed, lengths, next_input, active, remaining,
              min_remaining) = paged_decode_block(
                 self.params, self.cfg, self._k_pages, self._v_pages,
@@ -671,10 +1070,22 @@ class ServingEngine:
             self._dstate = (lengths, next_input, active, remaining,
                             min_remaining, temps, top_ps, top_ks, greedy)
             p = packed.cpu().numpy()  # the block's single device fetch
+            self._blocks_since_admit += 1
             self.decode_blocks += 1
+            t_blk1 = time.monotonic()
             toks_h = p[:, :n]
             lps_h = p[:, n:2 * n]
             n_emitted = p[:, 2 * n].astype(np.int64)
+            # Inter-token latency: wall time since the slot's previous
+            # token delivery, spread over the tokens this block emitted,
+            # so admission stalls between blocks count against the slots
+            # that waited through them.
+            for slot in range(self.B):
+                k = int(n_emitted[slot])
+                if k > 0 and self._slot_req[slot] is not None:
+                    t_prev = self._slot_emit_t[slot] or t_blk0
+                    self.itl_hist.add((t_blk1 - t_prev) * 1000.0 / k, count=k)
+                    self._slot_emit_t[slot] = t_blk1
             hit_eos_h = p[:, 2 * n + 1] > 0.5
             active_h = p[:, 2 * n + 2] > 0.5
             # Mirror lengths for occupied slots only: the device array is

@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (areal_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--out report.json] [--profile-serving]
-        [--phases build,parity,serve_bf16,serve_int8,interrupt,grad,train]
+        [--phases build,parity,serve_bf16,serve_int8,interrupt,http,grad,train]
 
 Phases (every one must pass; the script exits nonzero on the first that
 fails, and on a machine without CUDA):
@@ -25,10 +25,19 @@ fails, and on a machine without CUDA):
 4. serve_int8  - the same with kv_cache_dtype="int8".
 5. interrupt   - update_params mid-generation returns partial results
                  with interrupted=True and the new version goes live.
-6. grad        - at full width and 2 layers, the gradients of the SFT loss
+6. http        - the port's GenerationServer in process, at the full
+                 width and depth, with the qid prefix cache and
+                 token-budget admission, driven over HTTP: a mixed wave
+                 from 18 client threads (checked as serve_bf16's), six
+                 continuations that must hit the prefix cache, the same
+                 wave through the engine alone (the server's overhead),
+                 greedy requests bit-equal over HTTP and direct, a weight
+                 update from a raw dump mid-wave, a stale retry, and
+                 shedding; launch counts through the server must be > 0.
+7. grad        - at full width and 2 layers, the gradients of the SFT loss
                  through the kernels against the plain attention on the
                  card, leaf by leaf.
-7. train       - a TorchTrainEngine at the full width and depth of
+8. train       - a TorchTrainEngine at the full width and depth of
                  R1-Distill-Qwen-1.5B (float32 params, bf16 compute): PPO
                  actor inference, one train_step (GAE, advantage
                  normalization, 4 minibatch updates), then 3 SFT steps;
@@ -90,7 +99,7 @@ GAE_PLAN_SHAPES = ((64, 4096), (4096, 4096), (66, 8192), (66, 16384), (132, 1638
 # SFT-loss gradients through the kernels against the plain attention, bf16
 # compute end to end: per leaf, against the leaf's largest reference value.
 LEAF_TOL = 5e-2
-PHASES = ("build", "parity", "serve_bf16", "serve_int8", "interrupt", "grad", "train")
+PHASES = ("build", "parity", "serve_bf16", "serve_int8", "interrupt", "http", "grad", "train")
 # The train phase at real size; a rehearsal on the CPU passes smaller ones.
 TRAIN_SIZES = dict(n_prompts=8, group=4, prompt=(128, 512), response=(256, 3072),
                    row_len=4096, max_tokens_per_mb=16384, n_minibatches=4,
@@ -139,7 +148,9 @@ def device_ms(fn, names=None, iters: int = 20, warmup: int = 3, per_call=None) -
     how many such kernels one call launches: the time is then the mean of
     the launches the profiler saw, times `per_call`, so a window that lost
     some of its device events still reads true; one that lost more than
-    half is taken again."""
+    half is taken again. `per_call="auto"` (a library call whose kernel
+    count is not known beforehand) takes it as the launches seen over the
+    calls, rounded."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -160,6 +171,8 @@ def device_ms(fn, names=None, iters: int = 20, warmup: int = 3, per_call=None) -
         if us > 0 and per_call is None:
             return us / 1e3 / iters
         n = sum(e.count for e in seen)
+        if per_call == "auto":
+            per_call = max(1, round(n / iters))
         if us > 0 and 2 * n >= per_call * iters:
             if n != per_call * iters:
                 log(f"  profiler: {n} of {per_call * iters} launches of {names} seen")
@@ -238,8 +251,9 @@ def time_flash_fwd(torch, q, k, v, seg, pos, seg_lens, scale, plain_iters=5):
               + 2 * R * T * 4 + R * Hq * T * 4)
     b_ms, b_by = bound(flops, nbytes)
     ranges = tile_segment_ranges(seg, fwd_tile())
-    ms = device_ms(lambda: _flash_fwd(q, k, v, seg, pos, scale, ranges), ("flash_fwd_kernel",))
-    pre_ms = device_ms(lambda: tile_segment_ranges(seg, fwd_tile()))
+    ms = device_ms(lambda: _flash_fwd(q, k, v, seg, pos, scale, ranges), ("flash_fwd_kernel",),
+                   per_call=1)
+    pre_ms = device_ms(lambda: tile_segment_ranges(seg, fwd_tile()), per_call="auto")
     call_ms = time_ms(lambda: _flash_fwd(q, k, v, seg, pos, scale))
     plain_ms = time_ms(lambda: reference_packed_attention(q, k, v, seg, pos),
                        iters=plain_iters, warmup=1)
@@ -252,7 +266,7 @@ def time_flash_fwd(torch, q, k, v, seg, pos, seg_lens, scale, plain_iters=5):
     vt = v.repeat_interleave(group, dim=2).transpose(1, 2).contiguous()
     mask = segment_causal_mask(seg, pos)[:, None]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_ms = device_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask))
+    lib_ms = device_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask), per_call="auto")
     return dict(shape=f"R={R} T={T} Hq={Hq} Hkv={Hkv} hd={hd} valid={sum(valid)} "
                 f"seqs={len(valid)}",
                 ms=ms, pre_pass_ms=pre_ms, call_ms=call_ms, plain_ms=plain_ms,
@@ -435,7 +449,7 @@ def parity_paged(torch, rng, dev, report, int8: bool, case_rng):
                 shape=f"B={B} rows sharing one page row, lengths {min(lengths)}-"
                       f"{max(lengths)}, Hq={Hq} Hkv={Hkv} hd={hd} pg={pg}",
                 ms=device_ms(lambda: _paged_decode_kernel(q, kp, vp, lens, pi, scale),
-                             ("paged_chunk_kernel",)),
+                             ("paged_chunk_kernel",), per_call=1),
                 call_ms=time_ms(lambda: _paged_decode_kernel(q, kp, vp, lens, pi, scale)),
                 plain_ms=time_ms(lambda: _paged_attention_xla(q, kp, vp, lens, pi, scale),
                                  iters=3, warmup=1),
@@ -458,8 +472,10 @@ def parity_paged(torch, rng, dev, report, int8: bool, case_rng):
         f"{pi.shape[1]} pages a row; two runs bit-equal: {same}")
     if not same:
         raise AssertionError(f"{kname}: two decode runs differ")
+    # A split launch runs its splits, then a combine: two kernels a call.
     ms = device_ms(lambda: _paged_decode_kernel(q, kp, vp, lens, pi, scale),
-                   ("paged_split_kernel", "paged_combine_kernel"), iters=50)
+                   ("paged_split_kernel", "paged_combine_kernel"), iters=50,
+                   per_call=2 if splits > 1 else 1)
     call_ms = time_ms(lambda: _paged_decode_kernel(q, kp, vp, lens, pi, scale), iters=50)
     plain_ms = time_ms(lambda: _paged_attention_xla(q, kp, vp, lens, pi, scale))
     report[kname] = dict(
@@ -1125,7 +1141,305 @@ def interrupt_phase(torch, rng, dev, cfg, params):
 
 
 # ----------------------------------------------------------------------
-# Phases 6-7: training
+# Phase 6: the generation server over HTTP
+# ----------------------------------------------------------------------
+
+STOP_TOKEN = 151643  # R1-Distill-Qwen's end-of-sentence id: the server has no tokenizer
+
+
+def http_call(url, path, payload=None, headers=None, timeout=900.0):
+    """(status, headers, parsed body) of one request to the server; a
+    POST when `payload` is given. /metrics parses to {name: value}."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url + path, data,
+                                 {"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            status, hdrs, body = resp.status, dict(resp.headers), resp.read()
+    except urllib.error.HTTPError as e:
+        status, hdrs, body = e.code, dict(e.headers), e.read()
+    if path == "/metrics":
+        return status, hdrs, dict(line.split(" ", 1) for line in body.decode().splitlines())
+    return status, hdrs, json.loads(body)
+
+
+def generate_body(req, priority=None):
+    """A GenRequest as the /generate JSON a rollout worker sends."""
+    body = {"qid": req.qid, "input_ids": list(req.input_ids), "gconfig": {
+        "max_new_tokens": req.max_new_tokens, "min_new_tokens": req.min_new_tokens,
+        "greedy": req.greedy, "temperature": req.temperature, "top_p": req.top_p,
+        "top_k": req.top_k, "stop_token_ids": list(req.stop_token_ids)}}
+    if priority is not None:
+        body["priority"] = priority
+    return body
+
+
+def http_wave(url, bodies):
+    """POST every body from its own client thread, all released together;
+    returns ({qid: response}, wall seconds). Every answer must be a 200
+    with the reference's response keys; each response also carries
+    `http_s`, its round trip as the client saw it less the engine's
+    `latency` (submit to result): the time the request spent in HTTP and
+    in the server's handler."""
+    from types import SimpleNamespace
+
+    keys = {"qid", "output_ids", "output_logprobs", "no_eos", "interrupted",
+            "version_start", "version_end", "latency"}
+    out, errors = {}, []
+    start = threading.Barrier(len(bodies) + 1)
+
+    def client(body):
+        start.wait()
+        t0 = time.monotonic()
+        try:
+            status, _, reply = http_call(url, "/generate", body)
+        except Exception as e:  # reported below, with the qid
+            status, reply = None, repr(e)
+        if status != 200 or set(reply) != keys:
+            errors.append(f"{body['qid']}: {status} {reply}")
+        else:
+            out[body["qid"]] = SimpleNamespace(
+                **reply, http_s=time.monotonic() - t0 - reply["latency"])
+
+    threads = [threading.Thread(target=client, args=(b,)) for b in bodies]
+    for t in threads:
+        t.start()
+    start.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise AssertionError(f"/generate failed: {errors[:3]}")
+    return out, wall
+
+
+def perturbed(torch, params, seed):
+    """A second seeded param set: each leaf times (1 + 0.01 N(0, 1)),
+    drawn on the params' device."""
+    gen = torch.Generator(device=next(iter(params["final_norm"].values())).device)
+    gen.manual_seed(seed)
+
+    def leaf(x):
+        if isinstance(x, dict):
+            return {k: leaf(v) for k, v in x.items()}
+        noise = torch.randn(x.shape, generator=gen, device=x.device, dtype=torch.float32)
+        return (x.float() * (1.0 + 0.01 * noise)).to(x.dtype)
+
+    return leaf(params)
+
+
+def http_phase(torch, rng, dev, cfg, seed, card):
+    """The port's GenerationServer in process, at the serving phases'
+    configuration plus the qid prefix cache and token-budget admission,
+    driven through HTTP: a mixed wave from 18 client threads, six
+    continuations that must hit the prefix cache, the same wave through
+    the engine alone, greedy requests equal over HTTP and direct, a
+    weight update from a raw dump mid-wave (interrupted results, the
+    resubmissions on version 1, a stale retry), and admission shedding."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from areal_tpu_torch import kernels
+    from areal_tpu_torch.api.config import ModelAbstraction
+    from areal_tpu_torch.api.system_api import GenerationServerConfig
+    from areal_tpu_torch.base import name_resolve, names
+    from areal_tpu_torch.engine.serving import GenRequest
+    from areal_tpu_torch.system.generation_server import GenerationServer
+    from areal_tpu_torch.system.weight_transfer import dump_raw_params
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_http_")
+    name_resolve.reconfigure("nfs", record_root=os.path.join(tmp, "name_resolve"))
+    # An experiment name of this run's own: a weight update looks in
+    # /dev/shm/areal_tpu/<experiment>/<trial>/<role> before the dump it is
+    # given, and must not find another run's dump there.
+    exp = os.path.basename(tmp)
+    gcfg = GenerationServerConfig(
+        experiment_name=exp, trial_name="http", server_index=0,
+        model=ModelAbstraction("tpu_transformer", args=dict(config=dataclasses.asdict(cfg))),
+        max_concurrent_requests=16, max_seq_len=4096, kv_page_size=128,
+        decode_block_steps=16, prefill_chunk=1024, prefix_cache_tokens=65536,
+        prefill_token_budget=8192, warm_on_start=True, seed=seed, device=str(dev))
+    server = GenerationServer()
+    t0 = time.perf_counter()
+    server.configure(gcfg, experiment_name=gcfg.experiment_name, trial_name=gcfg.trial_name,
+                     worker_name=gcfg.worker_name)
+    run = threading.Thread(target=server.run, daemon=True)
+    run.start()
+    stats = dict(card=card)
+    try:
+        url = name_resolve.get(names.gen_server_url(exp, "http", "0"))
+        engine = server.engine
+        # /health first. It also builds urllib's opener (an SSL context
+        # among its handlers, ~0.5 s with 18 threads racing to build it),
+        # which the wave's first requests would otherwise pay inside
+        # their round trips, as a long-lived client does not.
+        status, _, health = http_call(url, "/health")
+        if status != 200 or health != {"status": "ok", "version": 0, "role": "unified"}:
+            raise AssertionError(f"http: /health answered {status} {health}")
+        log(f"  server at {url} in {time.perf_counter() - t0:.1f} s (seeded random weights, "
+            f"warm_on_start)")
+
+        # The mixed wave over HTTP, the prefix-cache continuations after it,
+        # the launches of each counted from 0. Nothing else launches a
+        # kernel until both counts are read: the checks come after.
+        reqs = mixed_requests(rng, cfg.vocab_size)
+        for r in reqs:
+            r.stop_token_ids = (STOP_TOKEN,)
+        engine.latency_snapshot(reset=True)
+        kernels.reset_launches()
+        results, wall = http_wave(url, [generate_body(r) for r in reqs])
+        counts_wave = dict(kernels.launches)
+        _, _, m_wave = http_call(url, "/metrics")
+        cont = [r for r in reqs if r.qid in ("mix1", "mix4", "mix9", "mix12", "mix13", "twin0")]
+        cont_bodies = []
+        for r in cont:
+            fresh = rng.integers(0, cfg.vocab_size, size=32).tolist()
+            c = GenRequest(qid=r.qid, input_ids=list(r.input_ids) + results[r.qid].output_ids
+                           + fresh, max_new_tokens=32, greedy=True,
+                           stop_token_ids=(STOP_TOKEN,))
+            cont_bodies.append(generate_body(c, priority=0))
+        kernels.reset_launches()
+        _, cont_wall = http_wave(url, cont_bodies)
+        counts_cont = dict(kernels.launches)
+        counts = {k: counts_wave.get(k, 0) + counts_cont.get(k, 0)
+                  for k in set(counts_wave) | set(counts_cont)}
+        _, _, m = http_call(url, "/metrics")
+        hits = float(m["areal:prefix_cache_hits"])
+        n_prompt = sum(len(r.input_ids) for r in reqs)
+        n_out = sum(len(res.output_ids) for res in results.values())
+        http_ms = sorted(1e3 * res.http_s for res in results.values())
+        check_results(torch, engine, engine.cfg, engine.params, reqs, results)
+        log(f"  http wave: {len(reqs)} requests, {n_prompt} prompt tokens, {n_out} output "
+            f"tokens in {wall:.2f} s ({n_out / wall:.1f} output tok/s); TTFT p50 "
+            f"{m_wave['areal:ttft_p50_ms']} p99 {m_wave['areal:ttft_p99_ms']} ms, ITL p50 "
+            f"{m_wave['areal:itl_p50_ms']} p99 {m_wave['areal:itl_p99_ms']} ms (/metrics "
+            f"bucket edges); HTTP and handler time a request (round trip less engine "
+            f"latency) median {http_ms[len(http_ms) // 2]:.1f} ms, max {http_ms[-1]:.1f} ms; "
+            f"{card}")
+        log(f"  continuations: {len(cont)} in {cont_wall:.2f} s; prefix_cache_hits {hits}, "
+            f"prefix_tokens_reused {m['areal:prefix_tokens_reused']}; launches through the "
+            f"server: wave {counts_wave}, continuations {counts_cont}")
+        if hits < 6:
+            raise AssertionError(f"http: prefix_cache_hits {hits} < 6 after the continuations")
+        for k in ("flash_attn_fwd_bf16", "paged_decode_bf16"):
+            if counts.get(k, 0) <= 0:
+                raise AssertionError(f"http: kernel {k} was not launched through the server")
+
+        # The same wave through the engine alone (new qids, no cache hits),
+        # its launches and latencies apart.
+        direct = [dataclasses.replace(r, qid=r.qid + "-direct", done_cb=None) for r in reqs]
+        engine.latency_snapshot(reset=True)
+        kernels.reset_launches()
+        res_d, wall_d = run_requests(engine, direct)
+        counts_d = dict(kernels.launches)
+        snap_d = engine.latency_snapshot()
+        n_out_d = sum(len(x.output_ids) for x in res_d.values())
+        log(f"  engine alone, same wave: {n_out_d} output tokens in {wall_d:.2f} s "
+            f"({n_out_d / wall_d:.1f} output tok/s; HTTP wall {wall:.2f} s); TTFT p50 "
+            f"{snap_d['ttft_p50_ms']} p99 {snap_d['ttft_p99_ms']} ms, ITL p50 "
+            f"{snap_d['itl_p50_ms']} p99 {snap_d['itl_p99_ms']} ms; launches {counts_d}")
+
+        # Greedy requests one at a time: over HTTP and direct, bit-equal.
+        for i, n in enumerate((300, 700)):
+            r = GenRequest(qid=f"eq{i}", input_ids=rng.integers(0, cfg.vocab_size, n).tolist(),
+                           max_new_tokens=64, greedy=True, stop_token_ids=(STOP_TOKEN,))
+            status, _, over_http = http_call(url, "/generate", generate_body(r))
+            alone, _ = run_requests(engine, [dataclasses.replace(r, qid=f"eq{i}-direct")])
+            if status != 200 or over_http["output_ids"] != alone[f"eq{i}-direct"].output_ids:
+                raise AssertionError(f"http: greedy eq{i} differs over HTTP and direct")
+        log("  greedy requests over HTTP and through the engine alone: tokens bit-equal")
+
+        # A weight update from a raw dump while a wave of 16 decodes.
+        t1 = time.perf_counter()
+        dump_dir = os.path.join(tmp, "param_realloc", "actor")
+        new_params = perturbed(torch, engine.params, seed + 1)
+        dump_s = dump_raw_params(new_params, dump_dir, version=1)
+        del new_params
+        torch.cuda.empty_cache()
+        log(f"  raw dump of a second seeded param set: {dump_s:.1f} s")
+        wave = [GenRequest(qid=f"upd{i}", input_ids=rng.integers(0, cfg.vocab_size, 256).tolist(),
+                           max_new_tokens=2048, min_new_tokens=2048, greedy=True,
+                           stop_token_ids=(STOP_TOKEN,)) for i in range(16)]
+        box = {}
+        waver = threading.Thread(target=lambda: box.update(
+            zip(("res", "wall"), http_wave(url, [generate_body(r) for r in wave]))))
+        waver.start()
+        deadline = time.monotonic() + 300
+        while float(http_call(url, "/metrics")[2]["areal:num_running_reqs"]) < 16:
+            if time.monotonic() > deadline:
+                raise TimeoutError("http: the update wave never ran 16 requests")
+            time.sleep(0.05)
+        status, _, upd = http_call(url, "/update_weights_from_disk", {
+            "model_path": dump_dir, "allow_interrupt": True, "version": 1})
+        waver.join()
+        # The phase writes its dump to disk only, so the disk is the source.
+        if status != 200 or not upd.get("success") or upd["source"] != "disk_raw":
+            raise AssertionError(f"http: weight update failed: {status} {upd}")
+        partial = box["res"]
+        if not all(x.interrupted and 0 < len(x.output_ids) < 2048 and x.version_start == 0
+                   for x in partial.values()):
+            raise AssertionError("http: the wave was not interrupted by the update")
+        # The partial-rollout protocol: resubmit prompt + partial output.
+        resub, _ = http_wave(url, [generate_body(GenRequest(
+            qid=r.qid, input_ids=list(r.input_ids) + partial[r.qid].output_ids,
+            max_new_tokens=16, greedy=True, stop_token_ids=(STOP_TOKEN,)), priority=0)
+            for r in wave])
+        if not all(x.version_start == x.version_end == 1 and not x.interrupted
+                   for x in resub.values()):
+            raise AssertionError("http: resubmissions did not run on version 1")
+        _, _, m = http_call(url, "/metrics")
+        if m["areal:weight_version"] != "1.0":
+            raise AssertionError(f"http: weight_version {m['areal:weight_version']}")
+        status, _, stale = http_call(url, "/update_weights_from_disk", {
+            "model_path": dump_dir, "allow_interrupt": True, "version": 1})
+        if status != 200 or stale.get("stale") is not True:
+            raise AssertionError(f"http: the retry of version 1 was not stale: {stale}")
+        log(f"  weight update mid-wave: source {upd['source']}, load_s {upd['load_s']:.3f}, "
+            f"last_weight_stage_s {m['areal:last_weight_stage_s']}, last_weight_swap_s "
+            f"{m['areal:last_weight_swap_s']}; 16 interrupted at "
+            f"{sorted(len(x.output_ids) for x in partial.values())} tokens (version_end "
+            f"{sorted({x.version_end for x in partial.values()})}), resubmitted on version 1; "
+            f"stale retry recognized; {time.perf_counter() - t1:.1f} s; {card}")
+
+        # Admission shedding.
+        http_call(url, "/configure", {"max_queue_depth": 0})
+        status, hdrs, shed = http_call(url, "/generate", generate_body(reqs[0]))
+        http_call(url, "/configure", {"max_queue_depth": None})
+        if status != 429 or "Retry-After" not in hdrs or shed.get("error") != "overloaded":
+            raise AssertionError(f"http: max_queue_depth=0 did not shed: {status} {shed}")
+        log(f"  shed: 429, Retry-After {hdrs['Retry-After']}")
+        stats.update(
+            requests=len(reqs), prompt_tokens=n_prompt, output_tokens=n_out, wave_wall_s=wall,
+            wave_output_tok_s=n_out / wall, wave_launches=counts_wave,
+            continuation_launches=counts_cont,
+            http_ms_median=http_ms[len(http_ms) // 2], http_ms_max=http_ms[-1],
+            engine_alone_wall_s=wall_d, engine_alone_output_tokens=n_out_d,
+            engine_alone_output_tok_s=n_out_d / wall_d, engine_alone_launches=counts_d,
+            engine_alone_ttft_p50_ms=snap_d["ttft_p50_ms"],
+            engine_alone_ttft_p99_ms=snap_d["ttft_p99_ms"],
+            engine_alone_itl_p50_ms=snap_d["itl_p50_ms"],
+            engine_alone_itl_p99_ms=snap_d["itl_p99_ms"],
+            ttft_p50_ms=float(m_wave["areal:ttft_p50_ms"]),
+            ttft_p99_ms=float(m_wave["areal:ttft_p99_ms"]),
+            itl_p50_ms=float(m_wave["areal:itl_p50_ms"]),
+            itl_p99_ms=float(m_wave["areal:itl_p99_ms"]),
+            prefix_cache_hits=hits, continuation_wall_s=cont_wall, load_s=upd["load_s"],
+            dump_s=dump_s, last_weight_stage_s=float(m["areal:last_weight_stage_s"]),
+            last_weight_swap_s=float(m["areal:last_weight_swap_s"]), launches=counts)
+        return stats
+    finally:
+        server.exit()
+        run.join(timeout=120)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ----------------------------------------------------------------------
+# Phases 7-8: training
 # ----------------------------------------------------------------------
 
 
@@ -1519,9 +1833,22 @@ def main() -> int:
             report["phases"]["interrupt"] = interrupt_phase(torch, rng, dev, cfg, params)
             phase_done("interrupt", t0)
         # The serving engines and pools are gone; free their weights too
-        # before the training phases.
+        # before the server and the training phases.
         del params
         torch.cuda.empty_cache()
+
+    if "http" in phases:
+        log("phase http")
+        t0 = time.perf_counter()
+        # Its own generator: the later phases' batches stay those of a
+        # run without it.
+        report["phases"]["http"] = http_phase(torch, np.random.default_rng([args.seed, 4]),
+                                              dev, cfg, args.seed, card)
+        counts = report["phases"]["http"]["launches"]
+        for k in ("flash_attn_fwd_bf16", "paged_decode_bf16"):
+            main_counts.setdefault(k, counts[k])
+        torch.cuda.empty_cache()
+        phase_done("http", t0)
 
     if "grad" in phases:
         log("phase grad")
