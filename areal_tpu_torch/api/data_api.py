@@ -5,13 +5,16 @@ calls from ``areal_tpu/api/data_api.py``).
 engines: every array is packed along a single leading dimension with
 explicit per-sample sequence lengths, no padding. Packing into [R, T] rows
 happens at the last moment inside the engine. Host-side numpy throughout;
-the engine moves rows to its device. The dataset registry, loaders and the
-JSON wire format of the reference are not ported.
+the engine moves rows to its device. ``sample_to_json`` /
+``sample_from_json`` are the trajectory wire of the push/pull stream, the
+reference's key for key, so a reference rollout worker can feed a port
+trainer. The dataset registry and loaders are not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
@@ -140,6 +143,10 @@ class SequenceSample:
     def bs(self) -> int:
         return len(self.ids)
 
+    def sample_total_len(self, i: int, key: Optional[str] = None) -> int:
+        key = key or self._main_key()
+        return sum(self.seqlens[key][i])
+
     def _main_key(self) -> str:
         for k in ("packed_input_ids", "packed_prompts", "seq"):
             if k in self.keys:
@@ -158,6 +165,53 @@ class SequenceSample:
     # ------------------------------------------------------------------
     # Gather / split
     # ------------------------------------------------------------------
+
+    @classmethod
+    def gather(
+        cls, samples: Sequence["SequenceSample"], keys: Optional[Sequence[str]] = None
+    ) -> "SequenceSample":
+        if not samples:
+            raise ValueError("cannot gather zero samples")
+        keys = set(keys) if keys is not None else set(samples[0].keys)
+        for s in samples:
+            if not keys.issubset(s.keys):
+                raise ValueError(f"sample missing keys {keys - s.keys}")
+        ids = datapack.flat2d([s.ids for s in samples])
+        if len(set(ids)) != len(ids):
+            raise ValueError("duplicate ids in gathered samples")
+        data = {}
+        seqlens = {}
+        dtypes = {}
+        trailing = {}
+        for k in keys:
+            seqlens[k] = datapack.flat2d([s.seqlens[k] for s in samples])
+            chunks = [s.data.get(k) for s in samples]
+            if all(c is None for c in chunks):
+                data[k] = None
+            elif any(c is None for c in chunks):
+                raise ValueError(f"mixed data/None for key {k!r} in gather")
+            else:
+                data[k] = np.concatenate(chunks, axis=0)
+            dtypes[k] = samples[0].dtypes.get(k)
+            trailing[k] = samples[0].trailing_shapes.get(k)
+        metadata = {}
+        meta_keys = set(itertools.chain.from_iterable(s.metadata for s in samples))
+        for mk in meta_keys:
+            vals = []
+            for s in samples:
+                # Samples of mixed streams may lack a stream-specific key:
+                # pad with None to keep the per-sample alignment.
+                vals.extend(s.metadata[mk] if mk in s.metadata else [None] * s.bs)
+            metadata[mk] = vals
+        return cls(
+            ids=ids,
+            keys=keys,
+            data=data,
+            seqlens=seqlens,
+            dtypes=dtypes,
+            trailing_shapes=trailing,
+            metadata=metadata,
+        )
 
     def _select_indices(self, indices: Sequence[int]) -> "SequenceSample":
         """New sample containing the given sample positions, in that order."""
@@ -184,6 +238,24 @@ class SequenceSample:
             dtypes=dict(self.dtypes),
             trailing_shapes=dict(self.trailing_shapes),
             metadata={k: [v[i] for i in indices] for k, v in self.metadata.items()},
+        )
+
+    def select_ids(self, ids: Sequence[str]) -> "SequenceSample":
+        pos = {i: p for p, i in enumerate(self.ids)}
+        return self._select_indices([pos[i] for i in ids])
+
+    def select_keys(self, keys: Sequence[str]) -> "SequenceSample":
+        keys = set(keys)
+        if not keys.issubset(self.keys):
+            raise ValueError(f"missing keys: {keys - self.keys}")
+        return SequenceSample(
+            ids=list(self.ids),
+            keys=keys,
+            data={k: self.data.get(k) for k in keys},
+            seqlens={k: self.seqlens[k] for k in keys},
+            dtypes={k: self.dtypes.get(k) for k in keys},
+            trailing_shapes={k: self.trailing_shapes.get(k) for k in keys},
+            metadata=dict(self.metadata),
         )
 
     def split(
@@ -237,3 +309,77 @@ class SequenceSample:
             self.dtypes[k] = other.dtypes.get(k)
             self.trailing_shapes[k] = other.trailing_shapes.get(k)
         self.metadata.update(other.metadata)
+
+    def remap_keys_(self, remap: Dict[str, str]):
+        for src, dst in remap.items():
+            if src not in self.keys:
+                continue
+            self.keys.discard(src)
+            self.keys.add(dst)
+            self.data[dst] = self.data.pop(src)
+            self.seqlens[dst] = self.seqlens.pop(src)
+            self.dtypes[dst] = self.dtypes.pop(src)
+            self.trailing_shapes[dst] = self.trailing_shapes.pop(src)
+
+    def meta(self) -> "SequenceSample":
+        """Metadata-only copy (control-plane payloads carry no tensors)."""
+        return SequenceSample(
+            ids=list(self.ids),
+            keys=set(self.keys),
+            data={k: None for k in self.keys},
+            seqlens={k: [list(sl) for sl in v] for k, v in self.seqlens.items()},
+            dtypes=dict(self.dtypes),
+            trailing_shapes=dict(self.trailing_shapes),
+            metadata=dict(self.metadata),
+        )
+
+    def unpack(self) -> List["SequenceSample"]:
+        return [self._select_indices([i]) for i in range(self.bs)]
+
+
+def sample_to_json(s: "SequenceSample") -> Dict[str, Any]:
+    """Lossless JSON encoding of a SequenceSample (token-scale arrays)."""
+    return {
+        "ids": list(s.ids),
+        "keys": sorted(s.keys),
+        "data": {
+            k: (None if s.data.get(k) is None else np.asarray(s.data[k]).tolist())
+            for k in s.keys
+        },
+        "seqlens": {k: s.seqlens[k] for k in s.keys},
+        "dtypes": {
+            k: (None if s.dtypes.get(k) is None else np.dtype(s.dtypes[k]).name)
+            for k in s.keys
+        },
+        "trailing_shapes": {
+            k: (None if s.trailing_shapes.get(k) is None else list(s.trailing_shapes[k]))
+            for k in s.keys
+        },
+        "metadata": s.metadata,
+    }
+
+
+def sample_from_json(d: Dict[str, Any]) -> "SequenceSample":
+    data = {}
+    for k in d["keys"]:
+        v = d["data"].get(k)
+        if v is None:
+            data[k] = None
+        else:
+            dt = d["dtypes"].get(k) or "float32"
+            data[k] = np.asarray(v, dtype=np.dtype(dt))
+    return SequenceSample(
+        ids=list(d["ids"]),
+        keys=set(d["keys"]),
+        data=data,
+        seqlens={k: [list(map(int, sl)) for sl in v] for k, v in d["seqlens"].items()},
+        dtypes={
+            k: (None if v is None else np.dtype(v))
+            for k, v in d.get("dtypes", {}).items()
+        },
+        trailing_shapes={
+            k: (None if v is None else tuple(v))
+            for k, v in d.get("trailing_shapes", {}).items()
+        },
+        metadata=d.get("metadata", {}),
+    )

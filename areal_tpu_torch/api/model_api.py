@@ -4,9 +4,12 @@ port's copy of what it calls from ``areal_tpu/api/model_api.py`` and
 
 `TrainEngine` is what algorithm interfaces program against: `train_batch`
 and `forward` over packed `SequenceSample`s with micro-batch specs. In the
-port an engine owns a tree of tensors on one device. In-framework
-generation, backends and the generation-server API types of the reference
-are not ported.
+port an engine owns a tree of tensors on one device. The model, backend
+and interface registries resolve the abstractions of an experiment
+config (``api/config.py``) by the reference's names
+(``engine/factories.py`` registers ``tpu_transformer``, ``jax_train``
+and ``jax_inference``). In-framework generation and the
+generation-server API types of the reference are not ported.
 """
 
 from __future__ import annotations
@@ -35,6 +38,13 @@ class ModelName:
 
     def __str__(self):
         return f"{self.role}@{self.replica_id}"
+
+    @classmethod
+    def parse(cls, s: str) -> "ModelName":
+        if "@" in s:
+            role, rid = s.split("@")
+            return cls(role=role, replica_id=int(rid))
+        return cls(role=s)
 
 
 @dataclasses.dataclass
@@ -112,6 +122,14 @@ class ModelInterface(abc.ABC):
         raise NotImplementedError()
 
 
+class ModelBackend(abc.ABC):
+    """Wraps a bare Model with an engine (optimizer state etc.)."""
+
+    @abc.abstractmethod
+    def initialize(self, model: Model, spec: FinetuneSpec) -> Model:
+        ...
+
+
 class Registry:
     """Simple name -> factory registry with helpful errors."""
 
@@ -124,20 +142,44 @@ class Registry:
             raise ValueError(f"{self.kind} {name!r} already registered")
         self._factories[name] = factory
 
-    def make(self, name: str, *args, **kwargs):
+    def make(self, abstraction_or_name, *args, **kwargs):
+        """Build from a registered name, or from an abstraction (its
+        ``type_`` and ``args``; keyword arguments override ``args``)."""
+        if isinstance(abstraction_or_name, str):
+            name, extra = abstraction_or_name, {}
+        else:
+            name, extra = abstraction_or_name.type_, abstraction_or_name.args
         if name not in self._factories:
             raise KeyError(
                 f"unknown {self.kind} {name!r}; registered: {sorted(self._factories)}"
             )
-        return self._factories[name](*args, **kwargs)
+        return self._factories[name](*args, **{**extra, **kwargs})
 
 
+MODEL_REGISTRY = Registry("model")
 INTERFACE_REGISTRY = Registry("interface")
+BACKEND_REGISTRY = Registry("backend")
+
+
+def register_model(name: str, factory):
+    MODEL_REGISTRY.register(name, factory)
+
+
+def make_model(cfg, **kwargs) -> Model:
+    return MODEL_REGISTRY.make(cfg, **kwargs)
 
 
 def register_interface(name: str, factory):
     INTERFACE_REGISTRY.register(name, factory)
 
 
-def make_interface(name: str, **kwargs) -> ModelInterface:
-    return INTERFACE_REGISTRY.make(name, **kwargs)
+def make_interface(cfg, **kwargs) -> ModelInterface:
+    return INTERFACE_REGISTRY.make(cfg, **kwargs)
+
+
+def register_backend(name: str, factory):
+    BACKEND_REGISTRY.register(name, factory)
+
+
+def make_backend(cfg, **kwargs) -> ModelBackend:
+    return BACKEND_REGISTRY.make(cfg, **kwargs)

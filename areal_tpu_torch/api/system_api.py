@@ -1,15 +1,116 @@
-"""Worker configuration (the port's copy of ``GenerationServerConfig``
-from ``areal_tpu/api/system_api.py``: the reference's fields and
-defaults, plus ``device``). The generation server refuses at boot every
-field of a feature the port lacks when it is set to anything but its
-default (``system/generation_server.py``)."""
+"""Worker configuration (the port's copy of ``ModelShardSpec``,
+``ModelWorkerConfig``, ``ExperimentSaveEvalControl``,
+``MasterWorkerConfig``, ``GenerationServerConfig`` and
+``ExperimentConfig`` from ``areal_tpu/api/system_api.py``: the
+reference's fields and defaults, plus ``device`` on the model worker and
+the generation server). A worker refuses at boot every field of a
+feature the port lacks when it is set to anything but its default
+(``system/model_worker.py``, ``system/generation_server.py``); the
+rollout-worker and gserver-manager configs come with the rollout slice,
+and the controller refuses an experiment that names them."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Dict, List, Optional
 
-from areal_tpu_torch.api.config import ModelAbstraction
+from areal_tpu_torch.api.config import (
+    DatasetAbstraction,
+    ModelAbstraction,
+    ModelBackendAbstraction,
+    ModelInterfaceAbstraction,
+    ModelShardID,
+)
+from areal_tpu_torch.api.dfg import MFCDef
+
+
+@dataclasses.dataclass
+class ModelShardSpec:
+    """One model hosted on a model worker: how to build and wrap it."""
+
+    id: ModelShardID
+    model: ModelAbstraction = None
+    backend: ModelBackendAbstraction = None
+    interface: ModelInterfaceAbstraction = None
+    eval_dataset: Optional[DatasetAbstraction] = None
+    # initial HF checkpoint path (None = random init from model args)
+    model_path: Optional[str] = None
+
+
+@dataclasses.dataclass
+class ModelWorkerConfig:
+    experiment_name: str = ""
+    trial_name: str = ""
+    worker_index: int = 0
+    shards: List[ModelShardSpec] = dataclasses.field(default_factory=list)
+    # Dataset hosting (only on workers that serve the src MFC's model):
+    datasets: List[DatasetAbstraction] = dataclasses.field(default_factory=list)
+    tokenizer_path: Optional[str] = None
+    use_dataset_cache: bool = False
+    # dp coordinates for dataset sharding
+    dataset_dp_rank: int = 0
+    dataset_dp_size: int = 1
+    train_batch_size: int = 8
+    total_train_epochs: int = 1
+    seed: int = 1
+    # async mode: pull trajectories from rollout workers instead of a dataset
+    stream_dataset: bool = False
+    n_pullers: int = 1
+    shuffle_dataset: bool = True
+    # Multi-host sharded training (one train partition over several hosts).
+    train_n_hosts: int = 1
+    train_host_rank: int = 0
+    # Streaming weight-distribution plane and its wire.
+    weight_plane: bool = False
+    weight_chunk_bytes: int = 8 << 20
+    weight_wire_dtype: Optional[str] = None
+    # The port's one field beyond the reference's: the torch device the
+    # worker's engines run on. The CPU runs the kernels' plain versions.
+    device: str = "cuda"
+
+    @property
+    def worker_name(self) -> str:
+        return f"model_worker/{self.worker_index}"
+
+
+@dataclasses.dataclass
+class ExperimentSaveEvalControl:
+    # None = inherit the experiment's top-level total_train_epochs.
+    total_train_epochs: Optional[int] = None
+    # Exactly one of *_freq_{epochs,steps,secs} may be set per action.
+    save_freq_epochs: Optional[int] = None
+    save_freq_steps: Optional[int] = None
+    save_freq_secs: Optional[int] = None
+    ckpt_freq_epochs: Optional[int] = None
+    ckpt_freq_steps: Optional[int] = None
+    ckpt_freq_secs: Optional[int] = None
+    eval_freq_epochs: Optional[int] = None
+    eval_freq_steps: Optional[int] = None
+    eval_freq_secs: Optional[int] = None
+    benchmark_steps: Optional[int] = None  # stop early after N steps
+
+
+@dataclasses.dataclass
+class MasterWorkerConfig:
+    experiment_name: str = ""
+    trial_name: str = ""
+    exp_ctrl: ExperimentSaveEvalControl = dataclasses.field(
+        default_factory=ExperimentSaveEvalControl
+    )
+    rpcs: List[MFCDef] = dataclasses.field(default_factory=list)
+    # model_name(str) -> list of model-worker names hosting it (DP order)
+    model_topos: Dict[str, List[str]] = dataclasses.field(default_factory=dict)
+    # worker names hosting the dataset ("fetch" targets, DP order)
+    data_hosts: List[str] = dataclasses.field(default_factory=list)
+    n_model_workers: int = 1
+    train_batch_size: int = 8
+    dataset_size: int = 0
+    buffer_max_size: int = 16384
+    recover_mode: str = "disabled"  # disabled | auto | resume
+
+    @property
+    def worker_name(self) -> str:
+        return "master"
 
 
 @dataclasses.dataclass
@@ -145,3 +246,20 @@ class GenerationServerConfig:
     @property
     def worker_name(self) -> str:
         return f"generation_server/{self.server_index}"
+
+
+@dataclasses.dataclass
+class ExperimentConfig:
+    """Everything the controller needs to launch one trial. The rollout
+    workers and the gserver manager are the reference's fields; the port
+    has no such workers yet, and its controller refuses them."""
+
+    experiment_name: str = ""
+    trial_name: str = ""
+    master: MasterWorkerConfig = None
+    model_workers: List[ModelWorkerConfig] = dataclasses.field(default_factory=list)
+    rollout_workers: List[Any] = dataclasses.field(default_factory=list)
+    gserver_manager: Optional[Any] = None
+    generation_servers: List[GenerationServerConfig] = dataclasses.field(
+        default_factory=list
+    )

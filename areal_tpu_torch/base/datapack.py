@@ -44,3 +44,53 @@ def ffd_allocate(
             sums.append(l)
     # Drop empty bins (possible when min_groups > n items).
     return [g for g in groups if g]
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def pack_shape(
+    lengths: Sequence[int],
+    row_len_multiple: int = 128,
+    n_rows_multiple: int = 1,
+    max_row_len: int = None,
+) -> tuple:
+    """(n_rows, row_len) that `models.packing.pack_sequences` allocates
+    for these sequence lengths, computed without packing. Where the pack
+    raises (a sequence longer than max_row_len) the rows widen to fit."""
+    lengths = [int(l) for l in lengths]
+    if not lengths:
+        raise ValueError("cannot compute pack shape of zero sequences")
+    longest = max(lengths)
+    row_len = _round_up(max(longest, row_len_multiple), row_len_multiple)
+    if max_row_len is not None:
+        row_len = min(row_len, _round_up(max_row_len, row_len_multiple))
+        row_len = max(row_len, _round_up(longest, row_len_multiple))
+    groups = ffd_allocate(lengths, capacity=row_len, min_groups=1)
+    n_rows = _round_up(len(groups), n_rows_multiple)
+    return n_rows, row_len
+
+
+def packing_density(
+    lengths: Sequence[int],
+    row_len_multiple: int = 128,
+    n_rows_multiple: int = 1,
+    max_row_len: int = None,
+) -> float:
+    """Real tokens over the [R, T] cells of the FFD pack of `lengths`
+    (the `perf/packing_efficiency` series)."""
+    n_rows, row_len = pack_shape(lengths, row_len_multiple, n_rows_multiple, max_row_len)
+    return float(sum(int(l) for l in lengths)) / float(n_rows * row_len)
+
+
+def balanced_partition(nums: Sequence[int], k: int) -> List[List[int]]:
+    """Split into k groups balanced by sum, order-free (greedy LPT)."""
+    order = np.argsort(-np.asarray(nums), kind="stable")
+    groups: List[List[int]] = [[] for _ in range(k)]
+    sums = np.zeros(k)
+    for idx in order:
+        g = int(np.argmin(sums))
+        groups[g].append(int(idx))
+        sums[g] += nums[int(idx)]
+    return [sorted(g) for g in groups]

@@ -53,6 +53,26 @@ _KNOBS: List[Knob] = [
          "(system/weight_transfer.py)."),
     Knob("AREAL_WEIGHT_LOAD_RETRY_S", "float", 0.25,
          "Sleep seconds between weight-load retries."),
+    Knob("AREAL_FILEROOT", "str", None,
+         "Filesystem root for logs, recover data and param-realloc dumps "
+         "(base/constants.py); unset = <tempdir>/areal_tpu/$USER. Read at "
+         "call time."),
+    Knob("AREAL_WAL", "bool", True,
+         "Arm the rollout write-ahead log and exactly-once ledger "
+         "(system/wal.py, system/stream_dataset.py): accepted trajectories "
+         "journal to disk before the pusher is acked."),
+    Knob("AREAL_WAL_FSYNC_MS", "float", 50.0,
+         "Max milliseconds an appended WAL record waits for the batched "
+         "fsync (and its deferred ack); 0 = fsync every append."),
+    Knob("AREAL_WAL_ACK_TIMEOUT_S", "float", 5.0,
+         "Seconds a pushed sample may sit unacked before the pusher "
+         "redelivers it (system/push_pull_stream.py)."),
+    Knob("AREAL_WAL_REDELIVER_MAX", "int", 0,
+         "Redeliveries of an unacked sample before the pusher drops it; "
+         "0 = retry forever."),
+    Knob("AREAL_TPU_MEMORY_KILL_THRESHOLD", "float", None,
+         "Device-memory fraction above which a model worker raises after "
+         "an MFC (base/monitor.py); unset = disabled."),
 ]
 
 REGISTRY: Dict[str, Knob] = {k.name: k for k in _KNOBS}

@@ -1,6 +1,6 @@
 """The named chaos-injection points the port fires (the port's copy of
 the entries of ``areal_tpu/base/fault_points.py`` that its generation
-server and worker fire; names and meanings are the reference's, so one
+server and worker system fire; names and meanings are the reference's, so one
 ``AREAL_FAULTS`` spec arms reference and port processes alike).
 
 Names under ``test.`` are reserved for the injector's own tests and are
@@ -32,6 +32,13 @@ _POINTS: List[FaultPoint] = [
                "Weight load from the shared dump dies mid-update."),
     FaultPoint("worker.poll", ("areal_tpu_torch/system/worker_base.py",),
                "A worker's poll loop dies or hangs."),
+    FaultPoint("master.step", ("areal_tpu_torch/system/master_worker.py",),
+               "The master dies at the top of a train step."),
+    FaultPoint("buffer.wal_append", ("areal_tpu_torch/system/wal.py",),
+               "The trainer dies while journaling an accepted trajectory."),
+    FaultPoint("buffer.consume", ("areal_tpu_torch/system/buffer.py",),
+               "The trainer dies after a batch is handed to training, before "
+               "its consumption is durable."),
 ]
 
 REGISTRY: Dict[str, FaultPoint] = {p.name: p for p in _POINTS}

@@ -11,6 +11,26 @@ def trial_root(experiment_name: str, trial_name: str) -> str:
     return f"{USER_NAMESPACE}/{experiment_name}/{trial_name}"
 
 
+def worker_status(experiment_name: str, trial_name: str, worker_name: str) -> str:
+    return f"{trial_root(experiment_name, trial_name)}/status/{worker_name}"
+
+
+def worker(experiment_name: str, trial_name: str, worker_name: str) -> str:
+    return f"{trial_root(experiment_name, trial_name)}/workers/{worker_name}"
+
+
+def worker_key(experiment_name: str, trial_name: str, key: str) -> str:
+    return f"{trial_root(experiment_name, trial_name)}/worker_key/{key}"
+
+
+def request_reply_stream(experiment_name: str, trial_name: str, stream_name: str) -> str:
+    return f"{trial_root(experiment_name, trial_name)}/request_reply_stream/{stream_name}"
+
+
+def push_pull_stream(experiment_name: str, trial_name: str, stream_name: str) -> str:
+    return f"{trial_root(experiment_name, trial_name)}/push_pull_stream/{stream_name}"
+
+
 def gen_servers(experiment_name: str, trial_name: str) -> str:
     return f"{trial_root(experiment_name, trial_name)}/gen_servers"
 
@@ -19,9 +39,21 @@ def gen_server_url(experiment_name: str, trial_name: str, server_id: str) -> str
     return f"{trial_root(experiment_name, trial_name)}/gen_server_url/{server_id}"
 
 
+def model_version(experiment_name: str, trial_name: str, model_name: str) -> str:
+    return f"{trial_root(experiment_name, trial_name)}/model_version/{model_name}"
+
+
+def training_samples(experiment_name: str, trial_name: str) -> str:
+    return f"{trial_root(experiment_name, trial_name)}/training_samples"
+
+
 def experiment_status(experiment_name: str, trial_name: str) -> str:
     return f"{trial_root(experiment_name, trial_name)}/experiment_status"
 
 
 def health(experiment_name: str, trial_name: str, member: str) -> str:
     return f"{trial_root(experiment_name, trial_name)}/health/{member}"
+
+
+def health_root(experiment_name: str, trial_name: str) -> str:
+    return f"{trial_root(experiment_name, trial_name)}/health/"

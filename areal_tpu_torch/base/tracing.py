@@ -1,5 +1,6 @@
 """Request-scoped spans for the RL system plane (the port's copy of what
-the generation server calls from ``areal_tpu/base/tracing.py``).
+the generation server and the worker system call from
+``areal_tpu/base/tracing.py``).
 
 Off by default exactly as in the reference: every public call starts
 with one cached boolean branch, and the recorder is allocated only when
@@ -8,12 +9,14 @@ and are flushed in batches to a per-worker JSONL shard in the
 reference's record layout (a header with one wall/monotonic anchor
 pair, then one line a span), so the reference's merge tool reads port
 shards. Context crosses processes as a small dict inside the HTTP JSON
-bodies (``extract_from``).
+bodies and trajectories (``inject_into`` / ``extract_from``) and inside
+the request/reply stream's payloads (``inject`` / ``extract``).
 """
 
 from __future__ import annotations
 
 import atexit
+import contextlib
 import contextvars
 import dataclasses
 import json
@@ -21,7 +24,7 @@ import os
 import threading
 import time
 import uuid
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, Iterator, List, Optional
 
 from areal_tpu_torch.base import env_registry
 
@@ -93,6 +96,10 @@ def configure_worker(
         _SCOPE = f"{experiment}__{trial}".replace("/", "_").replace(
             os.sep, "_"
         )
+
+
+def now_ns() -> int:
+    return time.monotonic_ns()
 
 
 def _new_id() -> str:
@@ -198,6 +205,15 @@ def flush() -> None:
 # ---------------------------------------------------------------------------
 
 
+def inject() -> Optional[Dict[str, str]]:
+    """Current context as a transport-safe dict (None when disabled or
+    outside any span)."""
+    if not enabled():
+        return None
+    ctx = _current.get()
+    return ctx.to_dict() if ctx is not None else None
+
+
 def extract(d: Any) -> Optional[SpanContext]:
     """Rebuild a SpanContext from `inject()` output (tolerates None /
     junk — transport metadata is best-effort)."""
@@ -209,6 +225,18 @@ def extract(d: Any) -> Optional[SpanContext]:
     return SpanContext(trace_id=str(tid), span_id=str(sid))
 
 
+def inject_into(meta: Dict[str, Any]) -> Dict[str, Any]:
+    """Return a copy of a transport dict carrying the current context
+    under a reserved key (the input dict is never mutated; returned
+    unchanged when disabled or outside any span)."""
+    if not enabled():
+        return meta
+    ctx = inject()
+    if ctx is not None:
+        meta = {**meta, _CTX_KEY: ctx}
+    return meta
+
+
 def extract_from(meta: Any) -> Optional[SpanContext]:
     """Pop and rebuild a context placed by `inject_into` (pops even when
     present-but-disabled so payloads stay clean)."""
@@ -216,6 +244,15 @@ def extract_from(meta: Any) -> Optional[SpanContext]:
         return None
     d = meta.pop(_CTX_KEY, None)
     return extract(d)
+
+
+def set_current(ctx: Optional[SpanContext]) -> None:
+    """Set the current context without scoping — ONLY for code that owns
+    its execution context outright (an asyncio Task's body: the Task's
+    context copy dies with it, so there is nothing to restore)."""
+    if not enabled() or ctx is None:
+        return
+    _current.set(ctx)
 
 
 # ---------------------------------------------------------------------------
@@ -245,6 +282,36 @@ def _record(
     if attrs:
         rec["attrs"] = attrs
     _rec().append(rec)
+
+
+@contextlib.contextmanager
+def span(
+    name: str, ctx: Optional[SpanContext] = None, **attrs: Any
+) -> Iterator[Optional[SpanContext]]:
+    """Record a span around the block; the block runs with the new span
+    as the current context (children nest automatically).
+
+    `ctx` overrides the parent (e.g. a context extracted from transport
+    metadata). Without a parent, the span starts a NEW trace. Yields the
+    span's own context (None when disabled) so callers can stash it.
+    """
+    if not enabled():
+        yield None
+        return
+    parent = ctx if ctx is not None else _current.get()
+    if parent is not None:
+        trace_id, parent_id = parent.trace_id, parent.span_id
+    else:
+        trace_id, parent_id = _new_id(), None
+    me = SpanContext(trace_id=trace_id, span_id=_new_id())
+    token = _current.set(me)
+    t0 = time.monotonic_ns()
+    try:
+        yield me
+    finally:
+        t1 = time.monotonic_ns()
+        _current.reset(token)
+        _record(name, t0, t1, trace_id, me.span_id, parent_id, attrs)
 
 
 class ManualSpan:

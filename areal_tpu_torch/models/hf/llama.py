@@ -1,6 +1,7 @@
 """LLaMA-family HF conversion (counterpart of
-``areal_tpu/models/hf/llama.py``): the HF config to a TransformerConfig,
-and an HF state dict of torch tensors to the port's stacked param tree."""
+``areal_tpu/models/hf/llama.py``): the HF config to and from a
+TransformerConfig, and an HF state dict of torch tensors to and from the
+port's stacked param tree."""
 
 from __future__ import annotations
 
@@ -40,6 +41,33 @@ def config_from_hf(hf: Dict[str, Any], is_critic: bool = False) -> TransformerCo
         tied_embeddings=bool(hf.get("tie_word_embeddings", False)),
         is_critic=is_critic,
     )
+
+
+def config_to_hf(cfg: TransformerConfig) -> Dict[str, Any]:
+    hf = {
+        "architectures": ["LlamaForCausalLM"],
+        "model_type": "llama",
+        "num_hidden_layers": cfg.n_layers,
+        "hidden_size": cfg.hidden_dim,
+        "num_attention_heads": cfg.n_q_heads,
+        "num_key_value_heads": cfg.n_kv_heads,
+        "head_dim": cfg.head_dim,
+        "intermediate_size": cfg.intermediate_dim,
+        "vocab_size": cfg.vocab_size,
+        "max_position_embeddings": cfg.max_position_embeddings,
+        "hidden_act": "silu",
+        "rms_norm_eps": cfg.norm_eps,
+        "rope_theta": cfg.rotary_base,
+        "attention_bias": cfg.attn_bias,
+        "tie_word_embeddings": cfg.tied_embeddings,
+        "torch_dtype": "bfloat16",
+    }
+    if cfg.rotary_scaling:
+        hf["rope_scaling"] = {
+            "factor": cfg.rotary_scaling,
+            "rope_type": cfg.rotary_scaling_type or "linear",
+        }
+    return hf
 
 
 def params_from_hf_llama_style(
@@ -98,3 +126,50 @@ def params_from_hf_llama_style(
     elif not cfg.tied_embeddings:
         params["head"] = {"weight": w("lm_head.weight").T.contiguous()}
     return params
+
+
+def params_to_hf_llama_style(
+    params: Dict,
+    cfg: TransformerConfig,
+    qkv_bias: bool = False,
+    qk_norm: bool = False,
+) -> Dict[str, torch.Tensor]:
+    """The inverse of ``params_from_hf_llama_style``: HF names, [out, in]
+    linear weights, one tensor a layer, each leaf's dtype kept."""
+    layers = params["layers"]
+    a, m = layers["attn"], layers["mlp"]
+    sd: Dict[str, torch.Tensor] = {
+        "model.embed_tokens.weight": params["embedding"]["weight"],
+        "model.norm.weight": params["final_norm"]["weight"],
+    }
+    for i in range(cfg.n_layers):
+        pre = f"model.layers.{i}."
+        sd[pre + "input_layernorm.weight"] = layers["ln1"]["weight"][i]
+        sd[pre + "post_attention_layernorm.weight"] = layers["ln2"]["weight"][i]
+        sd[pre + "self_attn.q_proj.weight"] = a["wq"][i].T
+        sd[pre + "self_attn.k_proj.weight"] = a["wk"][i].T
+        sd[pre + "self_attn.v_proj.weight"] = a["wv"][i].T
+        sd[pre + "self_attn.o_proj.weight"] = a["wo"][i].T
+        if qkv_bias:
+            sd[pre + "self_attn.q_proj.bias"] = a["bq"][i]
+            sd[pre + "self_attn.k_proj.bias"] = a["bk"][i]
+            sd[pre + "self_attn.v_proj.bias"] = a["bv"][i]
+        if qk_norm:
+            sd[pre + "self_attn.q_norm.weight"] = a["q_norm"][i]
+            sd[pre + "self_attn.k_norm.weight"] = a["k_norm"][i]
+        sd[pre + "mlp.gate_proj.weight"] = m["w_gate"][i].T
+        sd[pre + "mlp.up_proj.weight"] = m["w_up"][i].T
+        sd[pre + "mlp.down_proj.weight"] = m["w_down"][i].T
+    if cfg.is_critic:
+        sd["score.weight"] = params["head"]["weight"].T
+    elif not cfg.tied_embeddings:
+        sd["lm_head.weight"] = params["head"]["weight"].T
+    return sd
+
+
+def params_from_hf(sd: Dict[str, torch.Tensor], cfg: TransformerConfig) -> Dict:
+    return params_from_hf_llama_style(sd, cfg, qkv_bias=cfg.attn_bias)
+
+
+def params_to_hf(params: Dict, cfg: TransformerConfig) -> Dict[str, torch.Tensor]:
+    return params_to_hf_llama_style(params, cfg, qkv_bias=cfg.attn_bias)

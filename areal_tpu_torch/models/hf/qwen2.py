@@ -13,7 +13,9 @@ import torch
 from areal_tpu_torch.models.config import TransformerConfig
 from areal_tpu_torch.models.hf.llama import (
     config_from_hf as llama_config_from_hf,
+    config_to_hf as llama_config_to_hf,
     params_from_hf_llama_style,
+    params_to_hf_llama_style,
 )
 
 # https://huggingface.co/deepseek-ai/DeepSeek-R1-Distill-Qwen-1.5B/blob/main/config.json
@@ -43,8 +45,21 @@ def config_from_hf(hf: Dict[str, Any], is_critic: bool = False) -> TransformerCo
     return cfg
 
 
+def config_to_hf(cfg: TransformerConfig) -> Dict[str, Any]:
+    hf = llama_config_to_hf(cfg)
+    hf["architectures"] = ["Qwen2ForCausalLM"]
+    hf["model_type"] = "qwen2"
+    hf.pop("attention_bias", None)
+    hf.pop("head_dim", None)
+    return hf
+
+
 def params_from_hf(sd: Dict[str, torch.Tensor], cfg: TransformerConfig) -> Dict:
     return params_from_hf_llama_style(sd, cfg, qkv_bias=True)
+
+
+def params_to_hf(params: Dict, cfg: TransformerConfig) -> Dict[str, torch.Tensor]:
+    return params_to_hf_llama_style(params, cfg, qkv_bias=True)
 
 
 def r1_distill_qwen_1_5b_config(**overrides) -> TransformerConfig:

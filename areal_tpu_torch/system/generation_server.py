@@ -81,8 +81,8 @@ def make_model(model: ModelAbstraction, seed: int, device):
         raise ValueError(f"unknown model {model!r}: the port builds 'tpu_transformer'")
     args = dict(model.args)
     if args.get("model_path") is not None:
-        raise NotImplementedError("loading an HF checkpoint is not ported yet "
-                                  "(ROADMAP Queue A item 3)")
+        raise NotImplementedError("serving from an HF checkpoint is not ported yet "
+                                  "(ROADMAP Queue A item 2.4)")
     cfg = TransformerConfig(**{**args["config"], "is_critic": bool(args.get("is_critic", False))})
     return cfg, init_params(cfg, seed=seed, device=device)
 

@@ -252,7 +252,7 @@ def _load_once(
                         "load_s": time.monotonic() - t0}
     raise NotImplementedError(
         f"{model_path} holds no raw dump or engine_state.pkl; loading an HF "
-        "checkpoint is not ported yet (ROADMAP Queue A item 3)")
+        "checkpoint is not ported yet (ROADMAP Queue A item 2.4)")
 
 
 def load_for_serving(

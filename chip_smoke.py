@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (areal_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--out report.json] [--profile-serving]
-        [--phases build,parity,serve_bf16,serve_int8,interrupt,http,grad,train]
+        [--phases build,parity,serve_bf16,serve_int8,interrupt,http,grad,train,workers]
 
 Phases (every one must pass; the script exits nonzero on the first that
 fails, and on a machine without CUDA):
@@ -43,6 +43,20 @@ fails, and on a machine without CUDA):
                  normalization, 4 minibatch updates), then 3 SFT steps;
                  launch counts of the forward, both backward kernels and
                  the fused GAE entry (packed_gae_f32) must be > 0.
+9. workers     - the trainer half of the worker system through
+                 LocalController(ExperimentConfig).run(): a spawned model
+                 worker loads the actor from an HF directory of seeded
+                 random weights at the full width and depth (float32
+                 params, bf16 compute) and pulls 2 steps of the train
+                 phase's PPO batch, pushed from this process as a
+                 rollout worker would; the master runs 2 actor_train
+                 steps, each followed by the raw-dump weight hand-off.
+                 A GenerationServer here takes the last dump through
+                 /update_weights_from_disk; greedy tokens over HTTP must
+                 equal an engine's on the dumped params. Launches of the
+                 forward, both backward kernels and packed_gae_f32 in the
+                 worker, and of the forward and paged_decode_bf16 in the
+                 server, must be > 0.
 
 Before the last line it prints the card's name and power limit (as
 nvidia-smi reports them) and one {"kernels": [...]} JSON line; the last
@@ -99,7 +113,8 @@ GAE_PLAN_SHAPES = ((64, 4096), (4096, 4096), (66, 8192), (66, 16384), (132, 1638
 # SFT-loss gradients through the kernels against the plain attention, bf16
 # compute end to end: per leaf, against the leaf's largest reference value.
 LEAF_TOL = 5e-2
-PHASES = ("build", "parity", "serve_bf16", "serve_int8", "interrupt", "http", "grad", "train")
+PHASES = ("build", "parity", "serve_bf16", "serve_int8", "interrupt", "http", "grad", "train",
+          "workers")
 # The train phase at real size; a rehearsal on the CPU passes smaller ones.
 TRAIN_SIZES = dict(n_prompts=8, group=4, prompt=(128, 512), response=(256, 3072),
                    row_len=4096, max_tokens_per_mb=16384, n_minibatches=4,
@@ -1719,6 +1734,365 @@ def train_phase(torch, rng, dev, cfg, seed, sizes=TRAIN_SIZES):
     return out
 
 
+# ----------------------------------------------------------------------
+# Phase 9: the worker system
+# ----------------------------------------------------------------------
+
+WORKER_STEPS = 2
+WORKERS_TIMEOUT_S = 600.0
+# The realloc dump's update from init against an in-process replay's, per
+# leaf: ||(dump - init) - (replay - init)|| / ||replay - init||. Readings
+# on the H100 (PERF.md, PR 7 run W2): the dump 0 on every leaf (the same
+# kernels on the same inputs), the params from before the last step (a
+# stale dump) at least 0.44. The limit leaves room for a library call
+# whose order of reduction differs between processes, and none for a
+# stale or untrained dump.
+WORKERS_UPDATE_RTOL = 0.01
+
+
+def trajectories(rng, sizes, vocab, n_steps):
+    """`n_steps` PPO batches as a rollout worker pushes them: one
+    trajectory a prompt (its `group` answers), with rewards and no-EOS
+    flags (rollout_sample's batch, split by prompt) and behaviour
+    logprobs on the response positions near -log(vocab), what a model of
+    random weights gives random tokens."""
+    from areal_tpu_torch.api.data_api import SequenceSample
+
+    out = []
+    for step in range(n_steps):
+        sample = rollout_sample(rng, sizes, vocab)
+        lens = [l for sl in sample.seqlens["packed_input_ids"] for l in sl]
+        pm = sample.data["prompt_mask"]
+        lp = np.zeros(sum(lens), np.float32)
+        off = 0
+        for n in lens:
+            plen = int(pm[off:off + n].sum())
+            lp[off + plen - 1: off + n - 1] = (-math.log(vocab)
+                                                + 0.01 * rng.standard_normal(n - plen))
+            off += n
+        sample.update_(SequenceSample(
+            ids=list(sample.ids), keys={"packed_logprobs"}, data={"packed_logprobs": lp},
+            seqlens={"packed_logprobs": [list(sl) for sl in sample.seqlens["packed_input_ids"]]}))
+        for i, t in enumerate(sample.unpack()):
+            t.ids = [f"s{step}-p{i}"]
+            out.append(t)
+    return out
+
+
+def replay_update_errors(torch, dev, shard, mfc, batches, dumped, seed, worker_name):
+    """Replay the model worker's train steps in this process (its
+    factories, seed and batches) and hold the dump against the replay.
+    Returns, per leaf, the dump's update error and that of the params from
+    before the last step (what a dump taken before the step would hold),
+    each ||(x - init) - (replay - init)|| / ||replay - init||, and the
+    replay's seconds."""
+    import areal_tpu_torch.engine.factories  # noqa: F401  (register the model and backends)
+    from areal_tpu_torch.api.model_api import (FinetuneSpec, make_backend, make_interface,
+                                               make_model)
+    from areal_tpu_torch.base import seeding
+    from areal_tpu_torch.interfaces import ppo  # noqa: F401  (register the interface)
+
+    def leaves(tree, prefix=""):
+        if isinstance(tree, dict):
+            return {k2: v for k in sorted(tree) for k2, v in leaves(tree[k], f"{prefix}/{k}").items()}
+        return {prefix: tree}
+
+    t0 = time.perf_counter()
+    seeding.set_random_seed(seed, worker_name)
+    model = make_model(shard.model, name=shard.id.model_name, device=str(dev))
+    model = make_backend(shard.backend).initialize(
+        model, FinetuneSpec(train_batch_size=len(batches[0].ids)))
+    actor = make_interface(shard.interface)
+    # The HF weights are bf16, so their bf16 copy is the exact init.
+    init = {k: v.detach().to(torch.bfloat16, copy=True)
+            for k, v in leaves(model.module.get_params()).items()}
+    for i, batch in enumerate(batches):
+        if i == len(batches) - 1:
+            before = {k: v.detach().clone() for k, v in leaves(model.module.get_params()).items()}
+        actor.train_step(model, batch, mfc.mb_spec)
+    after = {k: v.detach() for k, v in leaves(model.module.get_params()).items()}
+    dumped = leaves(dumped)
+    if sorted(dumped) != sorted(after):
+        raise AssertionError(f"workers: dump leaves {sorted(dumped)} != {sorted(after)}")
+    errs = {"dump": {}, "stale": {}}
+    for k, a in after.items():
+        a = a.double()
+        step = a - init[k].double()
+        norm = float(step.norm())
+        moved = float((dumped[k].to(dev).double() - init[k].double()).norm())
+        if norm == 0 or moved == 0:
+            raise AssertionError(f"workers: {k} did not move from init (replay {norm}, "
+                                 f"dump {moved})")
+        errs["dump"][k] = float((dumped[k].to(dev).double() - a).norm()) / norm
+        errs["stale"][k] = float((before[k].double() - a).norm()) / norm
+    del model, init, before, after, a, step
+    torch.cuda.empty_cache()
+    return errs, time.perf_counter() - t0
+
+
+def workers_phase(torch, rng, dev, cfg, seed, card, train_step_s=None, sizes=TRAIN_SIZES,
+                  server_slots=4, greedy_lens=(300, 700, 1200, 2000), greedy_new=32):
+    """The trainer half of the worker system through its entry point,
+    LocalController(ExperimentConfig).run(): a spawned model worker hosts
+    the PPO actor (loaded from an HF directory of seeded random bf16
+    weights; float32 params and Adam moments, bf16 compute, remat full)
+    and pulls the trajectories this process pushes as a rollout worker
+    would; the inline master runs the actor_train MFC for WORKER_STEPS
+    steps with the raw-dump weight hand-off after each. Then a
+    GenerationServer in this process takes the last dump through
+    /update_weights_from_disk and answers greedy requests over HTTP that
+    must equal an engine's built from the dumped params. The dump's
+    contents are held against a replay of the same steps in this process
+    (replay_update_errors)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from areal_tpu_torch import kernels
+    from areal_tpu_torch.api.config import (ModelAbstraction, ModelBackendAbstraction,
+                                            ModelInterfaceAbstraction, ModelShardID)
+    from areal_tpu_torch.api.data_api import (MicroBatchSpec, SequenceSample,
+                                              sample_from_json, sample_to_json)
+    from areal_tpu_torch.api.dfg import MFCDef, ModelInterfaceType, ParamReallocHook
+    from areal_tpu_torch.api.model_api import ModelName
+    from areal_tpu_torch.api.system_api import (
+        ExperimentConfig, ExperimentSaveEvalControl, GenerationServerConfig,
+        MasterWorkerConfig, ModelShardSpec, ModelWorkerConfig)
+    from areal_tpu_torch.base import name_resolve, names
+    from areal_tpu_torch.engine.serving import GenRequest, ServingEngine
+    from areal_tpu_torch.models.hf import save_hf_model
+    from areal_tpu_torch.models.transformer import init_params
+    from areal_tpu_torch.system.controller import LocalController
+    from areal_tpu_torch.system.generation_server import GenerationServer
+    from areal_tpu_torch.system.push_pull_stream import NameResolvingZmqPusher
+    from areal_tpu_torch.system.weight_transfer import load_raw_params
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_workers_")
+    # The experiment is named by the temp directory: no other run's
+    # records or dumps share its keys.
+    exp, trial = os.path.basename(tmp), "workers"
+    nr_cfg = {"backend": "nfs", "record_root": os.path.join(tmp, "name_resolve")}
+    name_resolve.reconfigure(**nr_cfg)
+    fileroot = os.path.join(tmp, "fileroot")
+    stats = dict(card=card)
+    server = run = None
+    try:
+        t0 = time.perf_counter()
+        hf_dir = os.path.join(tmp, "hf")
+        params = init_params(cfg, seed=seed, device=dev, dtype=torch.bfloat16)
+        sync(torch, dev)
+        stats["init_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        save_hf_model(hf_dir, cfg, params, "qwen2")
+        del params
+        torch.cuda.empty_cache()
+        stats["hf_save_s"] = time.perf_counter() - t0
+        log(f"  seeded random bf16 weights ({cfg.n_layers} layers) drawn in "
+            f"{stats['init_s']:.1f} s, written as an HF directory in {stats['hf_save_s']:.1f} s")
+
+        n_seqs = sizes["n_prompts"]
+        actor = ModelName("actor", 0)
+        train = MFCDef(
+            name="actor_train", model_name=actor, interface_type=ModelInterfaceType.TRAIN_STEP,
+            interface_impl=None, n_seqs=n_seqs,
+            input_keys=("packed_input_ids", "prompt_mask", "packed_logprobs", "rewards",
+                        "seq_no_eos_mask"),
+            mb_spec=MicroBatchSpec(max_tokens_per_mb=sizes["max_tokens_per_mb"]),
+            post_hooks=[ParamReallocHook(source=str(actor))])
+        mw = ModelWorkerConfig(
+            experiment_name=exp, trial_name=trial, worker_index=0,
+            shards=[ModelShardSpec(
+                id=ModelShardID(actor),
+                model=ModelAbstraction("tpu_transformer", args=dict(model_path=hf_dir)),
+                backend=ModelBackendAbstraction("jax_train", args=dict(
+                    optimizer=dict(lr=5e-5, warmup_steps_proportion=0.0), remat=True,
+                    row_len_multiple=sizes["row_len"], max_row_len=sizes["row_len"])),
+                interface=ModelInterfaceAbstraction("ppo_actor", args=dict(
+                    n_minibatches=sizes["n_minibatches"], gae_lambda=0.95)))],
+            train_batch_size=n_seqs, stream_dataset=True, seed=seed, device=str(dev))
+        master = MasterWorkerConfig(
+            experiment_name=exp, trial_name=trial,
+            exp_ctrl=ExperimentSaveEvalControl(benchmark_steps=WORKER_STEPS), rpcs=[train],
+            model_topos={str(actor): [mw.worker_name]}, data_hosts=[mw.worker_name],
+            n_model_workers=1, train_batch_size=n_seqs)
+        ctl = LocalController(
+            ExperimentConfig(experiment_name=exp, trial_name=trial, master=master,
+                             model_workers=[mw]),
+            name_resolve_cfg=nr_cfg, worker_env={"AREAL_FILEROOT": fileroot})
+        trajs = trajectories(rng, sizes, cfg.vocab_size, WORKER_STEPS)
+        wire = [sample_to_json(t) for t in trajs]
+        n_tok = [sum(t.total_seqlen() for t in trajs[i * n_seqs:(i + 1) * n_seqs])
+                 for i in range(WORKER_STEPS)]
+
+        # This process plays the rollout worker: push every trajectory,
+        # then wait for the trainer's acks (its WAL holds them).
+        pushed = {}
+
+        def rollout():
+            try:
+                pusher = NameResolvingZmqPusher(exp, trial, pusher_index=0, n_pushers=1,
+                                                n_pullers=1, ack=True)
+                try:
+                    for i, w in enumerate(wire):
+                        pusher.push(w, seq=f"0/{i}")
+                    deadline = time.monotonic() + WORKERS_TIMEOUT_S
+                    while pusher.unacked() and time.monotonic() < deadline:
+                        pusher.drain_acks()
+                        time.sleep(0.05)
+                    pushed["unacked"] = pusher.unacked()
+                finally:
+                    pusher.close()
+            except Exception as e:  # reported after the run
+                pushed["error"] = repr(e)
+
+        feeder = threading.Thread(target=rollout, daemon=True)
+        feeder.start()
+        t0 = time.perf_counter()
+        result = ctl.run(timeout=WORKERS_TIMEOUT_S)
+        stats["run_s"] = time.perf_counter() - t0
+        feeder.join(timeout=60)
+        if pushed.get("error") or pushed.get("unacked", 1):
+            raise AssertionError(f"workers: the rollout side failed: {pushed}")
+        summary = result["perf_summary"]
+        steps = [s["actor_train"] for s in summary["mfc_stats"]]
+        if result["global_step"] != WORKER_STEPS or len(steps) != WORKER_STEPS:
+            raise AssertionError(f"workers: {result['global_step']} steps, "
+                                 f"{len(steps)} reported")
+        bad = [k for s in steps for k, v in s.items() if not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"workers: non-finite MFC stats {bad}")
+        counts = {k: int(sum(s[f"launches/{k}"] for s in steps)) for k in kernels.launches}
+        on_card = dev.type == "cuda"
+        for k in ("flash_attn_fwd_bf16", "flash_attn_bwd_dq_bf16", "flash_attn_bwd_dkv_bf16",
+                  "packed_gae_f32"):
+            if on_card and counts[k] <= 0:
+                raise AssertionError(f"workers: kernel {k} was not launched in the model worker")
+        version = name_resolve.get(names.model_version(exp, trial, actor.role))
+        if version != str(WORKER_STEPS):
+            raise AssertionError(f"workers: published model version {version}")
+        e2e = [h[0] for h in summary["history"]]
+        stats.update(
+            step_e2e_s=e2e, mfc_sec=[s["perf/sec"] for s in steps],
+            mfc_elapsed_s=[s["perf/elapsed"] for s in steps],
+            dump_s=[s["param_realloc/dump_s"] for s in steps], step_tokens=n_tok,
+            peak_memory_gb=max(s["perf/mem_peak_bytes_in_use"] for s in steps) / 1e9,
+            ppo_stats=steps, worker_launches=counts)
+        log(f"  {WORKER_STEPS} actor_train steps through LocalController in "
+            f"{stats['run_s']:.1f} s (worker start, HF load, steps, exit): tokens {n_tok}; "
+            f"master step e2e {[round(x, 3) for x in e2e]} s, MFC perf/sec "
+            f"{[round(x, 3) for x in stats['mfc_sec']]} s (train phase's direct train_step "
+            f"{'not run' if train_step_s is None else f'{train_step_s:.2f} s'}); raw dump "
+            f"{[round(x, 2) for x in stats['dump_s']]} s; worker peak device memory "
+            f"{stats['peak_memory_gb']:.2f} GB; loss "
+            f"{[round(s['ppo_actor/loss'], 5) for s in steps]}, importance_weight "
+            f"{[round(s['ppo_actor/importance_weight'], 4) for s in steps]}; {card}")
+        log(f"  launches in the model worker: {counts}")
+
+        # The dump's contents: the same steps replayed here on the batches
+        # the worker's data manager gathers (the wire's JSON, oldest first).
+        dump_dir = os.path.join(fileroot, "param_realloc", exp, trial, actor.role)
+        dumped, dump_version = load_raw_params(dump_dir)
+        if dump_version != WORKER_STEPS:
+            raise AssertionError(f"workers: the dump holds version {dump_version}")
+        batches = [SequenceSample.gather([
+            sample_from_json(json.loads(json.dumps(w))).select_keys(train.input_keys)
+            for w in wire[i * n_seqs:(i + 1) * n_seqs]]) for i in range(WORKER_STEPS)]
+        errs, stats["replay_s"] = replay_update_errors(
+            torch, dev, mw.shards[0], train, batches, dumped, seed, mw.worker_name)
+        stats["update_err"] = max(errs["dump"].values())
+        stats["stale_update_err"] = min(errs["stale"].values())
+        per_leaf = ", ".join(f"{k} {errs['dump'][k]:.2e} / {errs['stale'][k]:.2e}"
+                             for k in errs["dump"])
+        log(f"  replay in this process ({stats['replay_s']:.1f} s): the dump's update error "
+            f"per leaf at most {stats['update_err']:.3e} (limit {WORKERS_UPDATE_RTOL}); the "
+            f"params from before step {WORKER_STEPS} read at least "
+            f"{stats['stale_update_err']:.3e} (per leaf, dump / before: {per_leaf})")
+        if not stats["update_err"] <= WORKERS_UPDATE_RTOL < stats["stale_update_err"]:
+            raise AssertionError(
+                f"workers: the dump's update is off the replay's by {stats['update_err']:.3e} "
+                f"(a stale dump reads {stats['stale_update_err']:.3e}; limit "
+                f"{WORKERS_UPDATE_RTOL})")
+
+        # The last dump into a GenerationServer over HTTP. The server runs
+        # under a trial of its own: it leaves when its trial's status reads
+        # COMPLETE, which the master wrote for the training trial.
+        gcfg = GenerationServerConfig(
+            experiment_name=exp, trial_name="serve", server_index=0,
+            model=ModelAbstraction("tpu_transformer", args=dict(config=dataclasses.asdict(cfg))),
+            max_concurrent_requests=server_slots, max_seq_len=4096, kv_page_size=128,
+            decode_block_steps=16, prefill_chunk=1024, seed=seed, device=str(dev))
+        server = GenerationServer()
+        server.configure(gcfg, experiment_name=exp, trial_name=gcfg.trial_name,
+                         worker_name=gcfg.worker_name)
+        run = threading.Thread(target=server.run, daemon=True)
+        run.start()
+        url = server.address
+        reqs = [GenRequest(qid=f"greedy{i}", input_ids=rng.integers(0, cfg.vocab_size, n).tolist(),
+                           max_new_tokens=greedy_new, greedy=True, stop_token_ids=(STOP_TOKEN,))
+                for i, n in enumerate(greedy_lens)]
+        kernels.reset_launches()
+        status, _, upd = http_call(url, "/update_weights_from_disk", {
+            "model_path": dump_dir, "allow_interrupt": True, "version": WORKER_STEPS})
+        if status != 200 or not upd.get("success") or upd["source"] != "disk_raw":
+            raise AssertionError(f"workers: weight update failed: {status} {upd}")
+        over_http = {}
+        for r in reqs:  # one at a time, as the engine below runs them
+            status, _, reply = http_call(url, "/generate", generate_body(r))
+            if status != 200 or reply["version_start"] != WORKER_STEPS:
+                raise AssertionError(f"workers: /generate {r.qid}: {status} {reply}")
+            over_http[r.qid] = reply["output_ids"]
+        server_counts = dict(kernels.launches)
+        _, _, m = http_call(url, "/metrics")
+        for k in ("flash_attn_fwd_bf16", "paged_decode_bf16"):
+            if on_card and server_counts[k] <= 0:
+                raise AssertionError(f"workers: kernel {k} was not launched by the server")
+        server.exit()
+        run.join(timeout=120)
+        server = None
+        torch.cuda.empty_cache()
+
+        engine = ServingEngine(
+            cfg=cfg, params=cast_tree(dumped, torch.bfloat16), max_batch_size=server_slots,
+            max_seq_len=4096, decode_block_steps=16, eos_token_id=None, page_size=128,
+            prefill_chunk=1024, device=dev)
+        del dumped
+        engine.start()
+        try:
+            direct = {}
+            for r in reqs:
+                res, _ = run_requests(engine, [GenRequest(
+                    qid=r.qid, input_ids=r.input_ids, max_new_tokens=r.max_new_tokens,
+                    greedy=True, stop_token_ids=r.stop_token_ids)])
+                direct[r.qid] = res[r.qid].output_ids
+        finally:
+            engine.stop()
+        if over_http != direct:
+            raise AssertionError("workers: greedy tokens over HTTP differ from the engine's "
+                                 "on the dumped params")
+        stats.update(
+            load_s=upd["load_s"], last_weight_stage_s=float(m["areal:last_weight_stage_s"]),
+            last_weight_swap_s=float(m["areal:last_weight_swap_s"]),
+            server_launches=server_counts,
+            launches={k: counts[k] + server_counts[k] for k in counts})
+        log(f"  server took the step-{WORKER_STEPS} dump: load_s {upd['load_s']:.3f}, "
+            f"last_weight_stage_s {stats['last_weight_stage_s']}, last_weight_swap_s "
+            f"{stats['last_weight_swap_s']}; {len(reqs)} greedy requests over HTTP equal the "
+            f"engine's on the dumped params ({sum(map(len, direct.values()))} tokens); "
+            f"launches through the server {server_counts}; {card}")
+        return stats
+    finally:
+        if server is not None:
+            server.exit()
+            run.join(timeout=120)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def cast_tree(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: cast_tree(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype)
+
+
 def kernel_entry_name(mangled: str) -> str:
     """A kernel's name and template arguments (integers, bools, bf16 and
     int8 types) read off its mangled name (paged_split_kernel<bf16, 128,
@@ -1868,6 +2242,19 @@ def main() -> int:
         main_counts.setdefault("flash_attn_fwd_bf16", counts["flash_attn_fwd_bf16"])
         torch.cuda.empty_cache()
         phase_done("train", t0)
+
+    if "workers" in phases:
+        log("phase workers")
+        t0 = time.perf_counter()
+        report["phases"]["workers"] = workers_phase(
+            torch, np.random.default_rng([args.seed, 5]), dev, cfg, args.seed, card,
+            train_step_s=report["phases"].get("train", {}).get("train_step_s"))
+        # The worker system is a main path of its own: its launches add.
+        for k, n in report["phases"]["workers"]["launches"].items():
+            if n:
+                main_counts[k] = main_counts.get(k, 0) + n
+        torch.cuda.empty_cache()
+        phase_done("workers", t0)
 
     kernels_line = []
     for name, row in kernel_rows.items():

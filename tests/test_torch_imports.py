@@ -59,6 +59,9 @@ def test_port_sources_import_no_jax():
     "areal_tpu_torch.engine.torch_engine, areal_tpu_torch.engine.optimizer, "
     "areal_tpu_torch.interfaces.ppo, areal_tpu_torch.interfaces.sft, "
     "areal_tpu_torch.ops.gae, areal_tpu_torch.ops.loss",
+    "areal_tpu_torch.system.controller, areal_tpu_torch.system.master_worker, "
+    "areal_tpu_torch.system.model_worker, areal_tpu_torch.system.stream_dataset, "
+    "areal_tpu_torch.engine.factories, areal_tpu_torch.models.hf",
 ])
 def test_importing_the_port_loads_no_jax(modules):
     code = (
