@@ -1,7 +1,8 @@
 """Abstraction records and shard identities (the port's copy of
 ``areal_tpu/api/config.py``). An *abstraction* is a (type name, kwargs)
 pair resolved through a registry at run time, which is how an experiment
-selects its model, backend, interface and dataset declaratively; the
+selects its model, backend, interface, dataset, agent and environment
+declaratively; the
 names are the reference's, so one ``ExperimentConfig`` reads the same in
 both packages. ``ModelName`` lives in ``api/model_api.py``."""
 
@@ -54,3 +55,5 @@ ModelAbstraction = _abstraction("ModelAbstraction")
 ModelInterfaceAbstraction = _abstraction("ModelInterfaceAbstraction")
 ModelBackendAbstraction = _abstraction("ModelBackendAbstraction")
 DatasetAbstraction = _abstraction("DatasetAbstraction")
+AgentAbstraction = _abstraction("AgentAbstraction")
+EnvServiceAbstraction = _abstraction("EnvServiceAbstraction")

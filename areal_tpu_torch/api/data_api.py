@@ -8,7 +8,10 @@ happens at the last moment inside the engine. Host-side numpy throughout;
 the engine moves rows to its device. ``sample_to_json`` /
 ``sample_from_json`` are the trajectory wire of the push/pull stream, the
 reference's key for key, so a reference rollout worker can feed a port
-trainer. The dataset registry and loaders are not ported.
+trainer. The dataset registry (``register_dataset`` / ``make_dataset``
+with a ``DatasetUtility``), ``load_hf_tokenizer``, the seeded shuffle and
+split of ``load_shuffle_split_dataset`` and the epoch-based
+``PackedDataLoader`` are what a rollout worker reads prompts through.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
+from areal_tpu_torch.api.registry import Registry
 from areal_tpu_torch.base import datapack
 
 @dataclasses.dataclass
@@ -335,6 +339,162 @@ class SequenceSample:
 
     def unpack(self) -> List["SequenceSample"]:
         return [self._select_indices([i]) for i in range(self.bs)]
+
+
+@dataclasses.dataclass
+class DatasetUtility:
+    """Context handed to dataset constructors."""
+
+    seed: int = 0
+    dp_rank: int = 0
+    world_size: int = 1
+    tokenizer: Any = None
+
+
+DATASET_REGISTRY = Registry("dataset")
+
+
+def register_dataset(name: str, factory):
+    DATASET_REGISTRY.register(name, factory)
+
+
+def make_dataset(cfg: "DatasetAbstraction | str", util: DatasetUtility):
+    return DATASET_REGISTRY.make(cfg, util=util)
+
+
+def load_hf_tokenizer(path: str, fast: bool = True):
+    import transformers
+
+    tok = transformers.AutoTokenizer.from_pretrained(
+        path, use_fast=fast, trust_remote_code=True
+    )
+    if tok.pad_token_id is None:
+        tok.pad_token_id = tok.eos_token_id
+    return tok
+
+
+# ---------------------------------------------------------------------------
+# Dataset loading helpers (counterpart of the reference data_api.py:747-792)
+# ---------------------------------------------------------------------------
+
+# Task vocabulary for RL datasets; indices are shipped as `task_ids`
+# (reference data_api.py:47).
+RL_TASKS = ["math", "code", "rlhf", "stem"]
+
+
+def get_shuffle_indices(seed: int, size: int) -> np.ndarray:
+    """Deterministic permutation used for dataset shuffling."""
+    rng = np.random.RandomState(seed)
+    return rng.permutation(size)
+
+
+def load_shuffle_split_dataset(
+    util: DatasetUtility,
+    dataset_path: Optional[str] = None,
+    dataset_builder: Optional[Any] = None,
+) -> List[Dict[str, Any]]:
+    """Load a jsonl dataset (or call a builder), assign missing ids,
+    deterministically shuffle by `util.seed`, and return this DP rank's
+    near-equal contiguous slice of the shuffled order (round-robin bin
+    sizes so every rank gets data; reference data_api.py:754-792)."""
+    import json
+
+    if dataset_path is not None:
+        if not str(dataset_path).endswith(".jsonl"):
+            raise NotImplementedError(f"unknown dataset extension: {dataset_path}")
+        with open(dataset_path, "r") as f:
+            data = [json.loads(line) for line in f if line.strip()]
+    else:
+        assert dataset_builder is not None
+        data = dataset_builder()
+
+    if any("id" not in d for d in data):
+        # Backfill with ids that cannot collide with explicit integer/str ids.
+        for idx, d in enumerate(data):
+            d.setdefault("id", f"__auto_{idx}")
+    seen_ids = set()
+    for d in data:
+        sid = str(d["id"])
+        if sid in seen_ids:
+            raise ValueError(f"duplicate dataset id {sid!r}")
+        seen_ids.add(sid)
+
+    if len(data) < util.world_size:
+        raise ValueError(
+            f"dataset size {len(data)} smaller than DP world size {util.world_size}"
+        )
+    bins = np.zeros(util.world_size, dtype=np.int64)
+    for idx in range(len(data)):
+        bins[idx % util.world_size] += 1
+    bounds = np.pad(np.cumsum(bins), (1, 0))
+    shuffle = get_shuffle_indices(util.seed, len(data))
+    subset = shuffle[bounds[util.dp_rank] : bounds[util.dp_rank + 1]]
+    return [data[i] for i in subset]
+
+
+class PackedDataLoader:
+    """Minimal epoch-based loader over a map-style dataset of
+    `SequenceSample`s: deterministic per-epoch shuffling, `SequenceSample.
+    gather` collation, and an index cursor (`state_dict`). Restoring a
+    cursor comes with recover, which is not ported."""
+
+    def __init__(self, dataset, batch_size: int, shuffle: bool = True, seed: int = 1):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.epoch = 0
+        self._cursor = 0
+        self._order: Optional[np.ndarray] = None
+
+    def _regen_order(self, n: int):
+        self._order = (
+            get_shuffle_indices(self.seed + self.epoch, n)
+            if self.shuffle
+            else np.arange(n)
+        )
+
+    def _ensure_order(self):
+        n = len(self.dataset)
+        if self._order is not None and len(self._order) != n:
+            # The dataset changed size mid-epoch (curriculum filter): the old
+            # permutation is invalid, so start a fresh epoch over the new set
+            # rather than slicing past the end / repeating samples.
+            self.epoch += 1
+            self._cursor = 0
+            self._order = None
+        if self._order is None:
+            self._regen_order(n)
+
+    def __len__(self) -> int:
+        return max(1, (len(self.dataset) + self.batch_size - 1) // self.batch_size)
+
+    def next_batch(self) -> Tuple["SequenceSample", bool]:
+        """Returns (batch, is_epoch_last). Advances epoch + reshuffles when
+        the dataset is exhausted."""
+        if len(self.dataset) == 0:
+            raise RuntimeError("cannot draw a batch from an empty dataset")
+        self._ensure_order()
+        n = len(self._order)
+        end = min(self._cursor + self.batch_size, n)
+        idx = self._order[self._cursor : end]
+        samples = [self.dataset[int(i)] for i in idx]
+        batch = SequenceSample.gather(samples)
+        self._cursor = end
+        epoch_last = self._cursor >= n
+        if epoch_last:
+            self.epoch += 1
+            self._cursor = 0
+            self._order = None
+        return batch, epoch_last
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {
+            "epoch": self.epoch,
+            "cursor": self._cursor,
+            "seed": self.seed,
+            "size": len(self.dataset),
+        }
 
 
 def sample_to_json(s: "SequenceSample") -> Dict[str, Any]:

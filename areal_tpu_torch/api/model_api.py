@@ -8,8 +8,10 @@ port an engine owns a tree of tensors on one device. The model, backend
 and interface registries resolve the abstractions of an experiment
 config (``api/config.py``) by the reference's names
 (``engine/factories.py`` registers ``tpu_transformer``, ``jax_train``
-and ``jax_inference``). In-framework generation and the
-generation-server API types of the reference are not ported.
+and ``jax_inference``). The generation types (``GenerationHyperparameters``,
+``APIGenerateOutput``, ``BundledGenerationOutputs``) are what the rollout
+side passes between its partial-rollout client and its agents.
+In-framework generation is not ported.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 
 from areal_tpu_torch.api.data_api import MicroBatchSpec, SequenceSample
+from areal_tpu_torch.api.registry import Registry
 
 # loss_fn(model_out [R, T], rows) -> (loss_sum, aux dict of scalar tensors);
 # model_out is the next-token logprobs (LM models) or the values (critics),
@@ -45,6 +48,79 @@ class ModelName:
             role, rid = s.split("@")
             return cls(role=role, replica_id=int(rid))
         return cls(role=s)
+
+
+@dataclasses.dataclass
+class GenerationHyperparameters:
+    """Sampling configuration (mirrors reference GenerationHyperparameters)."""
+
+    n: int = 1  # group size: samples per prompt
+    max_new_tokens: int = 256
+    min_new_tokens: int = 0
+    greedy: bool = False
+    top_p: float = 1.0
+    top_k: int = -1
+    temperature: float = 1.0
+    stop_token_ids: List[int] = dataclasses.field(default_factory=list)
+
+    def new(self, **kwargs) -> "GenerationHyperparameters":
+        d = dataclasses.asdict(self)
+        d.update(kwargs)
+        return GenerationHyperparameters(**d)
+
+
+@dataclasses.dataclass
+class APIGenerateOutput:
+    qid: str
+    prompt_ids: List[int] = dataclasses.field(default_factory=list)
+    input_ids: List[int] = dataclasses.field(default_factory=list)
+    output_ids: List[int] = dataclasses.field(default_factory=list)
+    output_logprobs: List[float] = dataclasses.field(default_factory=list)
+    no_eos: bool = True  # True if generation stopped for a non-EOS reason
+    version_start: int = -1
+    version_end: int = -1
+    latency: float = 0.0
+    # Tokens resubmitted for prefill after interrupts/chunk boundaries:
+    # the measured cost of interruptible generation.
+    reprefill_tokens: int = 0
+    n_interruptions: int = 0
+
+
+@dataclasses.dataclass
+class BundledGenerationOutputs:
+    """A prompt group's finished generations, handed to the agent/trainer."""
+
+    qid: str
+    prompt_ids: List[int]
+    seqs: List[List[int]]  # prompt + answer, per group member
+    logprobs: List[List[float]]  # aligned with seqs (prompt positions = 0)
+    no_eos: List[bool]
+    version_start: List[int]
+    version_end: List[int]
+    reprefill_tokens: List[int] = dataclasses.field(default_factory=list)
+    n_interruptions: List[int] = dataclasses.field(default_factory=list)
+
+    @classmethod
+    def from_api_outputs(
+        cls, outputs: List[APIGenerateOutput]
+    ) -> "BundledGenerationOutputs":
+        assert len({o.qid for o in outputs}) == 1
+        prompt = outputs[0].prompt_ids
+        return cls(
+            qid=outputs[0].qid,
+            prompt_ids=list(prompt),
+            seqs=[list(o.prompt_ids) + list(o.output_ids) for o in outputs],
+            logprobs=[[0.0] * len(o.prompt_ids) + list(o.output_logprobs) for o in outputs],
+            no_eos=[o.no_eos for o in outputs],
+            version_start=[o.version_start for o in outputs],
+            version_end=[o.version_end for o in outputs],
+            reprefill_tokens=[o.reprefill_tokens for o in outputs],
+            n_interruptions=[o.n_interruptions for o in outputs],
+        )
+
+    @property
+    def prompt_len(self) -> int:
+        return len(self.prompt_ids)
 
 
 @dataclasses.dataclass
@@ -128,32 +204,6 @@ class ModelBackend(abc.ABC):
     @abc.abstractmethod
     def initialize(self, model: Model, spec: FinetuneSpec) -> Model:
         ...
-
-
-class Registry:
-    """Simple name -> factory registry with helpful errors."""
-
-    def __init__(self, kind: str):
-        self.kind = kind
-        self._factories: Dict[str, Any] = {}
-
-    def register(self, name: str, factory):
-        if name in self._factories:
-            raise ValueError(f"{self.kind} {name!r} already registered")
-        self._factories[name] = factory
-
-    def make(self, abstraction_or_name, *args, **kwargs):
-        """Build from a registered name, or from an abstraction (its
-        ``type_`` and ``args``; keyword arguments override ``args``)."""
-        if isinstance(abstraction_or_name, str):
-            name, extra = abstraction_or_name, {}
-        else:
-            name, extra = abstraction_or_name.type_, abstraction_or_name.args
-        if name not in self._factories:
-            raise KeyError(
-                f"unknown {self.kind} {name!r}; registered: {sorted(self._factories)}"
-            )
-        return self._factories[name](*args, **{**extra, **kwargs})
 
 
 MODEL_REGISTRY = Registry("model")

@@ -1,27 +1,30 @@
 """Worker configuration (the port's copy of ``ModelShardSpec``,
 ``ModelWorkerConfig``, ``ExperimentSaveEvalControl``,
-``MasterWorkerConfig``, ``GenerationServerConfig`` and
+``MasterWorkerConfig``, ``GenerationServerConfig``,
+``GserverManagerConfig``, ``RolloutWorkerConfig`` and
 ``ExperimentConfig`` from ``areal_tpu/api/system_api.py``: the
 reference's fields and defaults, plus ``device`` on the model worker and
 the generation server). A worker refuses at boot every field of a
 feature the port lacks when it is set to anything but its default
-(``system/model_worker.py``, ``system/generation_server.py``); the
-rollout-worker and gserver-manager configs come with the rollout slice,
-and the controller refuses an experiment that names them."""
+(``system/model_worker.py``, ``system/generation_server.py``,
+``system/gserver_manager.py``)."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional
+from typing import Dict, List, Optional
 
 from areal_tpu_torch.api.config import (
+    AgentAbstraction,
     DatasetAbstraction,
+    EnvServiceAbstraction,
     ModelAbstraction,
     ModelBackendAbstraction,
     ModelInterfaceAbstraction,
     ModelShardID,
 )
 from areal_tpu_torch.api.dfg import MFCDef
+from areal_tpu_torch.api.model_api import GenerationHyperparameters
 
 
 @dataclasses.dataclass
@@ -249,17 +252,180 @@ class GenerationServerConfig:
 
 
 @dataclasses.dataclass
+class GserverManagerConfig:
+    experiment_name: str = ""
+    trial_name: str = ""
+    model_name: str = "actor"
+    n_servers: int = 1
+    schedule_policy: str = "round_robin"  # | least_requests | least_token_usage
+    # Prefix-/session-affinity routing: a rollout's next chunk/turn is
+    # routed to the server holding its KV prefix (affinity map keyed by
+    # the request qid, surviving weight-version bumps), with load-aware
+    # spill to the least-loaded server when the target is saturated or
+    # shedding. Applies on top of schedule_policy (which places the
+    # FIRST chunk of each session).
+    session_affinity: bool = True
+    # Spill threshold: an affinity target with at least this many
+    # estimated in-flight requests is considered saturated and the
+    # session spills. None = spill only on shed/unhealthy.
+    affinity_saturation_requests: Optional[int] = None
+    # LRU cap on the affinity map (entries are one url per qid).
+    affinity_map_size: int = 65536
+    # Global prefix index (tiered KV plane, docs/serving.md): LRU cap
+    # on the qid -> (holder, tier) map fed from each server's
+    # /kv/index. Affinity is the fast path; this index lets ANY server
+    # serve a returning session by pulling its prefix from whichever
+    # peer/tier holds it. None = AREAL_KV_INDEX_SIZE (default 65536);
+    # 0 disables index-aware routing.
+    kv_index_size: Optional[int] = None
+    max_head_offpolicyness: int = 0
+    train_batch_size: int = 8
+    flush_request_timeout: float = 120.0
+    max_concurrent_rollouts: Optional[int] = None
+    # Cadence of the health-registry fold (eviction of dead servers,
+    # re-sync + readmission of returning ones). Chaos tests shrink it
+    # together with AREAL_HEALTH_TTL for sub-second failover.
+    health_check_interval: float = 2.0
+    # Streaming weight-distribution plane (system/weight_plane.py): when
+    # True, weight updates fan out over a peer tree (origin uploads each
+    # byte once; holders serve siblings) instead of every server
+    # re-reading the full checkpoint from NFS. The origin is the
+    # trainer-side source registered in name_resolve, falling back to a
+    # manager-hosted source over the NFS dump dir.
+    weight_plane: bool = False
+    # Chunk size for the manager-hosted origin (a trainer-side source
+    # uses its own); per-chunk hashed, Range-resumable.
+    weight_chunk_bytes: int = 8 << 20
+    # Quantized weight wire for plane fanouts: "int8" fetches/ships the
+    # dump's quantized companion stream (~half the bytes per version;
+    # servers dequantize at assembly). Requires the dump side to arm
+    # ModelWorkerConfig.weight_wire_dtype with the same value. None
+    # ships raw bytes.
+    weight_wire_dtype: Optional[str] = None
+    # Children per node in the fanout tree: origin egress is bounded by
+    # degree * payload; deeper trees trade origin egress for extra hops.
+    weight_fanout_degree: int = 2
+    # Target bound for the serve-interrupting cutover window (interrupt
+    # + device swap), measured separately from transfer. Overruns are
+    # surfaced (within_budget=false + warning), not fatal.
+    weight_cutover_budget_s: float = 3.0
+    # Elastic prefill/decode pool sizing (docs/serving.md): when True
+    # the manager re-roles servers whose CONFIGURED role is "unified"
+    # between the prefill and decode pools from queue-depth/free-page
+    # watermarks. Re-role is drain + flip — the manager stops routing
+    # new work of the old kind first, in-flight requests finish, weights
+    # stay resident.
+    elastic_pools: bool = False
+    # Minimum seconds between re-role decisions (flapping guard).
+    rerole_cooldown_s: float = 10.0
+    # Queued-prompt-token watermarks over the prefill-capable pool: at
+    # or above `high` an elastic decode-side server flips to prefill; at
+    # or below `low` a server this manager flipped to prefill flips
+    # back.
+    prefill_queue_high_tokens: int = 4096
+    prefill_queue_low_tokens: int = 0
+    # Decode-pool free-page floor: below this fraction an elastic
+    # prefill-side server flips to decode (and blocks further
+    # prefill-ward flips).
+    decode_free_page_min_frac: float = 0.1
+    # Each pool keeps at least this many servers through re-roles.
+    pool_min_prefill: int = 1
+    pool_min_decode: int = 1
+    # ---- Elastic fleet control plane (system/fleet_controller.py,
+    # docs/fault_tolerance.md "Fleet elasticity + manager HA") --------
+    # Runtime join/leave + manager HA: unknown heartbeating servers are
+    # ADOPTED (weight-bootstrapped from peers before routing), graceful
+    # departures are forgotten cleanly, and the manager persists an
+    # epoch/weight-version lease so a restart rebuilds everything else
+    # from heartbeats + /metrics. False = fixed fleet, no lease. The
+    # port's manager runs a fixed fleet, so its default is False (the
+    # reference's is True) and True is refused.
+    elastic_fleet: bool = False
+    # Warm standby: block in configure until the current lease holder's
+    # record expires, then take over (instead of failing after 300 s).
+    standby: bool = False
+    # Joiner weight source: "peers" fetches chunk streams from
+    # same-shard holders (origin last resort, never NFS); "origin"
+    # forces the plane origin (the bench's baseline arm).
+    join_bootstrap: str = "peers"
+    # A drain that hasn't completed (graceful departure observed) by
+    # this deadline is EVICTED while it finishes quiescing — a drain
+    # cannot be cancelled server-side, so the server could never take
+    # traffic again; its graceful stop (or death) stays the terminal
+    # transition.
+    drain_timeout_s: float = 120.0
+    # Watermark autoscaling (fleet_controller.WatermarkAutoscaler):
+    # scale-out/in decisions from the SAME queued-token / free-page
+    # signals the re-role sizer polls, actuated through a launcher
+    # attached via GserverManager.attach_launcher. Off by default —
+    # policy without actuation only logs a warning.
+    autoscale: bool = False
+    # Fleet-average queued prompt tokens per routable server at/above
+    # which the fleet grows; at/below scale_in the least-loaded server
+    # is drained (only while free pages are comfortable).
+    scale_out_queued_tokens: int = 4096
+    scale_in_queued_tokens: int = 64
+    scale_free_page_min_frac: float = 0.5
+    pool_min_servers: int = 1
+    pool_max_servers: int = 8
+    scale_cooldown_s: float = 15.0
+    # Consecutive over/under-watermark metrics polls before acting.
+    scale_sustain_polls: int = 2
+    # ---- Multi-model serving plane (system/model_registry.py) -------
+    # When True the manager partitions the fleet into per-model pools
+    # from registry records + heartbeat model_ids: routing, affinity,
+    # the KV prefix index, shed/breaker candidacy, and the autoscaler
+    # all become model-scoped, and each registered model's weight
+    # version is watched (and fanned out) independently. Heartbeats
+    # naming an UNREGISTERED model_id are quarantined instead of
+    # adopted. False = the legacy single-model fleet: every server is
+    # assumed to host `model_name` and extra model_version keys are
+    # ignored.
+    multi_model: bool = False
+
+    @property
+    def worker_name(self) -> str:
+        return "gserver_manager"
+
+
+@dataclasses.dataclass
+class RolloutWorkerConfig:
+    experiment_name: str = ""
+    trial_name: str = ""
+    worker_index: int = 0
+    n_rollout_workers: int = 1
+    n_pullers: int = 1
+    model_name: str = "actor"
+    agent: AgentAbstraction = None
+    env: EnvServiceAbstraction = None
+    datasets: List[DatasetAbstraction] = dataclasses.field(default_factory=list)
+    tokenizer_path: Optional[str] = None
+    gconfig: GenerationHyperparameters = dataclasses.field(
+        default_factory=GenerationHyperparameters
+    )
+    new_tokens_per_chunk: int = 1 << 30  # chunked interruptible generation
+    max_concurrent_rollouts: int = 32
+    rollout_request_timeout: float = 300.0
+    # Per-sample failover budget: dead-server resubmissions + no-healthy-
+    # server backoff rounds before the episode errors (and is dropped).
+    rollout_max_retries: int = 8
+    seed: int = 1
+
+    @property
+    def worker_name(self) -> str:
+        return f"rollout_worker/{self.worker_index}"
+
+
+@dataclasses.dataclass
 class ExperimentConfig:
-    """Everything the controller needs to launch one trial. The rollout
-    workers and the gserver manager are the reference's fields; the port
-    has no such workers yet, and its controller refuses them."""
+    """Everything the controller needs to launch one trial."""
 
     experiment_name: str = ""
     trial_name: str = ""
     master: MasterWorkerConfig = None
     model_workers: List[ModelWorkerConfig] = dataclasses.field(default_factory=list)
-    rollout_workers: List[Any] = dataclasses.field(default_factory=list)
-    gserver_manager: Optional[Any] = None
+    rollout_workers: List[RolloutWorkerConfig] = dataclasses.field(default_factory=list)
+    gserver_manager: Optional[GserverManagerConfig] = None
     generation_servers: List[GenerationServerConfig] = dataclasses.field(
         default_factory=list
     )

@@ -1,6 +1,6 @@
 """Per-process experiment identity and file layout (the port's copy of
 what it calls from ``areal_tpu/base/constants.py``: the experiment and
-trial names and the log, recover and param-realloc paths, under the
+trial names and the log, recover, save and param-realloc paths, under the
 reference's ``AREAL_FILEROOT`` layout; the model-scope registry is not
 ported)."""
 
@@ -55,6 +55,10 @@ def get_log_path(experiment: Optional[str] = None, trial: Optional[str] = None) 
 
 def get_recover_path(experiment: Optional[str] = None, trial: Optional[str] = None) -> str:
     return _path("recover", experiment, trial)
+
+
+def get_save_path(experiment: Optional[str] = None, trial: Optional[str] = None) -> str:
+    return _path("checkpoints", experiment, trial)
 
 
 def get_param_realloc_path(experiment: Optional[str] = None,

@@ -70,6 +70,23 @@ _KNOBS: List[Knob] = [
     Knob("AREAL_WAL_REDELIVER_MAX", "int", 0,
          "Redeliveries of an unacked sample before the pusher drops it; "
          "0 = retry forever."),
+    Knob("AREAL_RPC_ATTEMPTS", "int", 4,
+         "Default attempts per cross-process RPC (base/rpc.py default_policy)."),
+    Knob("AREAL_RPC_BACKOFF_S", "float", 0.05,
+         "Base of the jittered exponential backoff between RPC attempts; a "
+         "server's Retry-After floors the computed wait."),
+    Knob("AREAL_RPC_BACKOFF_MAX_S", "float", 2.0,
+         "Backoff ceiling for the default RPC policy."),
+    Knob("AREAL_RPC_TIMEOUT_S", "float", 30.0,
+         "Per-attempt timeout cap of the RPC policies."),
+    Knob("AREAL_RPC_REDISCOVERY_ATTEMPTS", "int", 64,
+         "Manager-blip budget shared by partial_rollout and the rollout "
+         "worker (base/rpc.py rediscovery_policy)."),
+    Knob("AREAL_RPC_REDISCOVERY_BACKOFF_MAX_S", "float", 5.0,
+         "Backoff ceiling while rediscovering a restarted manager."),
+    Knob("AREAL_SYMPY_TIMEOUT_S", "float", 3.0,
+         "Per-expression sympy equivalence-check timeout "
+         "(functioncall/math_grader.py)."),
     Knob("AREAL_TPU_MEMORY_KILL_THRESHOLD", "float", None,
          "Device-memory fraction above which a model worker raises after "
          "an MFC (base/monitor.py); unset = disabled."),

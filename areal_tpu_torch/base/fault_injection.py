@@ -220,6 +220,15 @@ class FaultInjector:
         if arm is not None:
             time.sleep(self._fire(arm, point))
 
+    async def maybe_fail_async(self, point: str):
+        """Async injection point: delay/hang sleep on the event loop so
+        the faulted coroutine stalls without blocking its peers."""
+        arm = self._step(point)
+        if arm is not None:
+            import asyncio
+
+            await asyncio.sleep(self._fire(arm, point))
+
 
 # Process-global injector: production code imports this singleton so
 # tests arm points without plumbing an injector through constructors.

@@ -1,7 +1,8 @@
 """The named chaos-injection points the port fires (the port's copy of
 the entries of ``areal_tpu/base/fault_points.py`` that its generation
-server and worker system fire; names and meanings are the reference's, so one
-``AREAL_FAULTS`` spec arms reference and port processes alike).
+server, worker system, rollout worker and gserver manager fire; names
+and meanings are the reference's, so one ``AREAL_FAULTS`` spec arms
+reference and port processes alike).
 
 Names under ``test.`` are reserved for the injector's own tests and are
 exempt from declaration.
@@ -36,6 +37,10 @@ _POINTS: List[FaultPoint] = [
                "The master dies at the top of a train step."),
     FaultPoint("buffer.wal_append", ("areal_tpu_torch/system/wal.py",),
                "The trainer dies while journaling an accepted trajectory."),
+    FaultPoint("rollout.episode", ("areal_tpu_torch/system/rollout_worker.py",),
+               "One rollout episode dies mid-flight (agent/env crash)."),
+    FaultPoint("manager.fanout", ("areal_tpu_torch/system/gserver_manager.py",),
+               "The manager dies inside the update-weights fanout wave."),
     FaultPoint("buffer.consume", ("areal_tpu_torch/system/buffer.py",),
                "The trainer dies after a batch is handed to training, before "
                "its consumption is durable."),

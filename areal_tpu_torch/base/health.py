@@ -9,7 +9,9 @@ does a reference one. A beat happens only while the owning poll loop
 makes progress (no background thread), so a hung worker goes stale.
 Records are written with ``delete_on_exit=False``: a clean exit rewrites
 the record with a ``stopped`` marker, a killed worker leaves it stale.
-The consumer side (``HealthRegistry``) is not ported.
+The consumer side, ``HealthRegistry``, gives the gserver manager its
+alive and stopped views of the fleet; its transition callbacks and watch
+thread are not ported.
 """
 
 from __future__ import annotations
@@ -21,6 +23,9 @@ from typing import Dict, Optional
 from areal_tpu_torch.base import env_registry, logging, name_resolve, names
 
 logger = logging.getLogger("health")
+
+# A member is dead once its last beat is older than STALE_FACTOR * ttl.
+STALE_FACTOR = 3.0
 
 
 def default_ttl() -> float:
@@ -103,3 +108,49 @@ class Heartbeat:
                 name_resolve.delete(self._key)
             except Exception:
                 pass
+
+
+class HealthRegistry:
+    """Consumer side: the alive and stopped members under one prefix."""
+
+    def __init__(self, experiment_name: str, trial_name: str, prefix: str = ""):
+        self.experiment_name = experiment_name
+        self.trial_name = trial_name
+        self.prefix = prefix
+
+    def _root(self) -> str:
+        root = names.health_root(self.experiment_name, self.trial_name)
+        return root.rstrip("/") + ("/" + self.prefix if self.prefix else "")
+
+    def _records(self) -> Dict[str, Dict]:
+        root = self._root().rstrip("/")
+        out: Dict[str, Dict] = {}
+        for key in name_resolve.find_subtree(root):
+            try:
+                record = json.loads(name_resolve.get(key))
+            except (name_resolve.NameEntryNotFoundError, ValueError):
+                continue
+            member = key[len(root):].strip("/")
+            if self.prefix:
+                member = f"{self.prefix}/{member}" if member else self.prefix
+            out[member] = record
+        return out
+
+    def classified(self) -> "tuple[Dict[str, Dict], Dict[str, Dict]]":
+        """(alive, stopped) from one subtree walk: alive members beat
+        within STALE_FACTOR * ttl and did not stop gracefully."""
+        now = time.time()
+        alive: Dict[str, Dict] = {}
+        stopped: Dict[str, Dict] = {}
+        for m, r in self._records().items():
+            if r.get("stopped"):
+                stopped[m] = r
+            elif now - float(r.get("ts", 0)) <= float(
+                r.get("ttl", default_ttl())
+            ) * STALE_FACTOR:
+                alive[m] = r
+        return alive, stopped
+
+    def snapshot(self) -> Dict[str, Dict]:
+        """member -> record for every member alive now."""
+        return self.classified()[0]

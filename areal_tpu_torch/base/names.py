@@ -39,6 +39,10 @@ def gen_server_url(experiment_name: str, trial_name: str, server_id: str) -> str
     return f"{trial_root(experiment_name, trial_name)}/gen_server_url/{server_id}"
 
 
+def gen_server_manager(experiment_name: str, trial_name: str) -> str:
+    return f"{trial_root(experiment_name, trial_name)}/gen_server_manager"
+
+
 def model_version(experiment_name: str, trial_name: str, model_name: str) -> str:
     return f"{trial_root(experiment_name, trial_name)}/model_version/{model_name}"
 

@@ -237,6 +237,16 @@ def inject_into(meta: Dict[str, Any]) -> Dict[str, Any]:
     return meta
 
 
+def inject_ctx_into(
+    meta: Dict[str, Any], ctx: Optional[SpanContext]
+) -> Dict[str, Any]:
+    """Explicit-context variant of `inject_into` for callers holding a
+    ManualSpan's context instead of relying on the contextvar."""
+    if not enabled() or ctx is None:
+        return meta
+    return {**meta, _CTX_KEY: ctx.to_dict()}
+
+
 def extract_from(meta: Any) -> Optional[SpanContext]:
     """Pop and rebuild a context placed by `inject_into` (pops even when
     present-but-disabled so payloads stay clean)."""

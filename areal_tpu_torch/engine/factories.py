@@ -6,8 +6,8 @@ an HF checkpoint directory), and the backends wrap them into engines:
 (gradient-free). The registry names are the reference's, so one
 experiment config reads the same in both packages.
 
-Differences from the reference: no tokenizer is loaded (``Model.tokenizer``
-is None; no MFC of the trainer path reads one), the device comes from the
+The tokenizer is the named one, else the HF checkpoint's own, as in the
+reference. Differences from the reference: the device comes from the
 model worker's config, random init draws from the port's
 ``init_params`` with ``init_seed`` (the reference folds the model name
 into a JAX key, so seeded random weights differ between the packages:
@@ -20,6 +20,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, List, Optional
 
+from areal_tpu_torch.api.data_api import load_hf_tokenizer
 from areal_tpu_torch.api.model_api import (
     FinetuneSpec,
     Model,
@@ -51,8 +52,8 @@ def make_transformer_model(
 
     Either `model_path` (HF checkpoint dir; config, weights and family
     read from it) or `config` (TransformerConfig fields, random init)
-    must be given. `tokenizer_path` and `dtype` are accepted as the
-    reference's signature has them and are not used, as there."""
+    must be given. `dtype` is accepted as the reference's signature has
+    it and is not used, as there."""
     if mesh_spec is not None or device_ids is not None:
         raise NotImplementedError(
             "device meshes are not ported: one engine runs on one device "
@@ -63,12 +64,14 @@ def make_transformer_model(
         from areal_tpu_torch.models.hf import load_hf_model
 
         cfg, params = load_hf_model(model_path, is_critic=is_critic, family=hf_family)
+        tokenizer_path = tokenizer_path or model_path
     else:
         if config is None:
             raise ValueError("need model_path or config")
         cfg = TransformerConfig(**{**config, "is_critic": is_critic})
         params = init_params(cfg, seed=init_seed, device="cpu")
-    model = Model(name=name, module=None, tokenizer=None)
+    tokenizer = load_hf_tokenizer(tokenizer_path) if tokenizer_path else None
+    model = Model(name=name, module=None, tokenizer=tokenizer)
     model._raw = dict(cfg=cfg, params=params, device=device)  # consumed by backends
     return model
 

@@ -377,6 +377,11 @@ class ServingEngine:
         with self._stage_lock:
             return version <= self._highest_pinned
 
+    @property
+    def update_pending(self) -> bool:
+        """True while a staged weight update waits to go live."""
+        return self._pending_params is not None
+
     def escalate_pending_interrupt(self):
         """Interrupt running requests iff a staged update is waiting to
         apply (a bare interrupt with nothing pending would cut running

@@ -1,8 +1,7 @@
 """The worker system: streams, buffer, workers, data plane (the port's
 copy of ``areal_tpu/system/__init__.py``).
 
-``load_worker`` resolves a worker type by the reference's role names;
-the rollout worker and the gserver manager are not ported yet.
+``load_worker`` resolves a worker type by the reference's role names.
 """
 
 import importlib
@@ -12,6 +11,8 @@ _WORKER_CLASSES = {
     "master_worker": ("areal_tpu_torch.system.master_worker", "MasterWorker"),
     "model_worker": ("areal_tpu_torch.system.model_worker", "ModelWorker"),
     "generation_server": ("areal_tpu_torch.system.generation_server", "GenerationServer"),
+    "gserver_manager": ("areal_tpu_torch.system.gserver_manager", "GserverManager"),
+    "rollout_worker": ("areal_tpu_torch.system.rollout_worker", "RolloutWorker"),
 }
 
 WORKER_TYPES = sorted(_WORKER_CLASSES)

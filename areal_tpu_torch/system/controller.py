@@ -9,11 +9,12 @@ worker health is watched while the master drives the experiment.
 ``run(timeout)`` bounds the whole run: past the deadline the master is
 interrupted, ``run`` raises ``TimeoutError`` and the workers are torn
 down. A worker that dies or raises interrupts the master and ``run``
-raises ``RuntimeError``: the model worker and the master hold in-flight
-step state, so the reference restarts neither in place. The in-place
-restart and heartbeat hang detection of the serving roles come with the
-rollout slice, which spawns them; the multi-host ``ClusterController``
-is not ported.
+raises ``RuntimeError``. Workers start in the reference's order: model
+workers, generation servers, the gserver manager, rollout workers. The
+reference restarts a dead serving-plane worker (server, manager, rollout
+worker) in place and detects hung ones by their heartbeats; the port
+does neither, so any dead or raising worker ends the run. The
+multi-host ``ClusterController`` is not ported.
 """
 
 from __future__ import annotations
@@ -107,14 +108,14 @@ class LocalController:
         return p
 
     def start_workers(self):
-        if (self.exp_cfg.generation_servers or self.exp_cfg.gserver_manager
-                or self.exp_cfg.rollout_workers):
-            raise NotImplementedError(
-                "generation servers, the gserver manager and rollout workers under "
-                "the controller are not ported yet (the rollout half of ROADMAP "
-                "Queue A item 4)")
         for cfg in self.exp_cfg.model_workers:
             self._spawn("model_worker", cfg)
+        for cfg in self.exp_cfg.generation_servers:
+            self._spawn("generation_server", cfg)
+        if self.exp_cfg.gserver_manager is not None:
+            self._spawn("gserver_manager", self.exp_cfg.gserver_manager)
+        for cfg in self.exp_cfg.rollout_workers:
+            self._spawn("rollout_worker", cfg)
 
     def _drain_errors(self):
         while True:

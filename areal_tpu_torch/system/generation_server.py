@@ -30,7 +30,10 @@ configured): ``/drain``, ``/set_role`` and roles other than "unified";
 ``/kv_handoff*`` and ``/kv/*`` (KV tier, handoff, peer restore);
 ``/distribute_weights``, ``/cutover_weights`` and ``/weights/*`` (the
 weight plane, sharded weights); tensor parallelism, speculative
-decoding, int8 decode weights; HF checkpoints and tokenizers. A
+decoding, int8 decode weights; the HF fallback of a weight update. The
+server serves an HF checkpoint (``model_path``) in its compute dtype and
+takes its EOS from the tokenizer (``tokenizer_path``, else the
+checkpoint's). A
 ``decode_url`` or ``kv_source`` in a ``/generate`` body is ignored: the
 request is served here with a full prefill, the reference's own
 fallback.
@@ -46,10 +49,12 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Dict, Optional, Tuple
 from urllib.parse import urlsplit
 
+from areal_tpu_torch.api import data_api
 from areal_tpu_torch.api.config import ModelAbstraction
 from areal_tpu_torch.api.system_api import GenerationServerConfig
 from areal_tpu_torch.base import (
-    constants, env_registry, logging, name_resolve, names, network, rpc, seeding, tracing)
+    constants, env_registry, health, logging, name_resolve, names, network, rpc, seeding,
+    tracing)
 from areal_tpu_torch.base.fault_injection import faults
 from areal_tpu_torch.base.latency import encode_counts
 from areal_tpu_torch.engine.serving import GenRequest, ServingEngine
@@ -58,6 +63,10 @@ from areal_tpu_torch.models.transformer import init_params
 from areal_tpu_torch.system.worker_base import PollResult, Worker
 
 logger = logging.getLogger("generation_server")
+
+# Longest a server outlives its trial's COMPLETE while the gserver
+# manager is still fanning the last trained version out.
+LAST_FANOUT_WAIT_S = 120.0
 
 # (status, body, content type, extra headers)
 Response = Tuple[int, bytes, str, Dict[str, str]]
@@ -72,19 +81,33 @@ def _text(text: str, status: int = 200) -> Response:
     return status, text.encode(), "text/plain; charset=utf-8", {}
 
 
-def make_model(model: ModelAbstraction, seed: int, device):
+def make_model(model: ModelAbstraction, seed: int, device, model_path: Optional[str] = None):
     """(TransformerConfig, params) of a ``tpu_transformer`` abstraction:
-    ``args["config"]`` holds TransformerConfig fields, and the params are
-    random, drawn from ``seed`` (a checkpoint comes later, through
-    ``/update_weights_from_disk``)."""
+    from the HF checkpoint at ``model_path`` (the config's, else the
+    abstraction's ``model_path``), its params cast to the compute dtype
+    the engine serves in; else ``args["config"]`` holds TransformerConfig
+    fields and the params are random, drawn from ``seed``."""
     if model is None or model.type_ != "tpu_transformer":
         raise ValueError(f"unknown model {model!r}: the port builds 'tpu_transformer'")
     args = dict(model.args)
-    if args.get("model_path") is not None:
-        raise NotImplementedError("serving from an HF checkpoint is not ported yet "
-                                  "(ROADMAP Queue A item 2.4)")
-    cfg = TransformerConfig(**{**args["config"], "is_critic": bool(args.get("is_critic", False))})
+    is_critic = bool(args.get("is_critic", False))
+    model_path = model_path or args.get("model_path")
+    if model_path is not None:
+        from areal_tpu_torch import torch_dtype
+        from areal_tpu_torch.models.hf import load_hf_model
+
+        cfg, params = load_hf_model(model_path, is_critic=is_critic,
+                                    family=args.get("hf_family"))
+        dtype = torch_dtype(cfg.compute_dtype)
+        return cfg, _cast_tree(params, dtype)
+    cfg = TransformerConfig(**{**args["config"], "is_critic": is_critic})
     return cfg, init_params(cfg, seed=seed, device=device)
+
+
+def _cast_tree(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: _cast_tree(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype)
 
 
 def _refuse_unported(config: GenerationServerConfig):
@@ -103,8 +126,6 @@ def _refuse_unported(config: GenerationServerConfig):
         "kv_spill_dtype": config.kv_spill_dtype is not None,
         "speculative_draft_len": config.speculative_draft_len > 0,
         "decode_weight_dtype": config.decode_weight_dtype not in (None, "model"),
-        "model_path": config.model_path is not None,
-        "tokenizer_path": config.tokenizer_path is not None,
     }
     bad = [k for k, v in refused.items() if v]
     if bad:
@@ -143,16 +164,23 @@ class GenerationServer(Worker):
         self.cfg = config
         constants.set_experiment_trial_names(config.experiment_name, config.trial_name)
         seeding.set_random_seed(config.seed, config.worker_name)
-        model_cfg, params = make_model(config.model, config.seed, config.device)
-        # No tokenizer yet: clients name their stop tokens (gconfig
-        # stop_token_ids).
+        model_cfg, params = make_model(config.model, config.seed, config.device,
+                                       config.model_path)
+        # The tokenizer gives the engine its EOS; it is the named one, else
+        # the HF checkpoint's own, as the reference's model factory reads.
+        args = config.model.args
+        tokenizer_path = (config.tokenizer_path or args.get("tokenizer_path")
+                          or config.model_path or args.get("model_path"))
+        self.tokenizer = (data_api.load_hf_tokenizer(tokenizer_path)
+                          if tokenizer_path else None)
+        eos = self.tokenizer.eos_token_id if self.tokenizer else None
         self.engine = ServingEngine(
             cfg=model_cfg,
             params=params,
             max_batch_size=config.max_concurrent_requests,
             max_seq_len=config.max_seq_len,
             decode_block_steps=config.decode_block_steps,
-            eos_token_id=None,
+            eos_token_id=eos,
             seed=config.seed + config.server_index,
             page_size=config.kv_page_size,
             kv_pool_tokens=config.kv_pool_tokens,
@@ -175,6 +203,7 @@ class GenerationServer(Worker):
         self._n_interrupted = 0
         self._n_shed = 0
         self._last_load_info = None
+        self._complete_at: Optional[float] = None
 
         self._routes: Dict[str, Dict[str, Callable[[Any, bytes], Response]]] = {
             "/generate": {"POST": self._h_generate},
@@ -239,7 +268,11 @@ class GenerationServer(Worker):
         for k, v in {**headers, **extra}.items():
             handler.send_header(k, v)
         handler.end_headers()
-        handler.wfile.write(data)
+        try:
+            handler.wfile.write(data)
+        except (BrokenPipeError, ConnectionResetError):
+            # The client gave up (a cancelled rollout at shutdown).
+            logger.debug(f"client left before the reply to {method} {handler.path}")
 
     def _admission_overloaded(self) -> Optional[float]:
         """Backpressure watermark check: the Retry-After seconds when
@@ -561,16 +594,36 @@ class GenerationServer(Worker):
     # ------------------------------------------------------------------
 
     def _poll(self) -> Optional[PollResult]:
-        # Exit when the experiment completes.
+        # Exit when the experiment completes; on COMPLETE, first outlive
+        # the trial's gserver manager, which fans the last trained
+        # version out before it leaves, and let that version go live.
         try:
             status = name_resolve.get(
                 names.experiment_status(self.cfg.experiment_name, self.cfg.trial_name))
-            if status in ("COMPLETE", "ABORT"):
+            if status == "ABORT":
                 return None
+            if status == "COMPLETE":
+                if self._complete_at is None:
+                    self._complete_at = time.monotonic()
+                if ((not self._manager_alive() and not self.engine.update_pending)
+                        or time.monotonic() - self._complete_at > LAST_FANOUT_WAIT_S):
+                    return None
         except name_resolve.NameEntryNotFoundError:
             pass
         time.sleep(0.2)
         return PollResult(batch_count=0)
+
+    def _manager_alive(self) -> bool:
+        """True while the trial's gserver manager beats and has not
+        stopped."""
+        try:
+            record = json.loads(name_resolve.get(names.health(
+                self.cfg.experiment_name, self.cfg.trial_name, "gserver_manager")))
+        except (name_resolve.NameEntryNotFoundError, ValueError):
+            return False
+        return (not record.get("stopped")
+                and time.time() - float(record.get("ts", 0))
+                <= float(record.get("ttl", health.default_ttl())) * health.STALE_FACTOR)
 
     def _exit_hook(self):
         try:
@@ -580,4 +633,42 @@ class GenerationServer(Worker):
             self._http_thread.join(timeout=5)
         except Exception:
             pass
+        try:
+            self._write_exit_record()
+        except Exception:
+            logger.warning("exit record not written", exc_info=True)
 
+    def _write_exit_record(self):
+        """What this process did on its device, for the launcher to read
+        after the run: its weight version, the port's kernel launches, the
+        peak device memory and the engine's metrics. /metrics keeps the reference's lines
+        only, so these travel in a file:
+        ``<log path>/exit_records/<worker name>.json``."""
+        import torch
+
+        from areal_tpu_torch import kernels
+
+        dev = self.engine.device
+        record = {
+            "worker": self.worker_name,
+            "version": self.engine.version,
+            "launches": dict(kernels.launches),
+            "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
+                                  if dev.type == "cuda" else 0),
+            "metrics": self.engine.metrics(),
+        }
+        write_exit_record(self.cfg.experiment_name, self.cfg.trial_name,
+                          self.worker_name, record)
+
+
+def exit_record_path(experiment_name: str, trial_name: str, worker_name: str) -> str:
+    return os.path.join(constants.get_log_path(experiment_name, trial_name), "exit_records",
+                        worker_name.replace("/", "_") + ".json")
+
+
+def write_exit_record(experiment_name: str, trial_name: str, worker_name: str, record: Dict):
+    path = exit_record_path(experiment_name, trial_name, worker_name)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path + ".tmp", "w") as f:
+        json.dump(record, f)
+    os.replace(path + ".tmp", path)

@@ -23,7 +23,8 @@ Not ported yet, each refused with ``NotImplementedError``: the "save",
 "generate" MFC, the param-realloc target branch (weights loaded from
 another replica), dataset loaders (``datasets`` without
 ``stream_dataset``), the multi-host train group, the weight plane and
-its int8 wire, and the eval-score curriculum filter.
+its int8 wire. Per-prompt ``scores`` in an MFC's output merge into the
+shared eval-score file (``system/eval_scores.py``), as in the reference.
 """
 
 from __future__ import annotations
@@ -55,6 +56,7 @@ from areal_tpu_torch.base import (
     stats_tracker,
     tracing,
 )
+from areal_tpu_torch.system import eval_scores
 from areal_tpu_torch.system import request_reply_stream as rrs
 from areal_tpu_torch.system.data_manager import DataManager
 from areal_tpu_torch.system.redistributor import RedistribStep
@@ -251,10 +253,14 @@ class ModelWorker(Worker):
 
         output_meta = None
         if out is not None:
-            if out.metadata.get("scores"):
-                raise NotImplementedError(
-                    "the eval-score curriculum filter is not ported yet (the rollout "
-                    "slice, ROADMAP Queue A item 4)")
+            # Per-prompt eval scores feed the dataset curriculum filter:
+            # merged into the shared score file and popped, so they do
+            # not ride into downstream MFC inputs.
+            scores = out.metadata.pop("scores", None)
+            if scores:
+                eval_scores.merge_scores(
+                    self.cfg.experiment_name, self.cfg.trial_name,
+                    dict(zip(out.ids, scores)))
             if d.get("output_key_remap"):
                 out.remap_keys_(d["output_key_remap"])
             self.data_manager.store(out)

@@ -8,8 +8,8 @@ commands are JSON, the reference's, so the reference's ``WorkerControl``
 commands a port worker), and the worker mirrors its status there.
 ``LocalController`` runs workers without one, as the reference's does.
 The client side (``WorkerControl``) is not ported: no worker or
-controller of either package constructs one. Nor is ``AsyncWorker``: no port worker polls in
-asyncio.
+controller of either package constructs one. ``AsyncWorker`` polls a
+coroutine on one event loop (the rollout worker).
 """
 
 from __future__ import annotations
@@ -282,3 +282,42 @@ class Worker:
 
     def exit(self):
         self._exiting = True
+
+
+class AsyncWorker(Worker):
+    """Worker whose poll is an async coroutine (`_poll_async`)."""
+
+    async def _poll_async(self) -> PollResult:
+        raise NotImplementedError()
+
+    def run(self):
+        import asyncio
+
+        assert self._configured, "configure() before run()"
+
+        async def _loop():
+            while not self._exiting:
+                self._handle_commands()
+                self._beat()
+                await faults.maybe_fail_async("worker.poll")
+                if not self._running:
+                    await asyncio.sleep(0.05)
+                    continue
+                r = await self._poll_async()
+                if r is None:
+                    break
+                if r.batch_count == 0:
+                    await asyncio.sleep(0.002)
+
+        try:
+            asyncio.run(_loop())
+            if self._server:
+                self._server.set_status(WorkerServerStatus.COMPLETED)
+        except Exception:
+            if self._server:
+                self._server.set_status(WorkerServerStatus.ERROR)
+            raise
+        finally:
+            self._stop_heartbeat()
+            self._exit_hook()
+            tracing.flush()

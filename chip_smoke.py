@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port (areal_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--out report.json] [--profile-serving]
-        [--phases build,parity,serve_bf16,serve_int8,interrupt,http,grad,train,workers]
+        [--phases build,parity,serve_bf16,serve_int8,interrupt,http,grad,train,workers,
+                  async_ppo]
 
 Phases (every one must pass; the script exits nonzero on the first that
 fails, and on a machine without CUDA):
@@ -46,7 +47,8 @@ fails, and on a machine without CUDA):
 9. workers     - the trainer half of the worker system through
                  LocalController(ExperimentConfig).run(): a spawned model
                  worker loads the actor from an HF directory of seeded
-                 random weights at the full width and depth (float32
+                 random weights at the full width and 14 of the 28
+                 layers (the async_ppo phase runs all 28; float32
                  params, bf16 compute) and pulls 2 steps of the train
                  phase's PPO batch, pushed from this process as a
                  rollout worker would; the master runs 2 actor_train
@@ -57,6 +59,20 @@ fails, and on a machine without CUDA):
                  forward, both backward kernels and packed_gae_f32 in the
                  worker, and of the forward and paged_decode_bf16 in the
                  server, must be > 0.
+10. async_ppo  - the async RL loop through the port's entry point,
+                 areal_tpu_torch.training.main_async_ppo.main(argv) with
+                 the reference's override keys: a GenerationServer (bf16
+                 pool, 16 slots x 4096 tokens), the gserver manager, a
+                 rollout worker running the math agent and env over a
+                 seeded prompt set under a tiny tokenizer, and a model
+                 worker training the actor at full width and depth (float32
+                 params, bf16 compute) for 2 steps at
+                 max_head_offpolicyness 1. The fanout must land versions
+                 1 and 2 on the server, every trained sample must be within
+                 the staleness bound, and launches of the forward and
+                 paged_decode_bf16 in the server and of the forward, both
+                 backward kernels and packed_gae_f32 in the model worker
+                 must be > 0.
 
 Before the last line it prints the card's name and power limit (as
 nvidia-smi reports them) and one {"kernels": [...]} JSON line; the last
@@ -66,6 +82,7 @@ line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -114,7 +131,7 @@ GAE_PLAN_SHAPES = ((64, 4096), (4096, 4096), (66, 8192), (66, 16384), (132, 1638
 # compute end to end: per leaf, against the leaf's largest reference value.
 LEAF_TOL = 5e-2
 PHASES = ("build", "parity", "serve_bf16", "serve_int8", "interrupt", "http", "grad", "train",
-          "workers")
+          "workers", "async_ppo")
 # The train phase at real size; a rehearsal on the CPU passes smaller ones.
 TRAIN_SIZES = dict(n_prompts=8, group=4, prompt=(128, 512), response=(256, 3072),
                    row_len=4096, max_tokens_per_mb=16384, n_minibatches=4,
@@ -1739,6 +1756,9 @@ def train_phase(torch, rng, dev, cfg, seed, sizes=TRAIN_SIZES):
 # ----------------------------------------------------------------------
 
 WORKER_STEPS = 2
+# The workers phase's depth, cut from the model's 28 layers to keep the
+# default run near half its time limit.
+WORKERS_LAYERS = 14
 WORKERS_TIMEOUT_S = 600.0
 # The realloc dump's update from init against an in-process replay's, per
 # leaf: ||(dump - init) - (replay - init)|| / ||replay - init||. Readings
@@ -1884,6 +1904,9 @@ def workers_phase(torch, rng, dev, cfg, seed, card, train_step_s=None, sizes=TRA
         stats["init_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         save_hf_model(hf_dir, cfg, params, "qwen2")
+        # An HF directory carries its tokenizer, which the model factory
+        # loads (its own generator: the phase's batches stay the same).
+        tiny_tokenizer(np.random.default_rng([seed, 6]), hf_dir, 64)
         del params
         torch.cuda.empty_cache()
         stats["hf_save_s"] = time.perf_counter() - t0
@@ -1980,8 +2003,9 @@ def workers_phase(torch, rng, dev, cfg, seed, card, train_step_s=None, sizes=TRA
         log(f"  {WORKER_STEPS} actor_train steps through LocalController in "
             f"{stats['run_s']:.1f} s (worker start, HF load, steps, exit): tokens {n_tok}; "
             f"master step e2e {[round(x, 3) for x in e2e]} s, MFC perf/sec "
-            f"{[round(x, 3) for x in stats['mfc_sec']]} s (train phase's direct train_step "
-            f"{'not run' if train_step_s is None else f'{train_step_s:.2f} s'}); raw dump "
+            f"{[round(x, 3) for x in stats['mfc_sec']]} s"
+            f"{'' if train_step_s is None else f' (direct train_step {train_step_s:.2f} s)'}; "
+            f"raw dump "
             f"{[round(x, 2) for x in stats['dump_s']]} s; worker peak device memory "
             f"{stats['peak_memory_gb']:.2f} GB; loss "
             f"{[round(s['ppo_actor/loss'], 5) for s in steps]}, importance_weight "
@@ -2084,6 +2108,239 @@ def workers_phase(torch, rng, dev, cfg, seed, card, train_step_s=None, sizes=TRA
         if server is not None:
             server.exit()
             run.join(timeout=120)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# The async_ppo phase at real size; a rehearsal on the CPU passes smaller
+# ones. The reference's override keys, as a user would pass them.
+ASYNC_SIZES = dict(n_prompts=64, prompt=(256, 1024), train_batch_size=8, group=4,
+                   max_new_tokens=256, offpolicy=1, steps=2, slots=16, max_seq_len=4096,
+                   row_len=4096, max_tokens_per_mb=16384, n_minibatches=4, words=400)
+ASYNC_TIMEOUT_S = 900.0
+
+
+def tiny_tokenizer(rng, save_dir, n_words):
+    """A WordPiece tokenizer trained on a seeded corpus of `n_words`
+    distinct words and the digits (the shape of tests.fixtures'
+    train_tiny_tokenizer), saved as an HF tokenizer in `save_dir`; each
+    word is one token. Returns the words."""
+    from tokenizers import Tokenizer
+    from tokenizers.models import WordPiece
+    from tokenizers.pre_tokenizers import Whitespace
+    from tokenizers.trainers import WordPieceTrainer
+    from transformers import PreTrainedTokenizerFast
+
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    words = sorted({"".join(rng.choice(letters, int(rng.integers(3, 8))))
+                    for _ in range(n_words)})
+    corpus = [" ".join(words), " ".join(str(d) for d in range(100)), "the answer is boxed"]
+    tok = Tokenizer(WordPiece(unk_token="[UNK]"))
+    tok.pre_tokenizer = Whitespace()
+    tok.train_from_iterator(corpus, WordPieceTrainer(
+        vocab_size=len(words) + 256, min_frequency=0, special_tokens=["[UNK]", "[EOS]"]))
+    os.makedirs(save_dir, exist_ok=True)
+    path = os.path.join(save_dir, "tokenizer.json")
+    tok.save(path)
+    PreTrainedTokenizerFast(tokenizer_file=path, eos_token="[EOS]", pad_token="[EOS]",
+                            unk_token="[UNK]").save_pretrained(save_dir)
+    return words
+
+
+def math_prompt_rows(rng, n, lo_hi, words):
+    """`n` math prompts of lo..hi tokens under the tiny tokenizer (one
+    token a word), each asking for a sum with its numeric answer."""
+    rows = []
+    for i in range(n):
+        a, b = (int(x) for x in rng.integers(1, 50, 2))
+        ask = f"what is {a} plus {b}"
+        n_fill = max(0, _draw(rng, lo_hi) - len(ask.split()))
+        rows.append(dict(query_id=f"q{i}", task="math",
+                         prompt=" ".join(rng.choice(words, n_fill)) + " " + ask,
+                         solutions=[f"\\boxed{{{a + b}}}"]))
+    return rows
+
+
+def read_trace(trace_dir):
+    """Every span record of the run's trace shards, by worker label."""
+    out = {}
+    for name in sorted(os.listdir(trace_dir)):
+        worker = None
+        with open(os.path.join(trace_dir, name)) as f:
+            for line in f:
+                rec = json.loads(line)
+                if rec.get("kind") == "header":
+                    worker = rec["worker"]
+                elif rec.get("kind") == "span":
+                    out.setdefault(worker, []).append(rec)
+    return out
+
+
+def async_ppo_phase(torch, rng, dev, cfg, seed, card, sizes=ASYNC_SIZES):
+    """The async RL loop through the port's entry point,
+    areal_tpu_torch.training.main_async_ppo.main(argv), with the
+    reference's override keys: a GenerationServer, the gserver manager,
+    a rollout worker running the math agent and env, and a model worker
+    training the actor (loaded with the server from an HF directory of
+    seeded random weights and the tiny tokenizer) on the pushed
+    trajectories, handing each step's weights back through the manager's
+    fanout. Tracing is on: the spans give the staleness of every trained
+    sample, the fanouts and the refused allocations; the server's exit
+    record gives its kernel launches and peak memory."""
+    import shutil
+    import tempfile
+    from collections import Counter
+
+    from areal_tpu_torch.base import tracing
+    from areal_tpu_torch.models.hf import save_hf_model
+    from areal_tpu_torch.models.transformer import init_params
+    from areal_tpu_torch.system.generation_server import exit_record_path
+    from areal_tpu_torch.training import main_async_ppo
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_async_")
+    exp, trial = os.path.basename(tmp), "async"
+    trace_dir = os.path.join(tmp, "trace")
+    fileroot = os.path.join(tmp, "fileroot")
+    env = {"AREAL_RL_TRACE": "1", "AREAL_RL_TRACE_DIR": trace_dir, "AREAL_FILEROOT": fileroot}
+    saved_env = {k: os.environ.get(k) for k in env}
+    stats = dict(card=card)
+    try:
+        t0 = time.perf_counter()
+        hf_dir = os.path.join(tmp, "hf")
+        words = tiny_tokenizer(rng, hf_dir, sizes["words"])
+        params = init_params(cfg, seed=seed, device=dev, dtype=torch.bfloat16)
+        save_hf_model(hf_dir, cfg, params, "qwen2")
+        del params
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            # What this process still holds from earlier phases: part of
+            # its peak below.
+            stats["launcher_held_gb"] = torch.cuda.memory_allocated(dev) / 1e9
+        data = os.path.join(tmp, "math.jsonl")
+        rows = math_prompt_rows(rng, sizes["n_prompts"], sizes["prompt"], words)
+        with open(data, "w") as f:
+            f.writelines(json.dumps(r) + "\n" for r in rows)
+        stats["setup_s"] = time.perf_counter() - t0
+        argv = [
+            f"experiment_name={exp}", f"trial_name={trial}", f"seed={seed}",
+            f"name_resolve_root={os.path.join(tmp, 'name_resolve')}",
+            f"actor.path={hf_dir}", f"tokenizer_path={hf_dir}",
+            f"dataset.path={data}", f"dataset.max_length={sizes['prompt'][1]}",
+            f"train_batch_size={sizes['train_batch_size']}", f"group_size={sizes['group']}",
+            f"ppo.gconfig.max_new_tokens={sizes['max_new_tokens']}",
+            f"ppo.max_head_offpolicyness={sizes['offpolicy']}",
+            f"ppo.ppo_n_minibatches={sizes['n_minibatches']}",
+            f"exp_ctrl.benchmark_steps={sizes['steps']}",
+            "actor.optimizer.lr=5e-5", "actor.optimizer.warmup_steps_proportion=0.0",
+            f"actor.row_len_multiple={sizes['row_len']}", f"actor.max_row_len={sizes['row_len']}",
+            f"mb_spec_max_tokens={sizes['max_tokens_per_mb']}",
+            "n_generation_servers=1", "n_rollout_workers=1",
+            f"gen_max_concurrent_requests={sizes['slots']}",
+            f"gen_max_seq_len={sizes['max_seq_len']}", "gen_kv_page_size=128",
+            f"gen_prefill_chunk={sizes['prompt'][1]}", f"device={dev.type}",
+        ]
+        log(f"  main_async_ppo {' '.join(argv)}")
+        os.environ.update(env)
+        tracing._ENABLED = None  # re-read AREAL_RL_TRACE: the master runs here
+        t0 = time.perf_counter()
+        result = main_async_ppo.main(argv, worker_env=env, timeout=ASYNC_TIMEOUT_S)
+        stats["run_s"] = time.perf_counter() - t0
+        tracing.flush()
+        summary = result["perf_summary"]
+        steps = [s["actor_train"] for s in summary["mfc_stats"]]
+        if result["global_step"] != sizes["steps"] or len(steps) != sizes["steps"]:
+            raise AssertionError(f"async_ppo: {result['global_step']} steps, "
+                                 f"{len(steps)} reported")
+        bad = [k for s in steps for k, v in s.items() if not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"async_ppo: non-finite MFC stats {bad}")
+        spans = read_trace(trace_dir)
+
+        # The fanout landed each version on the server.
+        landed = sorted(int(r["attrs"]["version"]) for r in spans.get("gserver_manager", [])
+                        if r["name"] == "manager.weight_update"
+                        and r["attrs"].get("n_success", 0) >= 1)
+        served = sorted(int(r["attrs"]["version"]) for r in spans.get("generation_server/0", [])
+                        if r["name"] == "server.weight_update" and "source" in r["attrs"])
+        want = list(range(1, sizes["steps"] + 1))
+        if landed != want or served != want:
+            raise AssertionError(f"async_ppo: fanout landed versions {landed}, the server "
+                                 f"loaded {served}, want {want}")
+        sync_s = [(r["end_ns"] - r["start_ns"]) / 1e9 for r in spans["gserver_manager"]
+                  if r["name"] == "manager.weight_update"]
+
+        # Every trained sample within the staleness bound.
+        waits = {r["attrs"]["sample_id"]: r["attrs"] for r in spans.get("master", [])
+                 if r["name"] == "buffer.wait" and r["attrs"].get("rpc") == "actor_train"}
+        n_want = sizes["steps"] * sizes["train_batch_size"]
+        if len(waits) != n_want:
+            raise AssertionError(f"async_ppo: {len(waits)} trained samples traced, "
+                                 f"want {n_want}")
+        lag = Counter(a["train_step"] - a["version_start"] for a in waits.values())
+        if max(lag) > sizes["offpolicy"] or min(a["version_start"] for a in waits.values()) < 0:
+            raise AssertionError(f"async_ppo: staleness {dict(lag)} past "
+                                 f"max_head_offpolicyness={sizes['offpolicy']}")
+        staled = sum(1 for r in spans.get("gserver_manager", [])
+                     if r["name"] == "manager.allocate" and r["attrs"].get("reason") == "staled")
+
+        # Launches: the server's from its exit record, the trainer's from
+        # the MFC replies.
+        with open(exit_record_path(exp, trial, "generation_server/0")) as f:
+            srv = json.load(f)
+        worker_counts = {k: int(sum(s.get(f"launches/{k}", 0) for s in steps))
+                         for k in srv["launches"]}
+        if dev.type == "cuda":
+            for k in ("flash_attn_fwd_bf16", "paged_decode_bf16"):
+                if srv["launches"][k] <= 0:
+                    raise AssertionError(f"async_ppo: kernel {k} was not launched by the server")
+            for k in ("flash_attn_fwd_bf16", "flash_attn_bwd_dq_bf16", "flash_attn_bwd_dkv_bf16",
+                      "packed_gae_f32"):
+                if worker_counts[k] <= 0:
+                    raise AssertionError(
+                        f"async_ppo: kernel {k} was not launched in the model worker")
+        if srv["version"] != sizes["steps"]:
+            raise AssertionError(f"async_ppo: the server ended at version {srv['version']}")
+        gen_tokens = srv["metrics"]["total_generated"]
+        stats.update(
+            global_step=result["global_step"], server_final_version=srv["version"],
+            step_e2e_s=[h[0] for h in summary["history"]],
+            mfc_sec=[s["perf/sec"] for s in steps],
+            dump_s=[s["param_realloc/dump_s"] for s in steps],
+            output_tokens=gen_tokens, output_tok_per_s=gen_tokens / stats["run_s"],
+            last_weight_sync_s=sync_s, server_stage_s=srv["metrics"]["last_weight_stage_s"],
+            server_swap_s=srv["metrics"]["last_weight_swap_s"], staled_allocations=staled,
+            staleness_hist={int(k): v for k, v in sorted(lag.items())},
+            importance_weight_step1=steps[0]["ppo_actor/importance_weight"],
+            peak_memory_gb={
+                "model_worker": max(s["perf/mem_peak_bytes_in_use"] for s in steps) / 1e9,
+                "generation_server": srv["peak_memory_bytes"] / 1e9,
+                "launcher": (torch.cuda.max_memory_allocated(dev) / 1e9
+                             if dev.type == "cuda" else 0.0)},
+            server_launches=srv["launches"], worker_launches=worker_counts,
+            launches={k: worker_counts[k] + srv["launches"][k] for k in worker_counts})
+        log(f"  {stats['global_step']} async PPO steps in {stats['run_s']:.1f} s (worker start, "
+            f"HF loads, rollouts, steps, exit); master step e2e "
+            f"{[round(x, 3) for x in stats['step_e2e_s']]} s, MFC perf/sec "
+            f"{[round(x, 3) for x in stats['mfc_sec']]} s, raw dump "
+            f"{[round(x, 2) for x in stats['dump_s']]} s; {card}")
+        log(f"  rollout output {gen_tokens:.0f} tokens, {stats['output_tok_per_s']:.1f} tokens/s "
+            f"over the run; manager fanouts (last_weight_sync_s) "
+            f"{[round(x, 3) for x in sync_s]} s, server stage {stats['server_stage_s']:.3f} s, "
+            f"swap {stats['server_swap_s']:.3f} s; allocations refused as staled {staled}; "
+            f"staleness (train step - version_start: samples) {stats['staleness_hist']}; "
+            f"importance_weight of step 1 {stats['importance_weight_step1']:.6f}")
+        log(f"  peak device memory (GB) {stats['peak_memory_gb']} (the launcher held "
+            f"{stats.get('launcher_held_gb', 0.0):.2f} GB from earlier phases at the start); "
+            f"launches in the model worker "
+            f"{worker_counts}, in the server {srv['launches']}")
+        return stats
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        tracing._ENABLED = None
         shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -2246,15 +2503,29 @@ def main() -> int:
     if "workers" in phases:
         log("phase workers")
         t0 = time.perf_counter()
+        # Cut in depth: the async_ppo phase runs the same trainer, dump
+        # and server load at all 28 layers.
         report["phases"]["workers"] = workers_phase(
-            torch, np.random.default_rng([args.seed, 5]), dev, cfg, args.seed, card,
-            train_step_s=report["phases"].get("train", {}).get("train_step_s"))
+            torch, np.random.default_rng([args.seed, 5]), dev,
+            dataclasses.replace(cfg, n_layers=WORKERS_LAYERS), args.seed, card)
         # The worker system is a main path of its own: its launches add.
         for k, n in report["phases"]["workers"]["launches"].items():
             if n:
                 main_counts[k] = main_counts.get(k, 0) + n
         torch.cuda.empty_cache()
         phase_done("workers", t0)
+
+    if "async_ppo" in phases:
+        log("phase async_ppo")
+        t0 = time.perf_counter()
+        report["phases"]["async_ppo"] = async_ppo_phase(
+            torch, np.random.default_rng([args.seed, 7]), dev, cfg, args.seed, card)
+        # The async loop is a main path of its own: its launches add.
+        for k, n in report["phases"]["async_ppo"]["launches"].items():
+            if n:
+                main_counts[k] = main_counts.get(k, 0) + n
+        torch.cuda.empty_cache()
+        phase_done("async_ppo", t0)
 
     kernels_line = []
     for name, row in kernel_rows.items():

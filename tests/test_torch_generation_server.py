@@ -283,8 +283,8 @@ def test_unported_routes_answer_404(fleet, path, method):
                                                         weight_shard_degree=2),
     dict(kv_tier_bytes=1 << 20), dict(kv_tier_disk_dir="/nonexistent"),
     dict(kv_spill_dtype="int8"), dict(speculative_draft_len=2),
-    dict(decode_weight_dtype="int8"), dict(model_path="/nonexistent"),
-    dict(tokenizer_path="/nonexistent"),
+    dict(decode_weight_dtype="int8"), dict(kv_tier_disk_bytes=1 << 20),
+    dict(weight_shard_degree=2),
 ])
 def test_unported_options_are_refused_at_boot(option):
     from areal_tpu_torch.system.generation_server import GenerationServer
