@@ -230,6 +230,37 @@ class FaultInjector:
             await asyncio.sleep(self._fire(arm, point))
 
 
+    def maybe_corrupt(self, point: str, data: bytes) -> bytes:
+        """Byte-serving injection point: a pass-through unless armed. A
+        ``corrupt`` arm flips bytes after every hash was stamped (the
+        receiver's sha256 verify must reject and re-fetch); any other
+        action fires as at ``maybe_fail``."""
+        arm = self._step(point)
+        if arm is None:
+            return data
+        if arm.action == "corrupt":
+            logger.warning(
+                f"fault injection: corrupting {len(data)} bytes at "
+                f"{point!r} (hit {self._hits.get(point)})"
+            )
+            if arm.on_trigger is not None:
+                arm.on_trigger()
+            return corrupt_bytes(data)
+        time.sleep(self._fire(arm, point))
+        return data
+
+
+def corrupt_bytes(data: bytes) -> bytes:
+    """Deterministically flip bytes (first, middle, last) so a
+    content-hash verifier must reject the payload; empty payloads pass
+    through."""
+    if not data:
+        return data
+    b = bytearray(data)
+    for i in {0, len(b) // 2, len(b) - 1}:
+        b[i] ^= 0xFF
+    return bytes(b)
+
 # Process-global injector: production code imports this singleton so
 # tests arm points without plumbing an injector through constructors.
 faults = FaultInjector()

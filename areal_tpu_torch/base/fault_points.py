@@ -1,8 +1,8 @@
 """The named chaos-injection points the port fires (the port's copy of
 the entries of ``areal_tpu/base/fault_points.py`` that its generation
-server, worker system, rollout worker and gserver manager fire; names
-and meanings are the reference's, so one ``AREAL_FAULTS`` spec arms
-reference and port processes alike).
+server, serving engine, worker system, rollout worker and gserver manager
+fire; names and meanings are the reference's, so one ``AREAL_FAULTS``
+spec arms reference and port processes alike).
 
 Names under ``test.`` are reserved for the injector's own tests and are
 exempt from declaration.
@@ -31,6 +31,25 @@ _POINTS: List[FaultPoint] = [
                "wedged decode lap)."),
     FaultPoint("gserver.update_weights", _GS,
                "Weight load from the shared dump dies mid-update."),
+    FaultPoint("gserver.kv_export", _GS,
+               "Prefill side dies mid KV handoff export."),
+    FaultPoint("gserver.kv_restore", _GS,
+               "Tier restore fails mid delta-prefill: the session falls back "
+               "to a full re-prefill, spill-not-loss."),
+    FaultPoint("gserver.kv_import", _GS,
+               "Decode side dies mid KV handoff import."),
+    FaultPoint("gserver.drain", _GS,
+               "Drain-then-leave dies at the start of the drain."),
+    FaultPoint("gserver.kv_accept", _GS,
+               "Migration target fails while accepting a parked prefix from a "
+               "draining peer."),
+    FaultPoint("gserver.kv_chunk_bytes", _GS,
+               "KV chunk/blob payload corrupted after its chunk index was "
+               "minted: the puller's per-chunk sha256 verify must reject and "
+               "re-fetch."),
+    FaultPoint("engine.kv_spill", ("areal_tpu_torch/engine/serving.py",),
+               "KV tier spill write fails: the eviction falls back to a clean "
+               "free, counted as kv_prefix_lost, never a wedge."),
     FaultPoint("worker.poll", ("areal_tpu_torch/system/worker_base.py",),
                "A worker's poll loop dies or hangs."),
     FaultPoint("master.step", ("areal_tpu_torch/system/master_worker.py",),

@@ -60,6 +60,12 @@ class Heartbeat:
         self._stopped = False
         self.beat(force=True)
 
+    def update_payload(self, **kwargs):
+        """Merge fields into the record and rewrite it now (a drain
+        advertises itself through the heartbeat)."""
+        self._payload.update(kwargs)
+        self.beat(force=True)
+
     def beat(self, force: bool = False):
         """Renew the lease (no-op within ttl/3 of the previous beat)."""
         if self._stopped:

@@ -1,6 +1,7 @@
 """RPC substrate pieces the port's servers and clients use (the port's
 copy of ``Deadline``, ``RetryPolicy`` with its declared policies,
-``shed_backoff``, ``retry_async`` and the process-global ``stats`` of
+``shed_backoff``, ``retry_async`` / ``retry_sync`` (without the breaker)
+and the process-global ``stats`` of
 ``areal_tpu/base/rpc.py``).
 
 A deadline crosses the wire as REMAINING seconds in the
@@ -193,6 +194,28 @@ async def retry_async(fn: Callable[[float], Awaitable[T]], *, policy: RetryPolic
             stats.incr("retries")
             logger.debug(f"{what}: attempt {attempt} failed: {e!r}")
             await asyncio.sleep(policy.backoff(attempt, deadline=deadline))
+    stats.incr("failures")
+    raise RpcError(f"{what}: failed after {policy.attempts} attempt(s): {last!r}") from last
+
+
+def retry_sync(fn: Callable[[float], T], *, policy: RetryPolicy,
+               deadline: Optional[Deadline] = None,
+               retryable: Tuple[type, ...] = (OSError, TimeoutError, ValueError),
+               what: str = "rpc") -> T:
+    """``retry_async`` for callers on plain threads."""
+    last: Optional[BaseException] = None
+    for attempt in range(1, policy.attempts + 1):
+        timeout = policy.attempt_timeout(deadline)  # raises when expired
+        stats.incr("attempts")
+        try:
+            return fn(timeout)
+        except retryable as e:
+            last = e
+            if attempt >= policy.attempts:
+                break
+            stats.incr("retries")
+            logger.debug(f"{what}: attempt {attempt} failed: {e!r}")
+            time.sleep(policy.backoff(attempt, deadline=deadline))
     stats.incr("failures")
     raise RpcError(f"{what}: failed after {policy.attempts} attempt(s): {last!r}") from last
 

@@ -1,0 +1,14 @@
+"""Wire schema tags of the KV plane (the port's copy of the entries of
+``areal_tpu/base/wire_schemas.py`` it speaks). The strings are the
+reference's byte for byte: a blob or manifest of either package is read
+by the other."""
+
+from __future__ import annotations
+
+# Versioned KV-handoff blob (engine/kv_handoff.py): meta + typed array
+# segments in one chunk-hashed payload.
+KV_HANDOFF_V1 = "areal-kv-handoff/v1"
+
+# Tiered-KV manifest: where a spilled or parked prefix lives (holder url
+# and tier); the bytes inside stay KV_HANDOFF_V1 blobs.
+KV_TIER_V1 = "areal-kv-tier/v1"

@@ -69,6 +69,30 @@ def dequantize_kv(w: torch.Tensor, s: torch.Tensor, dtype) -> torch.Tensor:
     return (w.float() * (s / KV_INT8_MAX)).to(dtype)
 
 
+def gather_kv_tokens(pool, page_ids, n_tokens: int):
+    """One sequence's KV out of the pool in token-major order (the
+    handoff export and the tier spill, engine/kv_handoff.py).
+
+    ``page_ids`` are the sequence's pages in order; tokens past
+    ``n_tokens`` (final-page padding) are dropped. Plain pools give
+    ``[L, Hkv, n_tokens, hd]``, int8 pools the ``(data, scales [L, Hkv,
+    n_tokens])`` pair: fresh tensors on the pool's device, in its dtype
+    (the caller copies their bytes to the host as they are)."""
+    idx = torch.as_tensor(list(page_ids), dtype=torch.long,
+                          device=kv_pool_data(pool).device)
+
+    def g(arr):
+        x = arr[:, :, idx]  # [L, Hkv, P, pg, (hd)]
+        L, H = x.shape[0], x.shape[1]
+        if x.dim() == 5:
+            return x.reshape(L, H, -1, x.shape[-1])[:, :, :n_tokens].contiguous()
+        return x.reshape(L, H, -1)[:, :, :n_tokens].contiguous()
+
+    if isinstance(pool, tuple):
+        return g(pool[0]), g(pool[1])
+    return g(pool)
+
+
 class PageAllocator:
     """Host-side free-list allocator over the pool's page indices. Page 0
     (TRASH_PAGE) is reserved."""
@@ -398,6 +422,27 @@ def scatter_prefill(k_pages, v_pages, k_pref, v_pref, flat_page_ids):
 
     write(k_pages, k_pref)
     write(v_pages, v_pref)
+
+
+def scatter_prefill_int8(k_pages, v_pages, k_data, k_scales, v_data, v_scales,
+                         page_ids):
+    """Write an int8-wire KV prefix straight into an int8 pool, in place:
+    the wire's (data, scales) pairs are the pool's encoding, so a spill
+    and restore is bit-exact and never dequantizes.
+
+    k_data/v_data: [L, Hkv, pad, hd] int8 token-major (padded to whole
+    pages); k_scales/v_scales: [L, Hkv, pad] f32; page_ids: [pad // pg]
+    pool pages in order."""
+    L, Hkv, pad, hd = k_data.shape
+    pg = k_pages[0].shape[3]
+    n_chunks = pad // pg
+
+    def write(pool, data, scales):
+        pool[0][:, :, page_ids] = data.reshape(L, Hkv, n_chunks, pg, hd)
+        pool[1][:, :, page_ids] = scales.reshape(L, Hkv, n_chunks, pg)
+
+    write(k_pages, k_data, k_scales)
+    write(v_pages, v_data, v_scales)
 
 
 # ----------------------------------------------------------------------

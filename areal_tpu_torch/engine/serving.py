@@ -28,9 +28,18 @@ queue counters and ``metrics()`` with the reference's key set (the
 features the port lacks read their disabled values), ``warm`` and the
 stale-update checks behind ``/update_weights_from_disk``.
 
-Not ported yet: KV tier / handoff / export, speculative decoding, int8
-weights, mesh / tensor parallelism, the staged cutover of the weight
-plane and the env knobs.
+The KV plane of disaggregated serving is the reference's too:
+``export_kv_handoff`` / ``import_kv_handoff`` move a parked prefix as an
+``areal-kv-handoff/v1`` blob (engine/kv_handoff.py) between a prefill
+and a decode engine; with ``kv_tier_bytes`` an evicted prefix spills to
+a host (+ disk) tier (engine/kv_tier.py) on a spill thread instead of
+being lost, and ``restore_from_tier`` brings it back for a continuation.
+Work on loop-owned state from other threads goes through the loop door
+(``_run_on_loop``).
+
+Not ported yet: speculative decoding, int8 weights, mesh / tensor
+parallelism, the staged cutover of the weight plane and the env knobs
+(the tier is configured by argument only).
 """
 
 from __future__ import annotations
@@ -47,14 +56,21 @@ import numpy as np
 import torch
 
 from areal_tpu_torch import resolve_device, torch_dtype
+from areal_tpu_torch.base import tracing
+from areal_tpu_torch.base.fault_injection import faults
 from areal_tpu_torch.base.latency import LatencyHistogram, percentile_from_counts
+from areal_tpu_torch.engine import kv_handoff as kvh
+from areal_tpu_torch.engine.kv_tier import KVTierStore
 from areal_tpu_torch.engine.paged import (
     TRASH_PAGE,
     PageAllocator,
     _chunk_prefill_body,
+    gather_kv_tokens,
     paged_decode_block,
     pages_needed,
+    quantize_kv,
     scatter_prefill,
+    scatter_prefill_int8,
 )
 from areal_tpu_torch.models.config import TransformerConfig
 from areal_tpu_torch.models.transformer import forward, lm_head
@@ -162,6 +178,10 @@ class ServingEngine:
         kv_cache_dtype: Optional[str] = None,
         prefill_token_budget: Optional[int] = None,
         decode_blocks_per_admit: int = 1,
+        kv_tier_bytes: Optional[int] = None,
+        kv_tier_disk_dir: Optional[str] = None,
+        kv_tier_disk_bytes: Optional[int] = None,
+        kv_spill_dtype: Optional[str] = None,
         device="cuda",
     ):
         if cfg.moe is not None:
@@ -185,6 +205,10 @@ class ServingEngine:
             raise ValueError("prefill_token_budget must be >= 1 or None")
         if decode_blocks_per_admit < 1:
             raise ValueError("decode_blocks_per_admit must be >= 1")
+        if kv_spill_dtype not in (None, "model", "int8", "fp8"):
+            raise ValueError(
+                f"kv_spill_dtype={kv_spill_dtype!r}: expected None, "
+                f"'model', 'int8', or 'fp8'")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.params = _to_device(params, self.device)
@@ -270,6 +294,9 @@ class ServingEngine:
 
         self._queue: "queue.Queue[GenRequest]" = queue.Queue()
         self._backlog: List[GenRequest] = []  # engine-thread only
+        # Loop-thread command queue: closures that touch loop-owned state
+        # (_prefix_cache, the allocator, the pools), run between laps.
+        self._cmds: "queue.Queue" = queue.Queue()
         # qid -> accepted, not yet admitted requests: their parked
         # prefixes are evicted last. Updated under _fatal_lock.
         self._queued_qids: Dict[str, int] = {}
@@ -302,11 +329,48 @@ class ServingEngine:
         self.n_preempted = 0
         self.last_weight_swap_s = 0.0
         self.last_weight_stage_s = 0.0
-        # Prefixes evicted while their KV was valid (no tier to spill to).
-        self._kv_lost_evict = 0
         # Off-thread snapshots of loop-only state, refreshed every lap.
         self._backlog_len = 0
         self._kv_pages_free = self._allocator.n_free
+        # KV handoff telemetry (export on prefill-role engines, import on
+        # decode-role ones).
+        self.kv_exports = 0
+        self.kv_export_bytes = 0
+        self.last_kv_export_ms = 0.0
+        self.kv_imports = 0
+        self.kv_import_bytes = 0
+        self.last_kv_import_ms = 0.0
+        # The tier: evicted prefixes spill here in the handoff format. The
+        # gather runs on the loop; the device fetch, quantize, hashing
+        # and the insert run on the spill thread.
+        self.kv_spill_dtype = None if kv_spill_dtype == "model" else kv_spill_dtype
+        self.kv_tier = None
+        if kv_tier_bytes and int(kv_tier_bytes) > 0:
+            self.kv_tier = KVTierStore(
+                int(kv_tier_bytes), disk_dir=kv_tier_disk_dir,
+                disk_capacity_bytes=int(kv_tier_disk_bytes or (1 << 30)))
+        # Bounded: each item holds one gathered KV pair on the device
+        # until the spill thread drains it; overflow is a counted loss.
+        self._spill_q: "queue.Queue" = queue.Queue(maxsize=64)
+        self._spill_thread: Optional[threading.Thread] = None
+        # Weight-swap tier flush, run by the spill thread.
+        self._tier_clear = threading.Event()
+        self.kv_spills = 0          # spill thread
+        self.kv_spill_bytes = 0     # spill thread
+        self.kv_spill_tokens = 0    # spill thread
+        self.kv_restores = 0        # restore callers
+        self.kv_restore_host = 0
+        self.kv_restore_disk = 0
+        self.kv_restore_tokens = 0
+        # True prefix losses: pages freed while their KV was valid and
+        # could not be spilled (no tier, spill queue full, spill failure),
+        # one counter per writing thread.
+        self._kv_lost_evict = 0     # engine loop
+        self._kv_lost_spill = 0     # spill thread
+        # Off-thread snapshot of the parked qids (qid -> tokens), replaced
+        # by the loop every ~0.2 s.
+        self._parked_qids: Dict[str, int] = {}
+        self._parked_snap_t = 0.0
 
     # ------------------------------------------------------------------
     # Public API
@@ -315,11 +379,21 @@ class ServingEngine:
     def start(self):
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
+        if self.kv_tier is not None:
+            self._spill_thread = threading.Thread(target=self._spill_worker, daemon=True)
+            self._spill_thread.start()
 
     def stop(self):
         self._stop.set()
         if self._thread:
             self._thread.join(timeout=60)
+        if self._spill_thread:
+            # Best-effort wake: the worker polls with a short timeout.
+            try:
+                self._spill_q.put_nowait(None)
+            except queue.Full:
+                pass
+            self._spill_thread.join(timeout=10)
 
     def submit(self, req: GenRequest):
         with self._fatal_lock:
@@ -368,6 +442,363 @@ class ServingEngine:
         dt = time.perf_counter() - t0
         logger.info(f"serving warm: {n} request(s), {dt:.1f}s")
         return dt
+
+    # ------------------------------------------------------------------
+    # Disaggregated prefill/decode: KV-handoff export / import
+    # ------------------------------------------------------------------
+
+    def _run_on_loop(self, fn, timeout_s: float = 60.0):
+        """Run ``fn()`` on the engine loop thread between laps and return
+        its result: the one cross-thread door to loop-owned state (the
+        prefix cache, the allocator, the pools)."""
+        if threading.current_thread() is self._thread:
+            return fn()
+        done = threading.Event()
+        cell: Dict[str, Any] = {}
+        self._cmds.put((fn, done, cell))
+        deadline = time.monotonic() + timeout_s
+        while not done.wait(0.05):
+            if self.fatal_error is not None:
+                raise RuntimeError(
+                    f"serving engine loop died: {self.fatal_error!r}"
+                ) from self.fatal_error
+            if self._thread is None or not self._thread.is_alive() or self._stop.is_set():
+                raise RuntimeError("serving engine loop is not running")
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"engine-loop command not served within {timeout_s}s")
+        if "exc" in cell:
+            raise cell["exc"]
+        return cell.get("ret")
+
+    def _drain_cmds(self):
+        while True:
+            try:
+                fn, done, cell = self._cmds.get_nowait()
+            except queue.Empty:
+                return
+            try:
+                cell["ret"] = fn()
+            except BaseException as e:  # delivered to the waiting caller
+                cell["exc"] = e
+            finally:
+                done.set()
+
+    def export_kv_handoff(self, qid: str, compress: Optional[str] = None
+                          ) -> Tuple[Dict[str, Any], bytes]:
+        """Export ``qid``'s parked KV prefix as a handoff blob (meta,
+        payload), consuming the entry: its pages are freed here (the
+        decode side owns the sequence now). A prefix spilled to the tier
+        is served from there. Raises KeyError when neither holds ``qid``.
+        ``compress="int8"`` or ``"fp8"`` quantizes a float pool's KV on
+        the wire; int8 pools always ship their (data, scales) form."""
+        t0 = time.monotonic()
+
+        def _peek_and_gather():
+            # Peek, don't pop: if the caller's door wait times out, the
+            # entry and its pages stay owned by the cache.
+            ent = self._prefix_cache.get(qid)
+            if ent is None:
+                raise KeyError(f"no parked KV prefix for qid {qid!r}")
+            toks, pages = ent
+            n = len(toks)
+            n_pg = pages_needed(n, self.page_size)
+            k = gather_kv_tokens(self._k_pages, pages[:n_pg], n)
+            v = gather_kv_tokens(self._v_pages, pages[:n_pg], n)
+            return ent, toks, self.version, k, v
+
+        def _consume(ent):
+            # Identity-checked pop and free: an admission may have taken
+            # the entry meanwhile (then it owns the pages).
+            if self._prefix_cache.get(qid) is ent:
+                self._prefix_cache.pop(qid, None)
+                self._cached_tokens -= len(ent[0])
+                self._allocator.free(ent[1])
+
+        try:
+            ent, toks, version, k, v = self._run_on_loop(_peek_and_gather)
+        except KeyError:
+            got = self.kv_tier.get(qid, count=False) if self.kv_tier is not None else None
+            if got is None:
+                raise
+            meta, payload, _tier = got
+            self.kv_tier.discard(qid)
+            self.kv_exports += 1
+            self.kv_export_bytes += len(payload)
+            self.last_kv_export_ms = (time.monotonic() - t0) * 1000.0
+            return meta, payload
+        try:
+            arrays, wire = self._pack_kv_wire(k, v, compress)
+            segments, chunks, payload = kvh.pack_arrays(arrays)
+            meta = kvh.build_meta(qid, version, toks, wire, self.cfg, segments, chunks)
+        finally:
+            self._run_on_loop(lambda: _consume(ent))
+        self.kv_exports += 1
+        self.kv_export_bytes += len(payload)
+        self.last_kv_export_ms = (time.monotonic() - t0) * 1000.0
+        return meta, payload
+
+    def _wire_to_device(self, x: torch.Tensor, pad: int) -> torch.Tensor:
+        """A token-major wire tensor ([L, H, n, ...]) zero-padded to
+        ``pad`` tokens on the engine's device, in its wire dtype."""
+        L, H, n = x.shape[:3]
+        out = torch.zeros((L, H, pad) + tuple(x.shape[3:]), dtype=x.dtype)
+        out[:, :, :n] = x
+        return out.to(self.device)
+
+    def import_kv_handoff(self, meta: Dict[str, Any], payload: bytes):
+        """Import a handoff blob: allocate pages, write the KV into the
+        pool and park it as ``qid``'s prefix (the decode side; the caller
+        then submits prompt + first token at priority 0, which admits as
+        a one-token delta prefill).
+
+        Raises KVHandoffVersionMismatch when the blob's weight version is
+        not the live engine's (checked on the loop thread, atomically
+        with the park), KVHandoffError on geometry / hash problems or
+        pool exhaustion. Host unpacking and the host->device copy run on
+        the caller's thread; only the pool write runs on the loop."""
+        t0 = time.monotonic()
+        kvh.check_geometry(meta, self.cfg)
+        qid = str(meta["qid"])
+        toks = [int(t) for t in meta["tokens"]]
+        n = len(toks)
+        n_pg = pages_needed(n, self.page_size)
+        pad = n_pg * self.page_size
+        if n != int(meta["n_tokens"]):
+            raise kvh.KVHandoffError(f"{n} tokens, meta says {meta['n_tokens']}")
+
+        if meta["kv_wire"] == "int8" and self.kv_cache_dtype == "int8":
+            # The wire's (data, scales) pairs are the pool's encoding:
+            # straight in, bit-exact.
+            parts = kvh.unpack_kv_int8(meta, payload)
+            if parts[0].shape[2] != n:
+                raise kvh.KVHandoffError(f"token/KV length mismatch: {n} tokens, KV {tuple(parts[0].shape)}")
+            kd, ks, vd, vs = (self._wire_to_device(x, pad) for x in parts)
+
+            def scatter(pages_dev):
+                scatter_prefill_int8(self._k_pages, self._v_pages, kd, ks, vd, vs, pages_dev)
+        else:
+            if meta["kv_wire"] in ("int8", "fp8"):
+                # Dequantized on the host, in the reference's float32 order.
+                kf, vf = kvh.unpack_kv_float(meta, payload)
+            else:
+                # Float wires go to the device in their own dtype (the pool
+                # write casts or quantizes, as from float32).
+                arrs = kvh.unpack_arrays(meta, payload)
+                kf, vf = arrs["k"], arrs["v"]
+            if kf.shape[2] != n:
+                raise kvh.KVHandoffError(f"token/KV length mismatch: {n} tokens, KV {tuple(kf.shape)}")
+
+            def to_pref(x):
+                # [L, Hkv, n, hd] -> scatter_prefill's [L, 1, pad, Hkv, hd]
+                return self._wire_to_device(x, pad).permute(0, 2, 1, 3)[:, None]
+
+            k_dev, v_dev = to_pref(kf), to_pref(vf)
+
+            def scatter(pages_dev):
+                scatter_prefill(self._k_pages, self._v_pages, k_dev, v_dev, pages_dev)
+
+        def _write():
+            if int(meta["version"]) != self.version:
+                raise kvh.KVHandoffVersionMismatch(
+                    f"blob v{meta['version']} vs engine v{self.version}")
+            self._ensure_pool()
+            pages = self._alloc_pages(n_pg)
+            if pages is None:
+                raise kvh.KVHandoffError(
+                    f"pool exhausted: need {n_pg} pages, {self._allocator.n_free} free")
+            scatter(torch.as_tensor(pages, dtype=torch.long, device=self.device))
+            old = self._prefix_cache.pop(qid, None)
+            if old is not None:
+                self._allocator.free(old[1])
+                self._cached_tokens -= len(old[0])
+            self._prefix_cache[qid] = (toks, pages)
+            self._cached_tokens += n
+
+        self._run_on_loop(_write)
+        self.kv_imports += 1
+        self.kv_import_bytes += len(payload)
+        self.last_kv_import_ms = (time.monotonic() - t0) * 1000.0
+
+    def _pack_kv_wire(self, k, v, compress: Optional[str]):
+        """(arrays, wire) of a gathered KV pair, shared by the export and
+        the spill worker; the arrays are CPU tensors holding the device
+        bytes unchanged. int8 pools ship their (data, scales) form; float
+        pools ship their own dtype, or quantize on the wire
+        (``compress="int8"`` on the device as the pool quantizes,
+        ``"fp8"`` on the host)."""
+        if isinstance(k, tuple):  # int8 pool: (data, scales)
+            return [
+                ("k_data", k[0].cpu()),
+                ("k_scales", k[1].float().cpu()),
+                ("v_data", v[0].cpu()),
+                ("v_scales", v[1].float().cpu()),
+            ], "int8"
+        if compress == "int8":
+            kw, ks = quantize_kv(k)
+            vw, vs = quantize_kv(v)
+            return [
+                ("k_data", kw.cpu()),
+                ("k_scales", ks[..., 0].cpu()),
+                ("v_data", vw.cpu()),
+                ("v_scales", vs[..., 0].cpu()),
+            ], "int8"
+        kh, vh = k.cpu(), v.cpu()
+        if compress == "fp8":
+            kw, ks = kvh.quantize_kv_fp8(kh)
+            vw, vs = kvh.quantize_kv_fp8(vh)
+            return [("k_data", kw), ("k_scales", ks), ("v_data", vw), ("v_scales", vs)], "fp8"
+        return [("k", kh), ("v", vh)], kvh.wire_dtype_name(kh.dtype)
+
+    # ------------------------------------------------------------------
+    # The tier: spill, restore, peer serving
+    # ------------------------------------------------------------------
+
+    def _spill_or_lose(self, qid: str, toks: List[int], pages: List[int], spill: bool):
+        """Loop half of a spill: gather the KV while its pages are still
+        allocated, then hand it to the spill thread. Whatever prevents
+        the spill of valid KV counts as a prefix loss."""
+        if not spill:
+            return  # weight-swap flush: the KV is stale, not lost
+        if self.kv_tier is None:
+            self._kv_lost_evict += 1
+            return
+        n = len(toks)
+        n_pg = pages_needed(n, self.page_size)
+        k = gather_kv_tokens(self._k_pages, pages[:n_pg], n)
+        v = gather_kv_tokens(self._v_pages, pages[:n_pg], n)
+        try:
+            self._spill_q.put_nowait((qid, list(toks), self.version, k, v))
+        except queue.Full:
+            # Dropping (not blocking) bounds the loop's latency; the
+            # continuation pays a re-prefill.
+            self._kv_lost_evict += 1
+
+    def _spill_worker(self):
+        """Spill thread: device fetch, optional quantize, chunk hashing
+        and the tier insert. One failure loses one prefix (counted),
+        never the thread."""
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        while not self._stop.is_set():
+            if self._tier_clear.is_set():
+                # A weight swap landed: every tiered prefix is stale.
+                self._tier_clear.clear()
+                self.kv_tier.clear()
+            try:
+                item = self._spill_q.get(timeout=0.2)
+            except queue.Empty:
+                continue
+            if item is None:
+                continue
+            qid, toks, version, k, v = item
+            if version != self.version:
+                continue  # spilled under replaced weights: stale, not lost
+            t0 = tracing.now_ns() if tracing.enabled() else 0
+            try:
+                faults.maybe_fail("engine.kv_spill")
+                with torch.inference_mode():
+                    arrays, wire = self._pack_kv_wire(k, v, self.kv_spill_dtype)
+                segments, chunks, payload = kvh.pack_arrays(arrays)
+                meta = kvh.build_meta(qid, version, toks, wire, self.cfg, segments, chunks)
+                self.kv_tier.put(qid, meta, payload)
+                self.kv_spills += 1
+                self.kv_spill_bytes += len(payload)
+                self.kv_spill_tokens += len(toks)
+                if tracing.enabled():
+                    tracing.record_span("server.kv_spill", t0, qid=qid, n_tokens=len(toks),
+                                        bytes=len(payload), wire=wire)
+            except Exception:
+                self._kv_lost_spill += 1
+                logger.warning(f"kv spill failed for {qid!r}", exc_info=True)
+
+    def restore_from_tier(self, qid: str, prompt_ids: Optional[List[int]] = None) -> int:
+        """Pull a spilled prefix back from the tier into the pool and park
+        it, so the continuation about to be submitted admits as a delta
+        prefill. Returns the restored token count, 0 on a miss. Runs on
+        server threads (import_kv_handoff takes the loop door itself).
+        A version-stale entry is dropped; a prompt that does not extend
+        the spilled tokens leaves the entry in place."""
+        if self.kv_tier is None:
+            return 0
+        # Validate against the meta first (always in host memory): a
+        # rejected probe pays no disk read and counts no hit.
+        meta0 = self.kv_tier.peek_meta(qid, count_miss=True)
+        if meta0 is None:
+            return 0
+        if int(meta0.get("version", -1)) != self.version:
+            self.kv_tier.discard(qid)
+            return 0
+        if prompt_ids is not None:
+            toks = [int(t) for t in meta0["tokens"]]
+            use = min(len(toks), len(prompt_ids) - 1)
+            if use < self.page_size or toks[:use] != [int(t) for t in prompt_ids[:use]]:
+                return 0
+        got = self.kv_tier.get(qid)
+        if got is None:
+            return 0  # aged out between peek and get
+        meta, payload, tier = got
+        try:
+            self.import_kv_handoff(meta, payload)
+        except kvh.KVHandoffVersionMismatch:
+            self.kv_tier.discard(qid)
+            return 0
+        except (kvh.KVHandoffError, RuntimeError, TimeoutError):
+            # Pool exhaustion or loop trouble: keep the entry.
+            return 0
+        self.kv_tier.discard(qid)  # the pool owns the prefix again
+        self.kv_restores += 1
+        self.kv_restore_tokens += int(meta["n_tokens"])
+        if tier == "disk":
+            self.kv_restore_disk += 1
+        else:
+            self.kv_restore_host += 1
+        return int(meta["n_tokens"])
+
+    def has_parked(self, qid: str) -> bool:
+        """Whether the pool holds a parked prefix for qid, from the
+        loop's snapshot (up to ~0.2 s stale; admission revalidates)."""
+        return qid in self._parked_qids
+
+    def parked_qids_now(self, timeout_s: float = 30.0) -> Dict[str, int]:
+        """Authoritative qid -> token count of the parked prefixes, read
+        on the loop thread (a drain enumerating what it must migrate
+        cannot use the stale snapshot)."""
+        return self._run_on_loop(
+            lambda: {q: len(e[0]) for q, e in self._prefix_cache.items()}, timeout_s)
+
+    def parked_index(self, cap: int = 8192) -> List[Dict[str, Any]]:
+        """Parked entries for ``/kv/index`` (from the snapshot; tier
+        entries come from kv_tier.held())."""
+        out = []
+        for q, n in list(self._parked_qids.items()):
+            if len(out) >= cap:
+                break
+            out.append({"qid": q, "tier": "hbm", "n_tokens": int(n),
+                        "content_hash": "", "version": int(self.version)})
+        return out
+
+    def stage_peer_export(self, qid: str) -> Dict[str, Any]:
+        """Peer-pull staging (``/kv/manifest``): the handoff meta of a
+        prefix this engine holds, with its payload servable from the
+        tier. A tier entry is served as it is; a parked prefix is
+        exported (consumed: the session moves) into the tier. Raises
+        KeyError when neither holds qid."""
+        if self.kv_tier is None:
+            raise KeyError(f"no kv tier to stage peer export for {qid!r}")
+        got = self.kv_tier.get(qid, count=False)
+        if got is not None:
+            return got[0]
+        meta, payload = self.export_kv_handoff(qid)
+        self.kv_tier.put(qid, meta, payload)
+        return meta
+
+    def peer_payload(self, qid: str) -> Optional[Tuple[Dict, bytes]]:
+        """(meta, payload) for ``/kv/chunk``: no hit accounting, no
+        consume (a peer pulls many chunks)."""
+        if self.kv_tier is None:
+            return None
+        got = self.kv_tier.get(qid, count=False)
+        return None if got is None else (got[0], got[1])
 
     def is_stale_update(self, version: Optional[int]) -> bool:
         """True iff update_params(version=version) would drop the update
@@ -453,10 +884,10 @@ class ServingEngine:
 
     def metrics(self) -> Dict[str, float]:
         """The reference engine's metrics, key for key. Features the port
-        lacks read their disabled values: MoE, speculative decoding and
-        the KV export / import / spill / restore counters 0.0, and no
-        ``kv_tier_*`` keys (no tier). The decode control state lives on
-        the device between blocks, so ``decode_resident`` reads 1.0."""
+        lacks read their disabled values (MoE and speculative decoding
+        0.0); ``kv_tier_*`` keys appear with a tier. The decode control
+        state lives on the device between blocks, so ``decode_resident``
+        reads 1.0."""
         return {
             "num_running_reqs": float(self.n_running),
             "num_used_tokens": float(self.n_used_tokens),
@@ -486,20 +917,22 @@ class ServingEngine:
             "prefix_tokens_reused": float(self.prefix_tokens_reused),
             "prefix_cached_tokens": float(self._cached_tokens),
             "total_requests": float(self.total_requests),
-            "kv_export_total": 0.0,
-            "kv_export_bytes": 0.0,
-            "last_kv_export_ms": 0.0,
-            "kv_import_total": 0.0,
-            "kv_import_bytes": 0.0,
-            "last_kv_import_ms": 0.0,
-            "kv_spill_total": 0.0,
-            "kv_spill_bytes": 0.0,
-            "kv_spill_tokens": 0.0,
-            "kv_restore_total": 0.0,
-            "kv_restore_host": 0.0,
-            "kv_restore_disk": 0.0,
-            "kv_restore_tokens": 0.0,
-            "kv_prefix_lost_total": float(self._kv_lost_evict),
+            "kv_export_total": float(self.kv_exports),
+            "kv_export_bytes": float(self.kv_export_bytes),
+            "last_kv_export_ms": float(self.last_kv_export_ms),
+            "kv_import_total": float(self.kv_imports),
+            "kv_import_bytes": float(self.kv_import_bytes),
+            "last_kv_import_ms": float(self.last_kv_import_ms),
+            "kv_spill_total": float(self.kv_spills),
+            "kv_spill_bytes": float(self.kv_spill_bytes),
+            "kv_spill_tokens": float(self.kv_spill_tokens),
+            "kv_restore_total": float(self.kv_restores),
+            "kv_restore_host": float(self.kv_restore_host),
+            "kv_restore_disk": float(self.kv_restore_disk),
+            "kv_restore_tokens": float(self.kv_restore_tokens),
+            "kv_prefix_lost_total": float(self._kv_lost_evict + self._kv_lost_spill),
+            **{f"kv_tier_{k}": v for k, v in
+               (self.kv_tier.stats() if self.kv_tier is not None else {}).items()},
             "spec_tokens_per_step": 0.0,
             "spec_emitted_tokens": 0.0,
             "spec_active_steps": 0.0,
@@ -800,12 +1233,13 @@ class ServingEngine:
         top_ks[slots] = ints[:, 5]
         greedy[slots] = ints[:, 6] > 0
 
-    def _evict_one_prefix(self, pinned: Optional[set] = None, lost: bool = True) -> bool:
-        """Free the least-recently-used parked prefix, skipping qids in
-        ``pinned`` (a request for them is queued). With no tier to spill
-        to, evicting valid KV counts as a prefix loss; ``lost=False`` is
-        the weight-swap flush, whose KV is stale anyway. Returns False
-        when nothing (unpinned) is evictable."""
+    def _evict_one_prefix(self, pinned: Optional[set] = None, spill: bool = True) -> bool:
+        """Evict the least-recently-used parked prefix, skipping qids in
+        ``pinned`` (a request for them is queued), spilling its KV to the
+        tier first when there is one (without a tier, evicting valid KV
+        counts as a prefix loss). ``spill=False`` is the weight-swap
+        flush, whose KV is stale anyway. Returns False when nothing
+        (unpinned) is evictable."""
         if not self._prefix_cache:
             return False
         qid = None
@@ -816,14 +1250,13 @@ class ServingEngine:
             toks, pages = self._prefix_cache.pop(qid)
         else:
             qid, (toks, pages) = self._prefix_cache.popitem(last=False)
-        if lost:
-            self._kv_lost_evict += 1
+        self._spill_or_lose(qid, toks, pages, spill)
         self._allocator.free(pages)
         self._cached_tokens -= len(toks)
         return True
 
     def _flush_prefix_cache(self):
-        while self._evict_one_prefix(lost=False):
+        while self._evict_one_prefix(spill=False):
             pass
 
     def _pinned_qids(self) -> set:
@@ -964,6 +1397,11 @@ class ServingEngine:
                 torch.cuda.synchronize(self.device)
             self.last_weight_swap_s = time.monotonic() - t0
             self.version = version if version is not None else self.version + 1
+            # The tier holds KV of the old version: the spill thread
+            # clears it (after the bump, so its version gate also drops
+            # queued pre-swap items).
+            if self.kv_tier is not None:
+                self._tier_clear.set()
             logger.info(f"serving engine weights updated to v{self.version} "
                         f"in {self.last_weight_swap_s:.3f}s")
         self._interrupt.clear()
@@ -1029,9 +1467,15 @@ class ServingEngine:
         self._ensure_pool()
         n = self.block_steps
         while not self._stop.is_set():
+            # Handoff export / import and tier commands (loop-owned state).
+            self._drain_cmds()
             # Off-thread telemetry snapshots of loop-only state.
             self._backlog_len = len(self._backlog)
             self._kv_pages_free = self._allocator.n_free
+            now_lap = time.monotonic()
+            if now_lap - self._parked_snap_t > 0.2:
+                self._parked_qids = {q: len(e[0]) for q, e in self._prefix_cache.items()}
+                self._parked_snap_t = now_lap
             if self._interrupt.is_set():
                 self._interrupt_all()
                 self._apply_pending_params()

@@ -52,14 +52,6 @@ def refuse_unported(cfg: AsyncPPOMATHExpConfig):
         "gen_weight_plane": cfg.gen_weight_plane,
         "gen_weight_wire_dtype": cfg.gen_weight_wire_dtype is not None,
         "gen_weight_shards": bool(cfg.gen_weight_shards.strip(",")),
-        "gen_server_roles": any(r.strip() not in ("", "unified")
-                                for r in cfg.gen_server_roles.split(",")),
-        "gen_kv_handoff_compress": cfg.gen_kv_handoff_compress is not None,
-        "gen_kv_tier_mb": cfg.gen_kv_tier_mb is not None,
-        "gen_kv_tier_disk_dir": cfg.gen_kv_tier_disk_dir is not None,
-        "gen_kv_spill_dtype": cfg.gen_kv_spill_dtype is not None,
-        "gen_kv_index_size": bool(cfg.gen_kv_index_size),
-        "gen_elastic_pools": cfg.gen_elastic_pools,
         "gen_elastic_fleet": cfg.gen_elastic_fleet,
         "gen_autoscale": cfg.gen_autoscale,
     }
@@ -176,6 +168,10 @@ def build_async_ppo_math_experiment(cfg: AsyncPPOMATHExpConfig) -> ExperimentCon
     # its epochs from the prompt count.
     master.dataset_size = C.dataset_line_count(cfg.dataset)
 
+    # Disaggregated prefill/decode: a role per server index from the
+    # comma-separated knob, padded with "unified" (the elastic pool).
+    roles = [r.strip() or "unified" for r in (cfg.gen_server_roles or "").split(",")]
+    roles += ["unified"] * (cfg.n_generation_servers - len(roles))
     gen_servers = [
         GenerationServerConfig(
             experiment_name=cfg.experiment_name,
@@ -194,6 +190,12 @@ def build_async_ppo_math_experiment(cfg: AsyncPPOMATHExpConfig) -> ExperimentCon
             chunked_prefill_per_lap=cfg.gen_chunked_prefill_per_lap,
             prefix_cache_tokens=cfg.gen_prefix_cache_tokens,
             kv_cache_dtype=cfg.gen_kv_cache_dtype,
+            role=roles[i],
+            kv_handoff_compress=cfg.gen_kv_handoff_compress,
+            kv_tier_bytes=(cfg.gen_kv_tier_mb << 20 if cfg.gen_kv_tier_mb is not None
+                           else None),
+            kv_tier_disk_dir=cfg.gen_kv_tier_disk_dir,
+            kv_spill_dtype=cfg.gen_kv_spill_dtype,
             seed=cfg.seed,
             device=cfg.device,
         )
@@ -208,6 +210,11 @@ def build_async_ppo_math_experiment(cfg: AsyncPPOMATHExpConfig) -> ExperimentCon
         max_head_offpolicyness=cfg.ppo.max_head_offpolicyness,
         train_batch_size=cfg.train_batch_size,
         max_concurrent_rollouts=cfg.ppo.max_concurrent_rollouts,
+        kv_index_size=cfg.gen_kv_index_size,
+        elastic_pools=cfg.gen_elastic_pools,
+        prefill_queue_high_tokens=cfg.gen_prefill_queue_high_tokens,
+        prefill_queue_low_tokens=cfg.gen_prefill_queue_low_tokens,
+        decode_free_page_min_frac=cfg.gen_decode_free_page_min_frac,
         elastic_fleet=cfg.gen_elastic_fleet,
     )
     agent = AgentAbstraction("math-single-step", args=dict(

@@ -16,38 +16,54 @@ manager reach a port server exactly as they reach a reference one:
 - ``GET /metrics``: every line of the reference, in its order and
   format; lines of features the port lacks print what a reference server
   with those features off prints;
-- ``GET /health``.
+- ``GET /health``;
+- disaggregated serving: a ``/generate`` body whose ``decode_url`` names
+  another server runs the prefill leg to the first token here, exports
+  the KV (``areal-kv-handoff/v1``) and posts it to that server's
+  ``POST /kv_handoff``, which pulls the blob from ``GET
+  /kv_handoff/blob`` (per-chunk sha256, ``Range`` resume), imports it and
+  runs the decode stream; on any failure the request is finished here
+  (``kv_handoff_fallback``);
+- the tiered KV plane: a ``/generate`` for a prefix this server spilled
+  restores it from its tier first, and one carrying ``kv_source`` pulls
+  it from that peer over ``GET /kv/manifest`` and ``/kv/chunk``; ``GET
+  /kv/index`` advertises the held prefixes to the manager's index;
+- drain-then-leave: ``POST /drain`` sheds new work, waits out the
+  running requests, migrates the parked and tiered prefixes to the
+  given peers (their ``POST /kv/accept`` pulls each one into their tier),
+  deregisters and exits with code 0; ``GET /drain`` reports progress;
+- ``POST /set_role`` flips the live pool role.
 
 HTTP runs on the standard library's ``ThreadingHTTPServer`` (HTTP/1.1,
 ``Content-Length`` on every response, the JSON content type aiohttp's
 ``json_response`` sends), one thread a request. A ``/generate`` thread
 does no device work: it submits to the engine and waits for the
 request's ``done_cb``; a weight update loads and stages on its own
-request thread while the engine loop keeps decoding.
+request thread while the engine loop keeps decoding. The reference's
+async handlers become blocking ones on the request's thread; its peer
+client is ``urllib``; the drain runs on a thread of its own.
 
 Not ported yet (they answer 404 and are refused at boot when
-configured): ``/drain``, ``/set_role`` and roles other than "unified";
-``/kv_handoff*`` and ``/kv/*`` (KV tier, handoff, peer restore);
-``/distribute_weights``, ``/cutover_weights`` and ``/weights/*`` (the
-weight plane, sharded weights); tensor parallelism, speculative
-decoding, int8 decode weights; the HF fallback of a weight update. The
-server serves an HF checkpoint (``model_path``) in its compute dtype and
-takes its EOS from the tokenizer (``tokenizer_path``, else the
-checkpoint's). A
-``decode_url`` or ``kv_source`` in a ``/generate`` body is ignored: the
-request is served here with a full prefill, the reference's own
-fallback.
+configured): ``/distribute_weights``, ``/cutover_weights`` and
+``/weights/*`` (the weight plane, sharded weights); tensor parallelism,
+speculative decoding, int8 decode weights; the HF fallback of a weight
+update. The server serves an HF checkpoint (``model_path``) in its
+compute dtype and takes its EOS from the tokenizer (``tokenizer_path``,
+else the checkpoint's).
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import os
 import threading
 import time
+import urllib.error
+import urllib.parse
+import urllib.request
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Callable, Dict, Optional, Tuple
-from urllib.parse import urlsplit
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from areal_tpu_torch.api import data_api
 from areal_tpu_torch.api.config import ModelAbstraction
@@ -56,7 +72,10 @@ from areal_tpu_torch.base import (
     constants, env_registry, health, logging, name_resolve, names, network, rpc, seeding,
     tracing)
 from areal_tpu_torch.base.fault_injection import faults
+from areal_tpu_torch.base.chunking import chunk_spans, verify_chunk
 from areal_tpu_torch.base.latency import encode_counts
+from areal_tpu_torch.base.wire_schemas import KV_TIER_V1
+from areal_tpu_torch.engine.kv_handoff import KVHandoffError, KVHandoffVersionMismatch
 from areal_tpu_torch.engine.serving import GenRequest, ServingEngine
 from areal_tpu_torch.models.config import TransformerConfig
 from areal_tpu_torch.models.transformer import init_params
@@ -79,6 +98,27 @@ def _json(payload: Any, status: int = 200, headers: Optional[Dict[str, str]] = N
 
 def _text(text: str, status: int = 200) -> Response:
     return status, text.encode(), "text/plain; charset=utf-8", {}
+
+
+def _bytes(data: bytes, status: int = 200, headers: Optional[Dict[str, str]] = None) -> Response:
+    return status, data, "application/octet-stream", headers or {}
+
+
+def http_request(url: str, payload: Any = None, headers: Optional[Dict[str, str]] = None,
+                 timeout: float = 600.0) -> Tuple[int, Dict[str, str], bytes]:
+    """(status, headers, body) of one request to a peer: a JSON POST when
+    ``payload`` is given, else a GET. A non-2xx answer returns its status
+    (no exception); a connection failure raises OSError."""
+    data = None if payload is None else json.dumps(payload).encode()
+    hdrs = dict(headers or {})
+    if data is not None:
+        hdrs.setdefault("Content-Type", "application/json")
+    req = urllib.request.Request(url, data, hdrs)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, dict(resp.headers), resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers or {}), e.read()
 
 
 def make_model(model: ModelAbstraction, seed: int, device, model_path: Optional[str] = None):
@@ -116,14 +156,9 @@ def _refuse_unported(config: GenerationServerConfig):
     if config.role not in ("unified", "prefill", "decode"):
         raise ValueError(f"role must be unified/prefill/decode, got {config.role!r}")
     refused = {
-        "role": config.role != "unified",
         "tensor_parallel": config.tensor_parallel > 1,
         "weight_shard_rank": config.weight_shard_rank is not None,
         "weight_shard_degree": config.weight_shard_degree is not None,
-        "kv_tier_bytes": config.kv_tier_bytes is not None,
-        "kv_tier_disk_dir": config.kv_tier_disk_dir is not None,
-        "kv_tier_disk_bytes": config.kv_tier_disk_bytes is not None,
-        "kv_spill_dtype": config.kv_spill_dtype is not None,
         "speculative_draft_len": config.speculative_draft_len > 0,
         "decode_weight_dtype": config.decode_weight_dtype not in (None, "model"),
     }
@@ -191,6 +226,10 @@ class GenerationServer(Worker):
             kv_cache_dtype=config.kv_cache_dtype,
             prefill_token_budget=config.prefill_token_budget,
             decode_blocks_per_admit=config.decode_blocks_per_admit,
+            kv_tier_bytes=config.kv_tier_bytes,
+            kv_tier_disk_dir=config.kv_tier_disk_dir,
+            kv_tier_disk_bytes=config.kv_tier_disk_bytes,
+            kv_spill_dtype=config.kv_spill_dtype,
             device=config.device,
         )
         del params
@@ -198,15 +237,54 @@ class GenerationServer(Worker):
         if config.warm_on_start:
             # Warm before discovery registration below.
             self.engine.warm([config.prompt_bucket])
+        # Live pool role: the manager's sizer re-roles "unified"-
+        # configured servers at runtime through /set_role.
         self.role = config.role
+        self._role_lock = threading.Lock()
         self._counter_lock = threading.Lock()
         self._n_interrupted = 0
         self._n_shed = 0
         self._last_load_info = None
         self._complete_at: Optional[float] = None
+        # Drain-then-leave: once draining, /generate sheds every request,
+        # running work finishes, parked prefixes migrate to peers, and
+        # the worker departs with a graceful heartbeat stop. The drain
+        # thread alone writes _drain_state.
+        self._draining = False
+        self._drain_thread: Optional[threading.Thread] = None
+        self._drain_state: Dict[str, Any] = {
+            "draining": False, "done": False, "held": 0, "migrated": 0,
+            "lost": 0, "stale_dropped": 0, "drain_ms": 0.0, "reason": "",
+        }
+        self._kv_accepted = 0
+        self._kv_accept_bytes = 0
+        # Exported blobs the decode servers pull: qid -> (meta, payload, t).
+        self._handoff_store: "collections.OrderedDict[str, tuple]" = collections.OrderedDict()
+        self._handoff_ok = 0
+        self._handoff_failed = 0
+        self._handoff_fallback = 0
+        self._last_handoff_ms = 0.0
+        self._last_kv_transfer_ms = 0.0
+        # Tiered KV plane: peer pulls of prefixes the manager's index
+        # names, and what this server serves to peers.
+        self._kv_peer_hits = 0
+        self._kv_peer_bytes = 0
+        self._kv_peer_failed = 0
+        self._last_kv_restore_ms = 0.0
+        self._kv_manifests_served = 0
+        self._kv_chunks_served = 0
+        self._kv_chunk_bytes_served = 0
 
-        self._routes: Dict[str, Dict[str, Callable[[Any, bytes], Response]]] = {
+        self._routes: Dict[str, Dict[str, Callable[..., Response]]] = {
             "/generate": {"POST": self._h_generate},
+            "/kv_handoff": {"POST": self._h_kv_handoff},
+            "/kv_handoff/blob": {"GET": self._h_kv_blob},
+            "/kv/manifest": {"GET": self._h_kv_manifest},
+            "/kv/chunk": {"GET": self._h_kv_chunk},
+            "/kv/index": {"GET": self._h_kv_index},
+            "/kv/accept": {"POST": self._h_kv_accept},
+            "/drain": {"POST": self._h_drain, "GET": self._h_drain_status},
+            "/set_role": {"POST": self._h_set_role},
             "/configure": {"POST": self._h_configure},
             "/update_weights_from_disk": {"POST": self._h_update_weights},
             "/metrics": {"GET": self._h_metrics},
@@ -235,7 +313,9 @@ class GenerationServer(Worker):
         payload["role"] = self.role
         if self.cfg.model_id:
             payload["model_id"] = self.cfg.model_id
-        payload["draining"] = False
+        # The drain flag rides the heartbeat so a restarted manager learns
+        # of it without asking.
+        payload["draining"] = bool(self._draining)
         return payload
 
     # ------------------------------------------------------------------
@@ -245,10 +325,13 @@ class GenerationServer(Worker):
     def _dispatch(self, handler: BaseHTTPRequestHandler, method: str):
         """Route one request and write its response (on the request's
         own thread). Unknown paths answer 404, a known path with another
-        method 405, and a handler's exception 500, as aiohttp does."""
+        method 405, and a handler's exception 500, as aiohttp does.
+        Handlers take (headers, body, query)."""
         length = int(handler.headers.get("Content-Length") or 0)
         body = handler.rfile.read(length) if length else b""
-        methods = self._routes.get(urlsplit(handler.path).path)
+        parts = urllib.parse.urlsplit(handler.path)
+        query = dict(urllib.parse.parse_qsl(parts.query))
+        methods = self._routes.get(parts.path)
         extra: Dict[str, str] = {}
         if methods is None:
             resp = _text("404: Not Found", 404)
@@ -257,7 +340,7 @@ class GenerationServer(Worker):
             extra = {"Allow": ",".join(sorted(methods))}
         else:
             try:
-                resp = methods[method](handler.headers, body)
+                resp = methods[method](handler.headers, body, query)
             except Exception:
                 logger.exception(f"error handling {method} {handler.path}")
                 resp = _text("500 Internal Server Error\n\nServer got itself in trouble", 500)
@@ -279,6 +362,10 @@ class GenerationServer(Worker):
         /generate must shed, None when the request may queue. Reads only
         host counters the engine maintains (no device sync)."""
         cfg = self.cfg
+        if self._draining:
+            # Quiesce: stragglers (in-flight schedule decisions, stale
+            # affinity) are shed and retry elsewhere.
+            return cfg.shed_retry_after_s
         depth_wm = cfg.max_queue_depth
         token_wm = cfg.max_queued_tokens
         if depth_wm is None and token_wm is None:
@@ -290,7 +377,7 @@ class GenerationServer(Worker):
         )
         return cfg.shed_retry_after_s if over else None
 
-    def _h_generate(self, headers, body: bytes) -> Response:
+    def _h_generate(self, headers, body: bytes, query=None) -> Response:
         faults.maybe_fail("gserver.generate")
         d = json.loads(body)
         # An expired propagated deadline is refused cheaply: 429 with
@@ -325,7 +412,19 @@ class GenerationServer(Worker):
             "server.generate", ctx=tracing.extract_from(d),
             qid=str(d.get("qid", "")), prompt_len=len(d.get("input_ids") or []),
         )
-        req = self._gen_request_from(d, d.get("gconfig", {}))
+        # A returning session without its parked prefix restores it from
+        # the local tier, or pulls it from the peer the manager's index
+        # named (kv_source), before submission; any failure degrades to
+        # the full re-prefill.
+        self._maybe_restore_prefix(d, deadline=deadline)
+        g = d.get("gconfig", {})
+        # Disaggregated path: the manager paired a decode server in.
+        # Single-token budgets and self-pairings serve locally.
+        decode_url = d.get("decode_url") or None
+        if (decode_url and decode_url != self.address
+                and int(g.get("max_new_tokens", 256)) > 1):
+            return self._h_generate_disagg(d, g, decode_url, gen_span, deadline=deadline)
+        req = self._gen_request_from(d, g)
         try:
             res = self._submit_and_wait(req)
         except RuntimeError as e:
@@ -343,8 +442,7 @@ class GenerationServer(Worker):
             # Serve-loop death: a 500, so clients retry elsewhere.
             return _json({"qid": res.qid, "error": res.error}, 500)
         if res.interrupted:
-            with self._counter_lock:
-                self._n_interrupted += 1
+            self._count_interrupted()
         return _json(self._gen_response(res))
 
     @staticmethod
@@ -378,8 +476,8 @@ class GenerationServer(Worker):
         return box[0]
 
     @staticmethod
-    def _gen_response(res) -> Dict:
-        return {
+    def _gen_response(res, **extra) -> Dict:
+        out = {
             "qid": res.qid,
             "output_ids": res.output_ids,
             "output_logprobs": res.output_logprobs,
@@ -389,8 +487,574 @@ class GenerationServer(Worker):
             "version_end": res.version_end,
             "latency": res.latency,
         }
+        out.update(extra)
+        return out
 
-    def _h_configure(self, headers, body: bytes) -> Response:
+    def _count_interrupted(self):
+        with self._counter_lock:
+            self._n_interrupted += 1
+
+    # ------------------------------------------------------------------
+    # Disaggregated prefill/decode
+    # ------------------------------------------------------------------
+
+    def _stash_handoff(self, qid: str, meta: Dict, payload: bytes):
+        """Keep an exported blob for the decode server's chunked pull. An
+        entry lives until its /kv_handoff POST returns (the decode
+        server's whole stream), so the cap covers the server's admission
+        concurrency; entries older than 600 s (a decode server that died
+        mid-pull) are pruned."""
+        now = time.monotonic()
+        with self._counter_lock:
+            self._handoff_store[qid] = (meta, payload, now)
+            for k in [k for k, (_, _, t) in self._handoff_store.items() if now - t > 600.0]:
+                self._handoff_store.pop(k, None)
+            cap = max(32, 4 * self.cfg.max_concurrent_requests)
+            while len(self._handoff_store) > cap:
+                self._handoff_store.popitem(last=False)
+
+    def _h_generate_disagg(self, d, g, decode_url, gen_span, deadline=None) -> Response:
+        qid = str(d["qid"])
+        budget = int(g.get("max_new_tokens", 256))
+        min_new = int(g.get("min_new_tokens", 0))
+        # Prefill leg: run to the first sampled token only; the finish
+        # parks the prompt's KV under this qid.
+        first_req = self._gen_request_from(d, g)
+        first_req.max_new_tokens = 1
+        first_req.min_new_tokens = min(1, min_new)
+        try:
+            res = self._submit_and_wait(first_req)
+        except RuntimeError as e:
+            if gen_span is not None:
+                gen_span.end(error=str(e))
+            return _json({"qid": qid, "error": str(e)}, 500)
+        if res.error is not None:
+            if gen_span is not None:
+                gen_span.end(error=res.error)
+            return _json({"qid": qid, "error": res.error}, 500)
+        if res.interrupted or not res.output_ids or not res.no_eos:
+            # Interrupted (the client resubmits), a zero budget, or the
+            # first token is the EOS: nothing to hand off.
+            if res.interrupted:
+                self._count_interrupted()
+            if gen_span is not None:
+                gen_span.end(n_tokens=len(res.output_ids), interrupted=res.interrupted,
+                             disagg="short-circuit")
+            return _json(self._gen_response(res))
+        first = int(res.output_ids[0])
+        t_handoff0 = time.monotonic()
+
+        exp_span = tracing.start_span("server.kv_export", ctx=tracing.extract_from(d),
+                                      qid=qid, decode_url=decode_url)
+        try:
+            meta, payload = self.engine.export_kv_handoff(
+                qid, compress=self.cfg.kv_handoff_compress)
+        except (KeyError, KVHandoffError, RuntimeError, TimeoutError) as e:
+            # A prompt shorter than a page, pool pressure evicted the
+            # park, or the loop door timed out: finish here.
+            logger.warning(f"{qid}: kv export unavailable ({e!r}); serving remainder locally")
+            if exp_span is not None:
+                exp_span.end(error=repr(e))
+            return self._disagg_local_remainder(d, g, res, first, gen_span,
+                                                reason=f"export: {e!r}")
+        if exp_span is not None:
+            exp_span.end(n_tokens=meta["n_tokens"], bytes=len(payload),
+                         export_ms=self.engine.last_kv_export_ms)
+        faults.maybe_fail("gserver.kv_export")
+        self._stash_handoff(qid, meta, payload)
+        try:
+            # The decode hop inherits the request's remaining budget.
+            hop_headers = deadline.headers() if deadline is not None else {}
+            status, _, raw = http_request(
+                f"{decode_url}/kv_handoff",
+                tracing.inject_ctx_into({
+                    "qid": qid,
+                    "meta": meta,
+                    "source": self.address,
+                    "first_token": first,
+                    "gconfig": {
+                        "max_new_tokens": budget - 1,
+                        "min_new_tokens": max(0, min_new - 1),
+                        "greedy": bool(g.get("greedy", False)),
+                        "temperature": float(g.get("temperature", 1.0)),
+                        "top_p": float(g.get("top_p", 1.0)),
+                        "top_k": int(g.get("top_k", -1)),
+                        "stop_token_ids": list(g.get("stop_token_ids", [])),
+                    },
+                }, gen_span.ctx if gen_span is not None else None),
+                headers=hop_headers,
+                timeout=deadline.remaining() if deadline is not None and deadline.bounded()
+                else 600.0)
+            body = json.loads(raw)
+            ok = status == 200 and "output_ids" in body
+        except Exception as e:
+            ok, body = False, {"error": repr(e)}
+        finally:
+            with self._counter_lock:
+                self._handoff_store.pop(qid, None)
+        if not ok:
+            with self._counter_lock:
+                self._handoff_failed += 1
+            logger.warning(f"{qid}: kv handoff to {decode_url} failed "
+                           f"({str(body.get('error'))[:200]}); serving remainder locally")
+            return self._disagg_local_remainder(
+                d, g, res, first, gen_span, reason=f"decode: {str(body.get('error'))[:120]}")
+        with self._counter_lock:
+            self._handoff_ok += 1
+        self._last_handoff_ms = (time.monotonic() - t_handoff0) * 1000.0
+        if gen_span is not None:
+            gen_span.end(n_tokens=1 + len(body["output_ids"]), disagg="handoff",
+                         decode_url=decode_url, handoff_ms=self._last_handoff_ms)
+        return _json({
+            "qid": qid,
+            "output_ids": [first] + [int(t) for t in body["output_ids"]],
+            "output_logprobs": res.output_logprobs + [float(x) for x in body["output_logprobs"]],
+            "no_eos": bool(body["no_eos"]),
+            "interrupted": bool(body["interrupted"]),
+            "version_start": res.version_start,
+            "version_end": int(body["version_end"]),
+            "latency": time.monotonic() - (t_handoff0 - res.latency),
+            "disagg": {
+                "decode_url": decode_url,
+                "handoff_bytes": len(payload),
+                "handoff_ms": self._last_handoff_ms,
+            },
+        })
+
+    def _disagg_local_remainder(self, d, g, first_res, first, gen_span, reason: str) -> Response:
+        """Handoff fallback: finish the request on this engine (it holds
+        or recomputes the prefix), so a failed handoff degrades to
+        unified serving instead of losing the rollout."""
+        with self._counter_lock:
+            self._handoff_fallback += 1
+        cont = self._gen_request_from(d, g)
+        cont.input_ids = [int(t) for t in d["input_ids"]] + [first]
+        cont.max_new_tokens = int(g.get("max_new_tokens", 256)) - 1
+        cont.min_new_tokens = max(0, int(g.get("min_new_tokens", 0)) - 1)
+        cont.priority = 0
+        try:
+            res2 = self._submit_and_wait(cont)
+        except RuntimeError as e:
+            if gen_span is not None:
+                gen_span.end(error=str(e))
+            return _json({"qid": cont.qid, "error": str(e)}, 500)
+        if res2.error is not None:
+            if gen_span is not None:
+                gen_span.end(error=res2.error)
+            return _json({"qid": res2.qid, "error": res2.error}, 500)
+        if res2.interrupted:
+            self._count_interrupted()
+        if gen_span is not None:
+            gen_span.end(n_tokens=1 + len(res2.output_ids), disagg="local-fallback",
+                         fallback_reason=reason)
+        merged = self._gen_response(res2, disagg={"fallback": reason})
+        merged["output_ids"] = [first] + list(res2.output_ids)
+        merged["output_logprobs"] = list(first_res.output_logprobs) + list(res2.output_logprobs)
+        merged["version_start"] = first_res.version_start
+        merged["latency"] = first_res.latency + res2.latency
+        return _json(merged)
+
+    # ------------------------------------------------------------------
+    # Tiered KV plane: restore, peer pull, the /kv routes
+    # ------------------------------------------------------------------
+
+    def _maybe_restore_prefix(self, d: Dict, deadline: Optional[rpc.Deadline] = None
+                              ) -> Optional[str]:
+        """Best-effort prefix restore for a returning session: the tier it
+        hit ('local' or 'peer') or None. Never raises: every failure is a
+        plain re-prefill."""
+        try:
+            return self._restore_prefix_impl(d, deadline=deadline)
+        except Exception:
+            logger.warning(f"kv restore for {d.get('qid')!r} failed; "
+                           f"falling back to re-prefill", exc_info=True)
+            return None
+
+    def _restore_prefix_impl(self, d: Dict, deadline: Optional[rpc.Deadline] = None
+                             ) -> Optional[str]:
+        qid = str(d.get("qid") or "")
+        input_ids = [int(t) for t in (d.get("input_ids") or [])]
+        eng = self.engine
+        if not qid or len(input_ids) <= self.cfg.kv_page_size or eng.has_parked(qid):
+            return None
+        kv_source = str(d.get("kv_source") or "")
+        if eng.kv_tier is None and (not kv_source or kv_source == self.address):
+            return None
+        faults.maybe_fail("gserver.kv_restore")
+        t0 = time.monotonic()
+        span_t0 = tracing.now_ns() if tracing.enabled() else 0
+        # 1) The local tier.
+        if eng.kv_tier is not None:
+            n = eng.restore_from_tier(qid, input_ids)
+            if n:
+                self._last_kv_restore_ms = (time.monotonic() - t0) * 1000.0
+                if tracing.enabled():
+                    tracing.record_span("server.kv_restore", span_t0,
+                                        ctx=tracing.extract_from(d), qid=qid,
+                                        tier="local", n_tokens=n)
+                return "local"
+        # 2) A peer pull over /kv/{manifest,chunk}.
+        if not kv_source or kv_source == self.address:
+            return None
+        status, _, raw = http_request(
+            f"{kv_source}/kv/manifest?" + urllib.parse.urlencode({"qid": qid}), timeout=30.0)
+        if status != 200:
+            with self._counter_lock:
+                self._kv_peer_failed += 1
+            return None
+        hmeta = json.loads(raw).get("meta") or {}
+        toks = [int(t) for t in (hmeta.get("tokens") or [])]
+        use = min(len(toks), len(input_ids) - 1)
+        if (use < self.cfg.kv_page_size or toks[:use] != input_ids[:use]
+                or int(hmeta.get("version", -1)) != eng.version):
+            return None  # wrong content or stale version: skip the transfer
+        payload = self._fetch_handoff_payload(kv_source, qid, hmeta, path="/kv/chunk",
+                                              deadline=deadline)
+        eng.import_kv_handoff(hmeta, payload)
+        with self._counter_lock:
+            self._kv_peer_hits += 1
+            self._kv_peer_bytes += len(payload)
+        self._last_kv_restore_ms = (time.monotonic() - t0) * 1000.0
+        if tracing.enabled():
+            tracing.record_span("server.kv_restore", span_t0, ctx=tracing.extract_from(d),
+                                qid=qid, tier="peer", source=kv_source, n_tokens=len(toks),
+                                bytes=len(payload))
+        return "peer"
+
+    def _h_kv_manifest(self, headers, body: bytes, query=None) -> Response:
+        """Peer-pull hop 1: the handoff meta of a prefix this server holds
+        (a tier entry as it is; a parked prefix is exported into the tier
+        first so /kv/chunk can stream it)."""
+        qid = (query or {}).get("qid", "")
+        try:
+            meta = self.engine.stage_peer_export(qid)
+        except KeyError as e:
+            return _json({"error": str(e)}, 404)
+        except Exception as e:
+            return _json({"error": repr(e)}, 503)
+        with self._counter_lock:
+            self._kv_manifests_served += 1
+        return _json({"schema": KV_TIER_V1, "qid": qid, "holder": self.address, "meta": meta})
+
+    @staticmethod
+    def _serve_ranged(payload: bytes, headers) -> Response:
+        """Range-aware byte serving for the handoff blob and the tier
+        chunks. The ``gserver.kv_chunk_bytes`` chaos point corrupts the
+        bytes actually served (the Range slice)."""
+        rng = headers.get("Range")
+        if rng and rng.startswith("bytes="):
+            try:
+                a, _, b = rng[len("bytes="):].partition("-")
+                start = int(a)
+                end = int(b) if b else len(payload) - 1
+            except ValueError:
+                return _text("", 416)
+            if start >= len(payload):
+                return _text("", 416)
+            end = min(end, len(payload) - 1)
+            data = faults.maybe_corrupt("gserver.kv_chunk_bytes", payload[start: end + 1])
+            return _bytes(data, 206, {"Content-Range": f"bytes {start}-{end}/{len(payload)}"})
+        return _bytes(faults.maybe_corrupt("gserver.kv_chunk_bytes", payload))
+
+    def _h_kv_chunk(self, headers, body: bytes, query=None) -> Response:
+        """Peer-pull hop 2: a held prefix's payload bytes (the puller
+        verifies each chunk's hash)."""
+        qid = (query or {}).get("qid", "")
+        got = self.engine.peer_payload(qid)
+        if got is None:
+            return _json({"error": f"no tiered prefix for {qid!r}"}, 404)
+        resp = self._serve_ranged(got[1], headers)
+        with self._counter_lock:
+            self._kv_chunks_served += 1
+            self._kv_chunk_bytes_served += len(resp[1])
+        return resp
+
+    def _h_kv_index(self, headers, body: bytes, query=None) -> Response:
+        """Holdings for the manager's global prefix index: parked
+        prefixes (loop snapshot) and tier entries."""
+        eng = self.engine
+        held = eng.parked_index()
+        if eng.kv_tier is not None:
+            held += eng.kv_tier.held()
+        return _json({"schema": KV_TIER_V1, "url": self.address, "held": held})
+
+    def _h_kv_handoff(self, headers, body: bytes, query=None) -> Response:
+        """Decode side: pull the blob from the prefill server, import it,
+        and run the decode stream as a priority-0 continuation."""
+        faults.maybe_fail("gserver.kv_import")
+        d = json.loads(body)
+        qid = str(d["qid"])
+        meta = d["meta"]
+        source = d["source"]
+        imp_span = tracing.start_span("server.kv_import", ctx=tracing.extract_from(d),
+                                      qid=qid, source=source,
+                                      n_tokens=int(meta.get("n_tokens", 0)))
+        t0 = time.monotonic()
+        try:
+            payload = self._fetch_handoff_payload(source, qid, meta,
+                                                  deadline=rpc.Deadline.from_headers(headers))
+        except Exception as e:
+            if imp_span is not None:
+                imp_span.end(error=repr(e))
+            return _json({"qid": qid, "error": f"transfer failed: {e!r}"}, 502)
+        self._last_kv_transfer_ms = (time.monotonic() - t0) * 1000.0
+        try:
+            self.engine.import_kv_handoff(meta, payload)
+        except KVHandoffVersionMismatch as e:
+            if imp_span is not None:
+                imp_span.end(error=repr(e))
+            return _json({"qid": qid, "error": str(e), "version": self.engine.version}, 409)
+        except (KVHandoffError, RuntimeError, TimeoutError) as e:
+            if imp_span is not None:
+                imp_span.end(error=repr(e))
+            return _json({"qid": qid, "error": str(e)}, 503)
+        cont = self._gen_request_from(
+            {"qid": qid, "input_ids": list(meta["tokens"]) + [int(d["first_token"])],
+             "priority": 0},
+            d.get("gconfig", {}))
+        try:
+            res = self._submit_and_wait(cont)
+        except RuntimeError as e:
+            if imp_span is not None:
+                imp_span.end(error=str(e))
+            return _json({"qid": qid, "error": str(e)}, 500)
+        if res.error is not None:
+            if imp_span is not None:
+                imp_span.end(error=res.error)
+            return _json({"qid": qid, "error": res.error}, 500)
+        if res.interrupted:
+            self._count_interrupted()
+        if imp_span is not None:
+            imp_span.end(bytes=len(payload), transfer_ms=self._last_kv_transfer_ms,
+                         import_ms=self.engine.last_kv_import_ms,
+                         n_tokens_out=len(res.output_ids))
+        return _json(self._gen_response(res, transfer_ms=self._last_kv_transfer_ms,
+                                        import_ms=self.engine.last_kv_import_ms))
+
+    def _fetch_handoff_payload(self, source: str, qid: str, meta: Dict,
+                               path: str = "/kv_handoff/blob",
+                               deadline: Optional[rpc.Deadline] = None) -> bytes:
+        """Chunked pull of a KV blob (a prefill server's export stash, or
+        a peer's tier with ``path="/kv/chunk"``): each chunk verified by
+        its sha256, a torn read resumed mid-chunk with ``Range``, a
+        corrupt chunk fetched again, under the declared RPC policy and
+        the caller's deadline."""
+        index = meta["chunks"]
+        total = int(index["total_bytes"])
+        buf = bytearray(total)
+        policy = rpc.default_policy()
+        url = f"{source}{path}?" + urllib.parse.urlencode({"qid": qid})
+        for i, (off, length) in enumerate(chunk_spans(total, int(index["chunk_bytes"]))):
+            state = {"got": 0}
+
+            def attempt(attempt_timeout: float, i=i, off=off, length=length, state=state):
+                start = off + state["got"]
+                dl = deadline or rpc.Deadline.after(attempt_timeout)
+                status, _, data = http_request(
+                    url, headers=dl.headers({"Range": f"bytes={start}-{off + length - 1}"}),
+                    timeout=attempt_timeout)
+                if status not in (200, 206):
+                    raise OSError(f"blob fetch {status}: {data[:200]!r}")
+                if status == 200:
+                    data = data[start: off + length]  # a server without Range
+                take = min(len(data), length - state["got"])
+                buf[start: start + take] = data[:take]
+                state["got"] += take
+                if state["got"] < length:
+                    raise OSError(f"short read {state['got']}/{length}")  # resume from here
+                if not verify_chunk(bytes(buf[off: off + length]), index["hashes"][i]):
+                    state["got"] = 0  # corrupt chunk: fetch it whole again
+                    raise ValueError(f"chunk {i} content-hash mismatch")
+
+            try:
+                rpc.retry_sync(attempt, policy=policy, deadline=deadline,
+                               what=f"kv chunk {i} <- {source}{path}")
+            except rpc.RpcError as e:
+                raise RuntimeError(f"chunk {i} unrecoverable after retries: {e}") from e
+        return bytes(buf)
+
+    def _h_kv_blob(self, headers, body: bytes, query=None) -> Response:
+        qid = (query or {}).get("qid", "")
+        with self._counter_lock:
+            ent = self._handoff_store.get(qid)
+        if ent is None:
+            return _json({"error": f"no handoff blob for {qid!r}"}, 404)
+        return self._serve_ranged(ent[1], headers)
+
+    # ------------------------------------------------------------------
+    # Drain-then-leave with KV migration
+    # ------------------------------------------------------------------
+
+    def _h_drain(self, headers, body: bytes, query=None) -> Response:
+        """Quiesce admission now (every new /generate sheds 429), let the
+        running work finish, migrate the parked and tiered prefixes to
+        the given peers, then deregister and exit with a graceful
+        heartbeat stop. Returns at once; GET /drain reports progress."""
+        faults.maybe_fail("gserver.drain")
+        d = json.loads(body)
+        with self._counter_lock:
+            if self._draining:
+                return _json({"success": True, "already": True, **self._drain_state})
+            self._draining = True
+        migrate = [u for u in (d.get("migrate_to") or []) if u and u != self.address]
+        self._drain_state.update(draining=True, reason=str(d.get("reason") or ""))
+        hb = getattr(self, "_heartbeat", None)
+        if hb is not None:
+            hb.update_payload(draining=True)
+        # A strong reference: the drain must outlive this request.
+        self._drain_thread = threading.Thread(
+            target=self._drain_task, args=(migrate, bool(d.get("exit", True))), daemon=True)
+        self._drain_thread.start()
+        tracing.event("server.drain", ctx=tracing.extract_from(d), n_targets=len(migrate),
+                      reason=str(d.get("reason") or ""))
+        logger.info(f"drain started ({d.get('reason')!r}): migrating KV to {len(migrate)} "
+                    f"peer(s), {self.engine.n_running} in flight")
+        return _json({"success": True, "draining": True})
+
+    def _h_drain_status(self, headers, body: bytes, query=None) -> Response:
+        return _json({"address": self.address, **self._drain_state,
+                      "n_running": self.engine.n_running,
+                      "queue_depth": self.engine.queue_depth})
+
+    def _drain_task(self, migrate_to: List[str], exit_after: bool):
+        t0 = time.monotonic()
+        held: Dict[str, int] = {}
+        migrated = lost = stale = 0
+        # Lower bound for the failure path, should the authoritative
+        # enumeration below never complete.
+        snap_count = len(self.engine.parked_index())
+        try:
+            # 1) Quiesce: wait out running requests (bounded).
+            deadline = t0 + self.cfg.drain_wait_s
+            while time.monotonic() < deadline:
+                if self.engine.n_running == 0 and self.engine.queue_depth == 0:
+                    break
+                time.sleep(0.1)
+            # 2) Migrate parked prefixes and tier entries over the /kv
+            #    wire; version-stale ones are dropped (not a loss). The
+            #    parked set is read on the loop (authoritative).
+            for qid in self.engine.parked_qids_now():
+                held[qid] = int(self.engine.version)
+            if self.engine.kv_tier is not None:
+                for e in self.engine.kv_tier.held():
+                    held.setdefault(e["qid"], int(e.get("version", -1)))
+            self._drain_state["held"] = len(held)
+            for i, (qid, ver) in enumerate(sorted(held.items())):
+                if ver >= 0 and ver != self.engine.version:
+                    stale += 1
+                    continue
+                ok = peer_409 = False
+                if migrate_to:
+                    try:
+                        meta = self.engine.stage_peer_export(qid)
+                    except Exception:
+                        logger.warning(f"drain: staging {qid!r} failed", exc_info=True)
+                        meta = None
+                    # Every peer in turn from this prefix's round-robin
+                    # home: one tierless peer must not lose its share.
+                    k = i % len(migrate_to)
+                    for target in (migrate_to[k:] + migrate_to[:k]) if meta is not None else []:
+                        try:
+                            status, _, raw = http_request(
+                                f"{target}/kv/accept",
+                                {"qid": qid, "meta": meta, "source": self.address},
+                                timeout=600.0)
+                            ok = status == 200 and bool(json.loads(raw).get("success"))
+                            peer_409 = status == 409
+                        except Exception:
+                            logger.warning(f"drain: migrating {qid!r} to {target} failed",
+                                           exc_info=True)
+                        if ok or peer_409:
+                            # 409 = version skew: the whole fleet has moved on.
+                            break
+                if ok:
+                    migrated += 1
+                elif peer_409:
+                    stale += 1
+                else:
+                    lost += 1
+            self._drain_state.update(migrated=migrated, lost=lost, stale_dropped=stale,
+                                     drain_ms=(time.monotonic() - t0) * 1000.0, done=True)
+            # 3) Deregister; the heartbeat's graceful stop at exit is the
+            #    departure marker and carries the drain's results.
+            try:
+                name_resolve.delete(names.gen_server_url(
+                    self.cfg.experiment_name, self.cfg.trial_name, str(self.cfg.server_index)))
+            except Exception:
+                pass
+            hb = getattr(self, "_heartbeat", None)
+            if hb is not None:
+                hb.update_payload(drain_migrated=migrated, drain_lost=lost)
+            logger.info(f"drain complete in {self._drain_state['drain_ms']:.0f}ms: migrated "
+                        f"{migrated}, lost {lost}, stale {stale} of {len(held)} held prefix(es)")
+        except Exception:
+            # Whatever was held and not migrated (or proven stale) dies
+            # with this process: report it as lost.
+            lost = max(lost, len(held) - migrated - stale, snap_count - migrated - stale)
+            self._drain_state.update(migrated=migrated, lost=lost, stale_dropped=stale,
+                                     done=True, failed=True,
+                                     drain_ms=(time.monotonic() - t0) * 1000.0)
+            hb = getattr(self, "_heartbeat", None)
+            if hb is not None:
+                try:
+                    hb.update_payload(drain_migrated=migrated, drain_lost=lost)
+                except Exception:
+                    pass
+            logger.exception("drain task failed")
+        finally:
+            if exit_after:
+                # The poll loop ends; Worker.run() stops the heartbeat
+                # with the graceful marker and runs _exit_hook.
+                self.exit()
+
+    def _h_kv_accept(self, headers, body: bytes, query=None) -> Response:
+        """Drain-migration ingest: pull a departing peer's prefix over the
+        hash-verified /kv/chunk wire into the local tier (no device
+        import: the session may return to any server; /kv/index
+        advertises it, so the manager's index routes it here)."""
+        faults.maybe_fail("gserver.kv_accept")
+        d = json.loads(body)
+        qid = str(d.get("qid") or "")
+        meta = d.get("meta") or {}
+        source = str(d.get("source") or "")
+        if self.engine.kv_tier is None:
+            return _json({"success": False, "error": "no kv tier"}, 503)
+        if not qid or not source or not meta:
+            return _json({"success": False, "error": "qid/meta/source required"}, 400)
+        if int(meta.get("version", -1)) != self.engine.version:
+            return _json({"success": False,
+                          "error": f"version {meta.get('version')} != {self.engine.version}"},
+                         409)
+        try:
+            payload = self._fetch_handoff_payload(source, qid, meta, path="/kv/chunk",
+                                                  deadline=rpc.Deadline.from_headers(headers))
+        except Exception as e:
+            return _json({"success": False, "error": f"transfer failed: {e!r}"}, 502)
+        self.engine.kv_tier.put(qid, meta, payload)
+        with self._counter_lock:
+            self._kv_accepted += 1
+            self._kv_accept_bytes += len(payload)
+        tracing.event("server.kv_accept", ctx=tracing.extract_from(d), qid=qid, source=source,
+                      bytes=len(payload))
+        return _json({"success": True, "bytes": len(payload)})
+
+    def _h_set_role(self, headers, body: bytes, query=None) -> Response:
+        """Elastic re-role (the manager's sizer): flip the live pool role.
+        Running requests finish as they are; weights stay resident."""
+        d = json.loads(body)
+        role = str(d.get("role", ""))
+        if role not in ("unified", "prefill", "decode"):
+            return _json({"success": False, "error": f"bad role {role!r}"}, 400)
+        with self._role_lock:
+            prev, self.role = self.role, role
+        tracing.event("server.set_role", ctx=tracing.extract_from(d), role=role, previous=prev,
+                      n_running=self.engine.n_running)
+        logger.info(f"re-roled {prev} -> {role} ({self.engine.n_running} in flight)")
+        return _json({"success": True, "role": role, "previous": prev,
+                      "n_running": self.engine.n_running,
+                      "queue_depth": self.engine.queue_depth})
+
+    def _h_configure(self, headers, body: bytes, query=None) -> Response:
         """Runtime admission-watermark overrides, plus (only when
         AREAL_CHAOS_HTTP armed it at boot) fault-injection control:
         ``{"faults": spec}`` arms points in this process,
@@ -436,7 +1100,7 @@ class GenerationServer(Worker):
                                    for p in d.get("faults_hits", [])}
         return _json(resp)
 
-    def _h_update_weights(self, headers, body: bytes) -> Response:
+    def _h_update_weights(self, headers, body: bytes, query=None) -> Response:
         faults.maybe_fail("gserver.update_weights")
         d = json.loads(body)
         upd_span = tracing.start_span(
@@ -486,7 +1150,7 @@ class GenerationServer(Worker):
         shm = shm_transfer_dir(self.cfg.experiment_name, self.cfg.trial_name, role)
         return load_for_serving(model_path, shm_dir=shm, want_version=want_version)
 
-    def _h_metrics(self, headers, body: bytes) -> Response:
+    def _h_metrics(self, headers, body: bytes, query=None) -> Response:
         m = self.engine.metrics()
         snap = self.engine.latency_snapshot()
         rpc_snap = rpc.stats.snapshot()
@@ -518,13 +1182,10 @@ class GenerationServer(Worker):
             f"areal:kv_import_total {m['kv_import_total']}",
             f"areal:kv_import_bytes {m['kv_import_bytes']}",
             f"areal:last_kv_import_ms {m['last_kv_import_ms']}",
-            # KV handoff, the KV tier's peer pulls, drain migration and the
-            # weight plane are not ported: their lines read what a
-            # reference server that never used them reads.
-            f"areal:last_kv_transfer_ms {0.0}",
-            f"areal:kv_handoff_ok {0.0}",
-            f"areal:kv_handoff_failed {0.0}",
-            f"areal:kv_handoff_fallback {0.0}",
+            f"areal:last_kv_transfer_ms {self._last_kv_transfer_ms}",
+            f"areal:kv_handoff_ok {float(self._handoff_ok)}",
+            f"areal:kv_handoff_failed {float(self._handoff_failed)}",
+            f"areal:kv_handoff_fallback {float(self._handoff_fallback)}",
             f"areal:kv_spill_total {m['kv_spill_total']}",
             f"areal:kv_spill_bytes {m['kv_spill_bytes']}",
             f"areal:kv_spill_tokens {m['kv_spill_tokens']}",
@@ -539,17 +1200,17 @@ class GenerationServer(Worker):
             f"areal:kv_tier_disk_entries {m.get('kv_tier_disk_entries', 0.0)}",
             f"areal:kv_tier_misses {m.get('kv_tier_misses', 0.0)}",
             f"areal:kv_tier_corrupt_dropped {m.get('kv_tier_dropped_corrupt', 0.0)}",
-            f"areal:kv_tier_peer_hits {0.0}",
-            f"areal:kv_tier_peer_bytes {0.0}",
-            f"areal:kv_tier_peer_failed {0.0}",
-            f"areal:draining {0.0}",
-            f"areal:kv_migrated_out {0.0}",
-            f"areal:kv_drain_lost {0.0}",
-            f"areal:kv_accepted {0.0}",
-            f"areal:kv_accept_bytes {0.0}",
-            f"areal:last_kv_restore_ms {0.0}",
-            f"areal:kv_manifests_served {0.0}",
-            f"areal:kv_chunks_served {0.0}",
+            f"areal:kv_tier_peer_hits {float(self._kv_peer_hits)}",
+            f"areal:kv_tier_peer_bytes {float(self._kv_peer_bytes)}",
+            f"areal:kv_tier_peer_failed {float(self._kv_peer_failed)}",
+            f"areal:draining {1.0 if self._draining else 0.0}",
+            f"areal:kv_migrated_out {float(self._drain_state.get('migrated', 0))}",
+            f"areal:kv_drain_lost {float(self._drain_state.get('lost', 0))}",
+            f"areal:kv_accepted {float(self._kv_accepted)}",
+            f"areal:kv_accept_bytes {float(self._kv_accept_bytes)}",
+            f"areal:last_kv_restore_ms {self._last_kv_restore_ms}",
+            f"areal:kv_manifests_served {float(self._kv_manifests_served)}",
+            f"areal:kv_chunks_served {float(self._kv_chunks_served)}",
             f"areal:num_preempted_reqs {m['num_preempted_reqs']}",
             f"areal:prefix_cache_hits {m['prefix_cache_hits']}",
             f"areal:prefix_tokens_reused {m['prefix_tokens_reused']}",
@@ -574,6 +1235,8 @@ class GenerationServer(Worker):
             f"{self._last_load_info['load_s'] if self._last_load_info else 0.0}",
             f"areal:weight_load_fast_path "
             f"{1.0 if (self._last_load_info or {}).get('source') == 'shm_raw' else 0.0}",
+            # The weight plane is not ported: its lines read what a
+            # reference server that never used it reads.
             f"areal:weight_transfer_ms {0.0}",
             f"areal:weight_cutover_ms {0.0}",
             f"areal:weight_verify_ms {0.0}",
@@ -588,7 +1251,7 @@ class GenerationServer(Worker):
         ]
         return _text("\n".join(lines) + "\n")
 
-    def _h_health(self, headers, body: bytes) -> Response:
+    def _h_health(self, headers, body: bytes, query=None) -> Response:
         return _json({"status": "ok", "version": self.engine.version, "role": self.role})
 
     # ------------------------------------------------------------------
@@ -641,8 +1304,8 @@ class GenerationServer(Worker):
     def _write_exit_record(self):
         """What this process did on its device, for the launcher to read
         after the run: its weight version, the port's kernel launches, the
-        peak device memory and the engine's metrics. /metrics keeps the reference's lines
-        only, so these travel in a file:
+        peak device memory, the engine's metrics and the handoff counters.
+        /metrics keeps the reference's lines only, so these travel in a file:
         ``<log path>/exit_records/<worker name>.json``."""
         import torch
 
@@ -656,6 +1319,9 @@ class GenerationServer(Worker):
             "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
                                   if dev.type == "cuda" else 0),
             "metrics": self.engine.metrics(),
+            "handoff": {"ok": self._handoff_ok, "failed": self._handoff_failed,
+                        "fallback": self._handoff_fallback,
+                        "last_transfer_ms": self._last_kv_transfer_ms},
         }
         write_exit_record(self.cfg.experiment_name, self.cfg.trial_name,
                           self.worker_name, record)

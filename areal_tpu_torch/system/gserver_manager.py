@@ -8,6 +8,19 @@ A singleton worker that:
   ``least_token_usage``, with qid session affinity (a rollout's next
   chunk goes back to the server holding its prefix) that spills to the
   least-loaded server when the holder sheds or is saturated;
+- with prefill- or decode-role servers in the fleet, routes by pool:
+  fresh work pairs the least prompt-loaded prefill server with the most
+  page-free decode server (``decode_url`` in the answer), continuations
+  follow their decode-side KV, and a failure retry re-pairs through the
+  pools; with ``elastic_pools`` it re-roles "unified"-configured servers
+  between the pools on queued-prompt and free-page watermarks
+  (``/set_role``);
+- with ``kv_index_size`` keeps a global prefix index fed from every
+  server's ``/kv/index``: a session routed away from the server holding
+  its prefix gets a ``kv_source`` hint and the routed server pulls it;
+- drains a server on ``/drain_server``: routing stops at once, the
+  server migrates its prefixes to the others and leaves; a drain past
+  ``drain_timeout_s`` is evicted;
 - gates new rollouts by capacity and staleness (``/allocate_rollout``,
   ``/finish_rollout``): a rollout may start only if the version it will
   train at, less the current weight version, is at most
@@ -24,15 +37,14 @@ A singleton worker that:
 The JSON bodies of every route are the reference's, so a port manager
 fronts reference servers and a reference client reaches a port manager.
 
-Not ported, each refused at ``configure`` when set: disaggregated pools
-and re-roles (``elastic_pools``), drain (no ``/drain_server`` route),
-autoscaling (``autoscale``), the elastic fleet and its HA lease
-(``elastic_fleet``, ``standby``), the weight plane (``weight_plane``,
-``weight_wire_dtype``), the global KV prefix index (``kv_index_size``),
-multi-model pools (``multi_model``) and the gateway's tenant rows. The
-per-peer circuit breakers are not ported either: a client-reported
-failure evicts the server. A server whose heartbeat names a role other
-than "unified" is kept out of rotation.
+Not ported, each refused at ``configure`` when set: autoscaling
+(``autoscale``, which needs a launcher), the elastic fleet and its HA
+lease (``elastic_fleet``, ``standby``; so a drained server that leaves
+is evicted as missed heartbeats, not removed), the weight plane
+(``weight_plane``, ``weight_wire_dtype``), multi-model pools
+(``multi_model``) and the gateway's tenant rows. The per-peer circuit
+breakers are not ported either: a client-reported failure evicts the
+server.
 
 A dump is ready once its ``step.txt`` exists, the file the port's
 trainer writes after the raw dump (the reference's trainer is recognised
@@ -82,20 +94,18 @@ class RolloutStat:
 
 def _refuse_unported(config: GserverManagerConfig):
     refused = {
-        "elastic_pools": config.elastic_pools,
         "autoscale": config.autoscale,
         "elastic_fleet": config.elastic_fleet,
         "standby": config.standby,
         "weight_plane": config.weight_plane,
         "weight_wire_dtype": config.weight_wire_dtype is not None,
-        "kv_index_size": bool(config.kv_index_size),
         "multi_model": config.multi_model,
     }
     bad = [k for k, v in refused.items() if v]
     if bad:
         raise NotImplementedError(
             f"the port's gserver manager does not support {bad} yet (ROADMAP "
-            f"Queue A item 4): leave them off")
+            f"Queue A items 2.3 and 4): leave them off")
 
 
 class GserverManager(Worker):
@@ -146,6 +156,32 @@ class GserverManager(Worker):
         self._server_shed_until = {u: 0.0 for u in self.server_urls}
         self._server_tokens_pending = {u: 0.0 for u in self.server_urls}
         self._server_shed_total = {u: 0.0 for u in self.server_urls}
+        # Global prefix index: qid -> {url, tier, n_tokens, version},
+        # LRU-bounded, fed from each server's /kv/index on the metrics
+        # poll. Affinity is the fast path; the index gives a session
+        # routed elsewhere a kv_source hint to pull its prefix from.
+        self._kv_index_size = int(config.kv_index_size or 0)
+        self._prefix_index: "collections.OrderedDict[str, Dict]" = collections.OrderedDict()
+        # url -> qids that server last advertised (pruning, eviction).
+        self._server_kv_index: Dict[str, set] = {}
+        # Disaggregated pools: live role per server (heartbeat, /metrics,
+        # or our own re-role), elastic eligibility (configured "unified"),
+        # and the load signals the pools route on.
+        self._server_roles: Dict[str, str] = {u: "unified" for u in self.server_urls}
+        self._server_elastic: Dict[str, bool] = {}
+        self._server_queued_toks = {u: 0.0 for u in self.server_urls}
+        self._server_free_pages: Dict[str, float] = {}
+        self._server_total_pages: Dict[str, float] = {}
+        self._server_kv: Dict[str, Dict[str, float]] = {}
+        # Re-role bookkeeping: url -> its role before our flip, and a log.
+        self._rerole_orig: Dict[str, str] = {}
+        self._rerole_log: List[Dict] = []
+        self._last_rerole = 0.0
+        # Drains: a draining server finishes its work and serves KV pulls
+        # but takes no new routing, fanouts or re-roles.
+        self._draining: set = set()
+        self._drain_deadline: Dict[str, float] = {}
+        self._drain_log: List[Dict] = []
         self._last_gen_total = 0.0
         self._last_throughput_log = time.monotonic()
         self._throughput_log_interval = 10.0
@@ -207,6 +243,13 @@ class GserverManager(Worker):
     # ------------------------------------------------------------------
 
     def _healthy_urls(self) -> List[str]:
+        """Routable servers: healthy and not draining."""
+        return [u for u in self.server_urls if u in self._healthy and u not in self._draining]
+
+    def _live_urls(self) -> List[str]:
+        """Healthy servers including draining ones: the metrics and
+        prefix-index poll set (a draining server still reports progress
+        and serves its prefixes)."""
         return [u for u in self.server_urls if u in self._healthy]
 
     def _load_key(self, u: str) -> Tuple[int, float]:
@@ -218,17 +261,38 @@ class GserverManager(Worker):
             + self._server_tokens_pending.get(u, 0.0),
         )
 
+    def _role(self, u: str) -> str:
+        return self._server_roles.get(u, "unified")
+
+    def _disagg_split(self, candidates: List[str]) -> bool:
+        """True when the routable fleet holds a dedicated prefill or
+        decode server: pool routing engages only then."""
+        return any(self._role(u) != "unified" for u in candidates)
+
+    def _index_holder(self, qid: str, candidates: List[str]) -> Optional[str]:
+        """Routable holder of qid's prefix per the global index (call
+        under self._lock); None when the index is off or nobody holds."""
+        if not qid or not self._kv_index_size:
+            return None
+        ent = self._prefix_index.get(qid)
+        if ent is None:
+            return None
+        url = ent.get("url")
+        return url if url in candidates else None
+
     def _choose_server(
         self, meta: Dict
     ) -> Tuple[Optional[str], str, Optional[str], Optional[str]]:
         """Pick a healthy server; returns (url, policy, decode_url,
-        kv_source), the reference's tuple. The port has no prefill /
-        decode pairing and no prefix index, so the last two are None
-        except for a spill, whose kv_source names the holder. policy is
-        'affinity' (the session's holder), 'spill' (holder shedding or
-        saturated -> least loaded), 'sticky' (the client's previous
-        server at an unchanged version) or the configured base policy;
-        (None, 'none', None, None) when no server is healthy."""
+        kv_source). policy names the decision: 'affinity' (the session's
+        holder), 'kv-index' (the holder from the global prefix index once
+        the affinity map forgot), 'spill' (holder shedding or saturated
+        -> least loaded, with kv_source naming the holder so the target
+        pulls the prefix), 'sticky' (the client's previous server at an
+        unchanged version), 'disagg' (a prefill/decode pair: decode_url
+        is set), or the configured base policy. kv_source, when set,
+        names another server holding the session's prefix. (None,
+        'none', None, None) when no server is routable."""
         candidates = self._healthy_urls()
         if not candidates:
             return None, "none", None, None
@@ -238,14 +302,21 @@ class GserverManager(Worker):
         # backs off on the 429 itself).
         pool = open_ or candidates
         qid = str(meta.get("qid") or "")
+        if self._disagg_split(candidates):
+            return self._choose_disagg(meta, candidates, pool, qid, now)
+        holder = self._index_holder(qid, candidates)
         if self.cfg.session_affinity and qid:
             aff = self._affinity.get(qid)
+            policy_hit = "affinity"
+            if aff is None or aff not in candidates:
+                # The affinity map forgot, the global index still knows.
+                aff, policy_hit = holder, "kv-index"
             if aff is not None and aff in candidates:
                 sat = self.cfg.affinity_saturation_requests
                 shedding = self._server_shed_until.get(aff, 0.0) > now
                 saturated = sat is not None and self._server_reqs.get(aff, 0) >= sat
                 if not shedding and not saturated:
-                    return aff, "affinity", None, None
+                    return aff, policy_hit, None, None
                 spill_pool = [u for u in pool if u != aff] or pool
                 spilled = min(spill_pool, key=self._load_key)
                 return spilled, "spill", None, aff if spilled != aff else None
@@ -254,7 +325,7 @@ class GserverManager(Worker):
         # Sticky hint from clients without affinity: only while the
         # weight version is unchanged.
         if prev in pool and prev_version == self.weight_version:
-            return prev, "sticky", None, None
+            return prev, "sticky", None, holder if holder and holder != prev else None
         policy = self.cfg.schedule_policy
         if policy == "least_requests":
             url = min(pool, key=lambda u: self._server_reqs[u])
@@ -268,14 +339,67 @@ class GserverManager(Worker):
             policy = "round_robin"
             url = pool[self._rr % len(pool)]
             self._rr += 1
-        return url, policy, None, None
+        # Without affinity the index still pays: the routed server pulls
+        # the prefix.
+        return url, policy, None, holder if holder and holder != url else None
+
+    def _choose_disagg(self, meta, candidates, pool, qid, now):
+        """Pool routing for a split fleet: continuations follow their
+        decode-side KV (session affinity), fresh work pairs the least
+        prompt-loaded prefill server with the most page-free decode
+        server."""
+        prefill_pool = [u for u in pool if self._role(u) != "decode"]
+        decode_pool = [u for u in pool if self._role(u) != "prefill"]
+        # A failure retry re-pairs through the pools: the affinity entry
+        # was recorded at pairing time and may name a decode server that
+        # never received the session's KV.
+        retry = bool(meta.get("failed_server_url"))
+        holder = None if retry else self._index_holder(qid, candidates)
+        if self.cfg.session_affinity and qid and not retry:
+            aff = self._affinity.get(qid)
+            policy_hit = "affinity"
+            if aff is None or aff not in candidates:
+                aff, policy_hit = holder, "kv-index"
+            if aff is not None and aff in candidates:
+                # The session's KV is parked on its decode server: a plain
+                # /generate there prefills only the delta (any role serves
+                # one). Spill as the unified path does, with kv_source.
+                sat = self.cfg.affinity_saturation_requests
+                shedding = self._server_shed_until.get(aff, 0.0) > now
+                saturated = sat is not None and self._server_reqs.get(aff, 0) >= sat
+                if not shedding and not saturated:
+                    return aff, policy_hit, None, None
+                if decode_pool:
+                    spill = [u for u in decode_pool if u != aff] or decode_pool
+                    spilled = min(spill, key=self._load_key)
+                    return spilled, "spill", None, aff if spilled != aff else None
+        if not prefill_pool or not decode_pool:
+            # Degenerate split (one pool empty): serve unified on what
+            # remains.
+            rest = prefill_pool or decode_pool or pool
+            url = min(rest, key=self._load_key)
+            return url, "disagg-degenerate", None, holder if holder and holder != url else None
+        # Prefill by queued prompt tokens, decode by free-page headroom.
+        purl = min(prefill_pool, key=lambda u: (
+            self._server_queued_toks.get(u, 0.0) + self._server_tokens_pending.get(u, 0.0),
+            self._server_reqs.get(u, 0)))
+        durl = min(decode_pool, key=lambda u: (
+            self._server_reqs.get(u, 0), -self._server_free_pages.get(u, 0.0)))
+        if purl == durl:
+            # One unified server won both pools: a plain local serve.
+            return purl, "disagg-local", None, holder if holder and holder != purl else None
+        # The prefill server runs the (delta) prefill, so it pulls.
+        return purl, "disagg", durl, holder if holder and holder != purl else None
 
     def _route(
         self, meta: Dict
     ) -> Tuple[Optional[str], str, Optional[str], Optional[str]]:
         """Choose a server and do the routing bookkeeping: the in-flight
         request estimate, the routed tokens folded into the load
-        estimate until the next /metrics poll, the session's affinity."""
+        estimate until the next /metrics poll, the session's affinity.
+        For a prefill/decode pair the prompt lands on the prefill
+        server's estimate, the decode budget on the decode server's, and
+        the affinity points at the decode server, where the KV will live."""
         qid = str(meta.get("qid") or "")
         with self._lock:
             url, policy, decode_url, kv_source = self._choose_server(meta)
@@ -284,9 +408,16 @@ class GserverManager(Worker):
                 self._server_tokens_pending[url] = (
                     self._server_tokens_pending.get(url, 0.0)
                     + float(meta.get("prompt_len") or 0)
-                    + float(meta.get("new_token_budget") or 0)
+                    + (0.0 if decode_url else float(meta.get("new_token_budget") or 0))
                 )
-                self._record_affinity(qid, url)
+                if decode_url is not None:
+                    self._server_reqs[decode_url] = self._server_reqs.get(decode_url, 0) + 1
+                    self._server_tokens_pending[decode_url] = (
+                        self._server_tokens_pending.get(decode_url, 0.0)
+                        + float(meta.get("prompt_len") or 0)
+                        + float(meta.get("new_token_budget") or 0)
+                    )
+                self._record_affinity(qid, decode_url or url)
         return url, policy, decode_url, kv_source
 
     def _record_affinity(self, qid: str, url: str):
@@ -302,15 +433,28 @@ class GserverManager(Worker):
     # Fault-domain isolation: eviction + readmission
     # ------------------------------------------------------------------
 
+    def _drop_index_for(self, url: str):
+        """Drop an evicted server's prefix-index entries (call under
+        self._lock): its process, and so its tier, cannot be trusted."""
+        qids = self._server_kv_index.pop(url, None) or set()
+        for q in qids:
+            ent = self._prefix_index.get(q)
+            if ent is not None and ent.get("url") == url:
+                self._prefix_index.pop(q, None)
+
     def _forget_server(self, url: str):
         """Drop an evicted server's routing state (call under _lock):
-        its load estimates, shed window and affinity entries."""
+        its load estimates, shed window, affinity and prefix-index
+        entries and drain state."""
         self._server_reqs[url] = 0
         self._server_tokens[url] = 0.0
         self._server_tokens_pending[url] = 0.0
         self._server_shed_until[url] = 0.0
         for qid in [q for q, u in self._affinity.items() if u == url]:
             self._affinity.pop(qid, None)
+        self._drop_index_for(url)
+        self._draining.discard(url)
+        self._drain_deadline.pop(url, None)
 
     def _mark_unhealthy(self, url: str, reason: str):
         if url not in self.server_urls:
@@ -385,7 +529,8 @@ class GserverManager(Worker):
     def _poll_health(self):
         """Fold the health registry into the healthy/evicted split:
         heartbeat loss evicts, heartbeat return (after a weight re-sync)
-        readmits; then reclaim the quota slots of dead rollout workers."""
+        readmits; roles and drains come from the heartbeat payloads; then
+        reclaim the quota slots of dead rollout workers."""
         snapshot, _ = self._registry.classified()
         alive_urls = set()
         for member, record in sorted(snapshot.items()):
@@ -393,16 +538,26 @@ class GserverManager(Worker):
             if not url or url not in self.server_urls:
                 continue
             self._member_urls[member] = url
-            role = record.get("role") or "unified"
-            if role != "unified":
-                self._mark_unhealthy(
-                    url, f"role {role!r}: disaggregated serving is not ported")
-                continue
             alive_urls.add(url)
+            # The heartbeat's role, unless our sizer set this one (the
+            # beat may predate the /set_role landing).
+            role = record.get("role")
+            if role and url not in self._rerole_orig:
+                self._server_roles[url] = str(role)
+            # A drain advertised through the heartbeat gets a deadline
+            # too (drains this manager did not start).
+            if record.get("draining") and url not in self._draining:
+                with self._lock:
+                    self._draining.add(url)
+                    self._drain_deadline.setdefault(
+                        url, time.monotonic() + self.cfg.drain_timeout_s)
         for member, url in list(self._member_urls.items()):
             if member not in snapshot and url in self._healthy:
                 self._mark_unhealthy(url, f"missed heartbeats ({member})")
-        for url in [u for u in list(self._evicted) if u in alive_urls]:
+        # Readmission, never of a draining server: only its departure
+        # (or death) ends a drain.
+        for url in [u for u in list(self._evicted)
+                    if u in alive_urls and u not in self._draining]:
             self._beat()
             if (self._server_versions.get(url, 0) >= self.weight_version
                     or self._resync_server(url)):
@@ -455,6 +610,7 @@ class GserverManager(Worker):
         app.router.add_post("/schedule_request", self._h_schedule)
         app.router.add_post("/allocate_rollout", self._h_allocate)
         app.router.add_post("/finish_rollout", self._h_finish)
+        app.router.add_post("/drain_server", self._h_drain_server)
         app.router.add_get("/status", self._h_status)
         runner = web.AppRunner(app)
         self._http_loop.run_until_complete(runner.setup())
@@ -482,7 +638,7 @@ class GserverManager(Worker):
                 self._server_shed_until[shed] = time.monotonic() + ra
                 self._server_shed_total[shed] = self._server_shed_total.get(shed, 0.0) + 1.0
         qid = str(meta.get("qid") or "")
-        url, policy, _, kv_source = self._route(meta)
+        url, policy, decode_url, kv_source = self._route(meta)
         tracing.event(
             "manager.schedule", ctx=trace_ctx,
             server=url or "", routed=url is not None, policy=policy,
@@ -495,7 +651,16 @@ class GserverManager(Worker):
             )
         resp = {"url": url, "version": self.weight_version, "policy": policy}
         if kv_source is not None:
+            # Another server holds this session's KV: the routed server
+            # pulls it over /kv/{manifest,chunk} instead of re-prefilling.
             resp["kv_source"] = kv_source
+        if decode_url is not None:
+            tracing.event(
+                "manager.pair", ctx=trace_ctx, qid=qid, prefill=url, decode=decode_url,
+                prefill_queued_tokens=self._server_queued_toks.get(url, 0.0),
+                decode_free_pages=self._server_free_pages.get(decode_url, 0.0),
+            )
+            resp["decode_url"] = decode_url
         return web.json_response(resp)
 
     async def _h_allocate(self, request: web.Request) -> web.Response:
@@ -542,11 +707,52 @@ class GserverManager(Worker):
                 self.rollout_stat.submitted = max(0, self.rollout_stat.submitted - 1)
         return web.json_response({"success": True})
 
+    async def _h_drain_server(self, request: web.Request) -> web.Response:
+        """Drain-then-leave on request: POST {"url": ...}."""
+        d = await request.json()
+        res = await self._initiate_drain(str(d.get("url") or ""),
+                                         str(d.get("reason") or "requested"))
+        return web.json_response(res, status=200 if res.get("success") else 409)
+
     async def _h_status(self, request: web.Request) -> web.Response:
         """The reference's /status keys for the features the port has."""
         with self._lock:
             healthy = self._healthy_urls()
+            roles = {u: self._role(u) for u in self.server_urls}
+
+            def kv_sum(key):
+                return sum(v.get(key, 0.0) for v in self._server_kv.values())
+
+            by_tier: Dict[str, int] = {}
+            for ent in self._prefix_index.values():
+                t = ent.get("tier", "host")
+                by_tier[t] = by_tier.get(t, 0) + 1
             status = {
+                "pools": {
+                    "roles": roles,
+                    "prefill": sorted(u for u in healthy if roles[u] != "decode"),
+                    "decode": sorted(u for u in healthy if roles[u] != "prefill"),
+                    "elastic": sorted(u for u in healthy if self._server_elastic.get(u, False)),
+                    "queued_prompt_tokens": {
+                        u: self._server_queued_toks.get(u, 0.0) for u in healthy},
+                    "kv_pages_free": {u: self._server_free_pages.get(u, 0.0) for u in healthy},
+                    "kv_handoff": {k: kv_sum(k) for k in (
+                        "exports", "imports", "export_bytes", "import_bytes")},
+                    "reroles": list(self._rerole_log),
+                },
+                "kv_tier": {
+                    "index_entries": len(self._prefix_index),
+                    "index_by_tier": by_tier,
+                    "spills": kv_sum("spills"),
+                    "restores": kv_sum("restores"),
+                    "peer_hits": kv_sum("peer_hits"),
+                    "prefix_lost": kv_sum("lost"),
+                },
+                "fleet": {
+                    "n_members": len(self.server_urls),
+                    "draining": sorted(self._draining),
+                    "drains": list(self._drain_log),
+                },
                 "weight_version": self.weight_version,
                 "rollout_stat": self.rollout_stat.as_dict(),
                 "servers": self.server_urls,
@@ -560,6 +766,175 @@ class GserverManager(Worker):
                 "affinity_entries": len(self._affinity),
             }
         return web.json_response(status)
+
+    # ------------------------------------------------------------------
+    # Drain-then-leave
+    # ------------------------------------------------------------------
+
+    def _drain_server_sync(self, url: str, reason: str) -> bool:
+        """Poll-thread entry to the drain (the POST runs on the HTTP loop)."""
+        fut = asyncio.run_coroutine_threadsafe(self._initiate_drain(url, reason),
+                                               self._http_loop)
+        try:
+            return bool(fut.result(timeout=30).get("success"))
+        except Exception:
+            logger.warning(f"drain initiation for {url} failed", exc_info=True)
+            return False
+
+    async def _initiate_drain(self, url: str, reason: str) -> Dict:
+        """Stop routing to the server now (its running work finishes, its
+        KV stays pullable), then ask it to migrate its prefixes to the
+        other routable servers over the /kv wire and leave. A drain that
+        never completes is evicted by the deadline sweep in _poll."""
+        with self._lock:
+            if url not in self.server_urls or url not in self._healthy:
+                return {"success": False, "error": f"{url} is not healthy"}
+            if url in self._draining:
+                return {"success": False, "error": f"{url} is already draining"}
+            migrate = [u for u in self._healthy_urls() if u != url]
+            if not migrate:
+                return {"success": False, "error": "cannot drain the last routable server"}
+            self._draining.add(url)
+            self._drain_deadline[url] = time.monotonic() + self.cfg.drain_timeout_s
+        try:
+            async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=15)) as sess:
+                async with sess.post(f"{url}/drain", json={
+                        "migrate_to": migrate, "exit": True, "reason": reason}) as r:
+                    body = await r.json()
+            ok = bool(body.get("success"))
+        except Exception as e:
+            ok, body = False, {"error": repr(e)}
+        if not ok:
+            with self._lock:
+                self._draining.discard(url)
+                self._drain_deadline.pop(url, None)
+            return {"success": False, "error": f"drain request failed: {body}"}
+        with self._lock:
+            self._drain_log.append({"t": time.time(), "url": url, "reason": reason,
+                                    "status": "draining"})
+            del self._drain_log[:-32]
+        tracing.event("manager.drain", server=url, reason=reason)
+        logger.info(f"draining {url}: {reason} (migrating KV to {len(migrate)} peer(s))")
+        return {"success": True, "migrate_to": migrate}
+
+    def _sweep_expired_drains(self):
+        """Evict drains past drain_timeout_s. A drain cannot be cancelled
+        server-side (the server sheds everything until it leaves), so the
+        server stays marked draining: readmission must skip it."""
+        now = time.monotonic()
+        with self._lock:
+            expired = [u for u, d in self._drain_deadline.items()
+                       if now > d and u in self.server_urls]
+            for u in expired:
+                self._healthy.discard(u)
+                self._evicted[u] = "drain timed out; awaiting departure"
+                self._forget_server(u)
+                self._draining.add(u)
+        for u in expired:
+            logger.warning(f"drain of {u} exceeded drain_timeout_s; evicted while it "
+                           f"finishes quiescing")
+
+    # ------------------------------------------------------------------
+    # Elastic pool sizing (re-roles)
+    # ------------------------------------------------------------------
+
+    def _post_set_role(self, url: str, role: str) -> bool:
+        async def _push():
+            async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=15)) as sess:
+                async with sess.post(f"{url}/set_role", json={"role": role}) as r:
+                    body = await r.json()
+                    return bool(body.get("success"))
+
+        try:
+            fut = asyncio.run_coroutine_threadsafe(_push(), self._http_loop)
+            return fut.result(timeout=20)
+        except Exception:
+            logger.warning(f"set_role({role}) failed for {url}", exc_info=True)
+            return False
+
+    def _rerole(self, url: str, to_role: str, reason: str) -> bool:
+        """Flip one elastic server's pool. Routing flips first (under the
+        lock) so no new work of the old kind lands; running requests
+        finish as they are; weights stay resident."""
+        with self._lock:
+            from_role = self._server_roles.get(url, "unified")
+            if from_role == to_role:
+                return False
+            self._rerole_orig.setdefault(url, from_role)
+            self._server_roles[url] = to_role
+        if not self._post_set_role(url, to_role):
+            with self._lock:  # unreachable: roll the map back
+                self._server_roles[url] = from_role
+                if self._rerole_orig.get(url) == from_role:
+                    self._rerole_orig.pop(url, None)
+            return False
+        if to_role == self._rerole_orig.get(url):
+            self._rerole_orig.pop(url, None)  # the flip-back completed
+        with self._lock:
+            self._rerole_log.append({"t": time.time(), "url": url, "from": from_role,
+                                     "to": to_role, "reason": reason})
+            del self._rerole_log[:-32]
+        self._last_rerole = time.monotonic()
+        tracing.event("manager.rerole", server=url, from_role=from_role, to_role=to_role,
+                      reason=reason)
+        logger.info(f"re-roled {url}: {from_role} -> {to_role} ({reason})")
+        return True
+
+    def _maybe_rerole(self):
+        """Watermark-driven pool sizing over the elastic (configured
+        "unified") servers: prefill queue pressure pulls a server out of
+        the decode pool; a drained prefill queue (or a decode free-page
+        floor breach) sends it back."""
+        cfg = self.cfg
+        if not cfg.elastic_pools:
+            return
+        if time.monotonic() - self._last_rerole < cfg.rerole_cooldown_s:
+            return
+        with self._lock:
+            healthy = self._healthy_urls()
+            roles = {u: self._server_roles.get(u, "unified") for u in healthy}
+            elastic = {u for u in healthy if self._server_elastic.get(u, False)}
+            queued = dict(self._server_queued_toks)
+            free = dict(self._server_free_pages)
+            total = dict(self._server_total_pages)
+            flipped = {u: orig for u, orig in self._rerole_orig.items() if u in healthy}
+        if not healthy:
+            return
+        prefill_pool = [u for u in healthy if roles[u] != "decode"]
+        decode_pool = [u for u in healthy if roles[u] != "prefill"]
+        prefill_queue = sum(queued.get(u, 0.0) for u in prefill_pool)
+        dec_free = sum(free.get(u, 0.0) for u in decode_pool)
+        dec_total = sum(total.get(u, 0.0) for u in decode_pool)
+        dec_free_frac = dec_free / dec_total if dec_total > 0 else 1.0
+
+        if (prefill_queue >= cfg.prefill_queue_high_tokens
+                and dec_free_frac >= cfg.decode_free_page_min_frac):
+            # Prompts queue: grow the prefill pool from elastic decode-side
+            # servers (most free pages first), keeping the decode floor.
+            cands = [u for u in decode_pool if u in elastic and roles[u] != "prefill"
+                     and len(decode_pool) - 1 >= cfg.pool_min_decode]
+            if cands:
+                u = max(cands, key=lambda c: free.get(c, 0.0))
+                self._rerole(u, "prefill", f"prefill queue {prefill_queue:.0f} tokens >= "
+                                           f"{cfg.prefill_queue_high_tokens}")
+            return
+        if dec_free_frac < cfg.decode_free_page_min_frac:
+            # The decode pool starves for pages: pull an elastic prefill
+            # server back in.
+            cands = [u for u in prefill_pool if u in elastic and roles[u] != "decode"
+                     and len(prefill_pool) - 1 >= cfg.pool_min_prefill]
+            if cands:
+                u = min(cands, key=lambda c: queued.get(c, 0.0))
+                self._rerole(u, "decode", f"decode free pages {dec_free_frac:.2f} < "
+                                          f"{cfg.decode_free_page_min_frac}")
+            return
+        if prefill_queue <= cfg.prefill_queue_low_tokens and flipped:
+            # Pressure gone: return a flipped server to its pool.
+            for u, orig in sorted(flipped.items()):
+                if roles.get(u) != orig:
+                    if self._rerole(u, orig, f"prefill queue {prefill_queue:.0f} tokens <= "
+                                             f"{cfg.prefill_queue_low_tokens}"):
+                        return
 
     # ------------------------------------------------------------------
     # Weight updates
@@ -659,10 +1034,19 @@ class GserverManager(Worker):
             logger.warning("last weight-update fanout failed", exc_info=True)
 
     async def _poll_metrics(self):
-        """Fold each healthy server's /metrics into the routing loads and
-        the throughput counter."""
+        """Fold each live server's /metrics into the routing loads, the
+        pool signals and the throughput counter, and its /kv/index into
+        the global prefix index. Draining servers are polled too: their
+        prefixes stay pullable until they leave."""
+        kv_keys = {
+            "areal:kv_export_total": "exports", "areal:kv_export_bytes": "export_bytes",
+            "areal:kv_import_total": "imports", "areal:kv_import_bytes": "import_bytes",
+            "areal:last_kv_transfer_ms": "last_transfer_ms",
+            "areal:kv_spill_total": "spills", "areal:kv_restore_total": "restores",
+            "areal:kv_prefix_lost_total": "lost", "areal:kv_tier_peer_hits": "peer_hits",
+        }
         async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=5)) as sess:
-            for u in self._healthy_urls():
+            for u in self._live_urls():
                 try:
                     async with sess.get(f"{u}/metrics") as r:
                         text = await r.text()
@@ -677,8 +1061,63 @@ class GserverManager(Worker):
                             self._server_shed_total[u] = float(val)
                         elif name == "areal:total_generated_tokens":
                             self._server_gen_totals[u] = float(val)
+                        elif name == "areal:queued_prompt_tokens":
+                            self._server_queued_toks[u] = float(val)
+                        elif name == "areal:kv_pages_free":
+                            self._server_free_pages[u] = float(val)
+                        elif name == "areal:kv_pages_total":
+                            self._server_total_pages[u] = float(val)
+                        elif name == "areal:role":
+                            # The sizer's view wins for a server it
+                            # re-roled until the server's surface catches up.
+                            if u not in self._rerole_orig or val == self._server_roles.get(u):
+                                self._server_roles[u] = val
+                        elif name == "areal:elastic":
+                            self._server_elastic[u] = float(val) > 0.5
+                        elif name in kv_keys:
+                            self._server_kv.setdefault(u, {})[kv_keys[name]] = float(val)
+                    if self._kv_index_size:
+                        await self._poll_kv_index(sess, u)
                 except Exception:
                     logger.warning(f"metrics poll failed for {u}")
+
+    async def _poll_kv_index(self, sess, u: str):
+        """Fold one server's /kv/index into the global prefix index:
+        entries it holds point at it, entries it stopped advertising are
+        dropped if they still pointed at it, the map stays LRU-bounded."""
+        try:
+            async with sess.get(f"{u}/kv/index") as r:
+                if r.status != 200:
+                    return
+                body = await r.json()
+        except Exception:
+            return
+        held = body.get("held") or []
+        with self._lock:
+            prev = self._server_kv_index.get(u) or set()
+            now_qids = set()
+            for e in held:
+                qid = str(e.get("qid") or "")
+                if not qid:
+                    continue
+                now_qids.add(qid)
+                self._prefix_index.pop(qid, None)
+                self._prefix_index[qid] = {
+                    "url": u,
+                    "tier": str(e.get("tier") or "host"),
+                    "n_tokens": int(e.get("n_tokens") or 0),
+                    "version": int(e.get("version", -1)),
+                }
+            for qid in prev - now_qids:
+                ent = self._prefix_index.get(qid)
+                if ent is not None and ent.get("url") == u:
+                    self._prefix_index.pop(qid, None)
+            self._server_kv_index[u] = now_qids
+            while len(self._prefix_index) > self._kv_index_size:
+                old_qid, old_ent = self._prefix_index.popitem(last=False)
+                s = self._server_kv_index.get(old_ent.get("url"))
+                if s is not None:
+                    s.discard(old_qid)
 
     def _poll(self) -> Optional[PollResult]:
         try:
@@ -691,6 +1130,7 @@ class GserverManager(Worker):
         except name_resolve.NameEntryNotFoundError:
             pass
         self._refresh_training_samples()
+        self._sweep_expired_drains()
         if time.monotonic() - self._last_health_poll > self.cfg.health_check_interval:
             try:
                 self._poll_health()
@@ -714,6 +1154,11 @@ class GserverManager(Worker):
             except Exception:
                 pass
             self._last_metrics_poll = time.monotonic()
+            # Pool sizing rides the fresh load snapshot.
+            try:
+                self._maybe_rerole()
+            except Exception:
+                logger.warning("elastic rerole pass failed", exc_info=True)
         # Periodic generation-throughput log: interval tokens/s over all
         # servers plus the rollout counters.
         now = time.monotonic()

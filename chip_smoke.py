@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--out report.json] [--profile-serving]
         [--phases build,parity,serve_bf16,serve_int8,interrupt,http,grad,train,workers,
-                  async_ppo]
+                  async_ppo,disagg]
 
 Phases (every one must pass; the script exits nonzero on the first that
 fails, and on a machine without CUDA):
@@ -47,7 +47,7 @@ fails, and on a machine without CUDA):
 9. workers     - the trainer half of the worker system through
                  LocalController(ExperimentConfig).run(): a spawned model
                  worker loads the actor from an HF directory of seeded
-                 random weights at the full width and 14 of the 28
+                 random weights at the full width and 7 of the 28
                  layers (the async_ppo phase runs all 28; float32
                  params, bf16 compute) and pulls 2 steps of the train
                  phase's PPO batch, pushed from this process as a
@@ -73,6 +73,26 @@ fails, and on a machine without CUDA):
                  paged_decode_bf16 in the server and of the forward, both
                  backward kernels and packed_gae_f32 in the model worker
                  must be > 0.
+11. disagg     - disaggregated serving at full width and depth: a prefill
+                 server P (bf16 pool), decode servers D (bf16 pool, a KV
+                 tier, a small prefix budget) and D8 (int8 pool), a
+                 unified server U (the drain target) behind the gserver
+                 manager (pools, prefix index, elastic re-roles), and a
+                 unified int8 server U8 outside it, each a process of its
+                 own (16 slots x 4096 tokens, 128-token pages, 1024-token
+                 chunks). A 16-request wave (prompts 1025-3072 tokens, 128
+                 greedy tokens) paired P -> D must equal U's tokens for the
+                 same work (the first token, then the continuation); the
+                 wave paired P -> D8 passes the teacher-forced check; every
+                 handoff succeeds (no fallback); the int8 pages D8 writes
+                 from the bf16 wire equal U8's byte for byte; continuations
+                 hit D's parked or spilled-and-restored prefixes with U's
+                 tokens (spills and restores > 0, no prefix lost); the
+                 manager drains D (every prefix migrates, D exits 0, a
+                 migrated session restores on U with U's tokens); a prompt
+                 burst makes the sizer re-role U and routing follows.
+                 Launches of the forward, paged_decode_bf16 and
+                 paged_decode_int8 in the fleet must be > 0.
 
 Before the last line it prints the card's name and power limit (as
 nvidia-smi reports them) and one {"kernels": [...]} JSON line; the last
@@ -131,7 +151,7 @@ GAE_PLAN_SHAPES = ((64, 4096), (4096, 4096), (66, 8192), (66, 16384), (132, 1638
 # compute end to end: per leaf, against the leaf's largest reference value.
 LEAF_TOL = 5e-2
 PHASES = ("build", "parity", "serve_bf16", "serve_int8", "interrupt", "http", "grad", "train",
-          "workers", "async_ppo")
+          "workers", "async_ppo", "disagg")
 # The train phase at real size; a rehearsal on the CPU passes smaller ones.
 TRAIN_SIZES = dict(n_prompts=8, group=4, prompt=(128, 512), response=(256, 3072),
                    row_len=4096, max_tokens_per_mb=16384, n_minibatches=4,
@@ -1758,7 +1778,7 @@ def train_phase(torch, rng, dev, cfg, seed, sizes=TRAIN_SIZES):
 WORKER_STEPS = 2
 # The workers phase's depth, cut from the model's 28 layers to keep the
 # default run near half its time limit.
-WORKERS_LAYERS = 14
+WORKERS_LAYERS = 7
 WORKERS_TIMEOUT_S = 600.0
 # The realloc dump's update from init against an in-process replay's, per
 # leaf: ||(dump - init) - (replay - init)|| / ||replay - init||. Readings
@@ -2175,10 +2195,12 @@ def read_trace(trace_dir):
     return out
 
 
-def async_ppo_phase(torch, rng, dev, cfg, seed, card, sizes=ASYNC_SIZES):
+def async_ppo_phase(torch, rng, dev, cfg, seed, card, sizes=ASYNC_SIZES, disagg=False):
     """The async RL loop through the port's entry point,
     areal_tpu_torch.training.main_async_ppo.main(argv), with the
-    reference's override keys: a GenerationServer, the gserver manager,
+    reference's override keys: a GenerationServer (with ``disagg``, a
+    prefill and a decode server with a KV tier, the prefix cache and the
+    manager's prefix index, every rollout handed off), the gserver manager,
     a rollout worker running the math agent and env, and a model worker
     training the actor (loaded with the server from an HF directory of
     seeded random weights and the tiny tokenizer) on the pushed
@@ -2234,14 +2256,24 @@ def async_ppo_phase(torch, rng, dev, cfg, seed, card, sizes=ASYNC_SIZES):
             "actor.optimizer.lr=5e-5", "actor.optimizer.warmup_steps_proportion=0.0",
             f"actor.row_len_multiple={sizes['row_len']}", f"actor.max_row_len={sizes['row_len']}",
             f"mb_spec_max_tokens={sizes['max_tokens_per_mb']}",
-            "n_generation_servers=1", "n_rollout_workers=1",
+            "n_rollout_workers=1",
             f"gen_max_concurrent_requests={sizes['slots']}",
-            f"gen_max_seq_len={sizes['max_seq_len']}", "gen_kv_page_size=128",
+            f"gen_max_seq_len={sizes['max_seq_len']}",
+            f"gen_kv_page_size={sizes.get('page', 128)}",
             f"gen_prefill_chunk={sizes['prompt'][1]}", f"device={dev.type}",
         ]
+        servers = ["generation_server/0"]
+        if disagg:
+            servers.append("generation_server/1")
+            argv += ["gen_server_roles=prefill,decode", "gen_kv_tier_mb=64",
+                     f"gen_prefix_cache_tokens={sizes['slots'] * sizes['max_seq_len']}",
+                     "gen_kv_index_size=4096"]
+        argv.append(f"n_generation_servers={len(servers)}")
         log(f"  main_async_ppo {' '.join(argv)}")
         os.environ.update(env)
-        tracing._ENABLED = None  # re-read AREAL_RL_TRACE: the master runs here
+        # Re-read AREAL_RL_TRACE and the trace dir: the master runs here.
+        tracing.flush()
+        tracing._ENABLED, tracing._REC = None, None
         t0 = time.perf_counter()
         result = main_async_ppo.main(argv, worker_env=env, timeout=ASYNC_TIMEOUT_S)
         stats["run_s"] = time.perf_counter() - t0
@@ -2260,12 +2292,13 @@ def async_ppo_phase(torch, rng, dev, cfg, seed, card, sizes=ASYNC_SIZES):
         landed = sorted(int(r["attrs"]["version"]) for r in spans.get("gserver_manager", [])
                         if r["name"] == "manager.weight_update"
                         and r["attrs"].get("n_success", 0) >= 1)
-        served = sorted(int(r["attrs"]["version"]) for r in spans.get("generation_server/0", [])
-                        if r["name"] == "server.weight_update" and "source" in r["attrs"])
         want = list(range(1, sizes["steps"] + 1))
-        if landed != want or served != want:
-            raise AssertionError(f"async_ppo: fanout landed versions {landed}, the server "
-                                 f"loaded {served}, want {want}")
+        for name in servers:
+            served = sorted(int(r["attrs"]["version"]) for r in spans.get(name, [])
+                            if r["name"] == "server.weight_update" and "source" in r["attrs"])
+            if landed != want or served != want:
+                raise AssertionError(f"async_ppo: fanout landed versions {landed}, {name} "
+                                     f"loaded {served}, want {want}")
         sync_s = [(r["end_ns"] - r["start_ns"]) / 1e9 for r in spans["gserver_manager"]
                   if r["name"] == "manager.weight_update"]
 
@@ -2283,10 +2316,27 @@ def async_ppo_phase(torch, rng, dev, cfg, seed, card, sizes=ASYNC_SIZES):
         staled = sum(1 for r in spans.get("gserver_manager", [])
                      if r["name"] == "manager.allocate" and r["attrs"].get("reason") == "staled")
 
-        # Launches: the server's from its exit record, the trainer's from
-        # the MFC replies.
-        with open(exit_record_path(exp, trial, "generation_server/0")) as f:
-            srv = json.load(f)
+        # Launches: the servers' from their exit records, the trainer's
+        # from the MFC replies.
+        records = []
+        for name in servers:
+            with open(exit_record_path(exp, trial, name)) as f:
+                records.append(json.load(f))
+        srv = records[0]
+        if disagg:
+            srv = dict(records[0], launches={
+                k: sum(r["launches"][k] for r in records) for k in records[0]["launches"]},
+                peak_memory_bytes=max(r["peak_memory_bytes"] for r in records),
+                metrics={k: sum(r["metrics"].get(k, 0.0) for r in records)
+                         for k in ("total_generated", "kv_export_total", "kv_import_total",
+                                   "last_weight_stage_s", "last_weight_swap_s")})
+            # Handoffs still in flight when the run ends are neither ok
+            # nor failed yet, so the decode side may count more imports.
+            handoff = dict(records[0]["handoff"],
+                           imports=records[1]["metrics"]["kv_import_total"])
+            if handoff["ok"] <= 0 or handoff["imports"] < handoff["ok"]:
+                raise AssertionError(f"async_ppo: handoffs {handoff}")
+            stats["handoff"] = handoff
         worker_counts = {k: int(sum(s.get(f"launches/{k}", 0) for s in steps))
                          for k in srv["launches"]}
         if dev.type == "cuda":
@@ -2298,8 +2348,9 @@ def async_ppo_phase(torch, rng, dev, cfg, seed, card, sizes=ASYNC_SIZES):
                 if worker_counts[k] <= 0:
                     raise AssertionError(
                         f"async_ppo: kernel {k} was not launched in the model worker")
-        if srv["version"] != sizes["steps"]:
-            raise AssertionError(f"async_ppo: the server ended at version {srv['version']}")
+        if any(r["version"] != sizes["steps"] for r in records):
+            raise AssertionError(f"async_ppo: the servers ended at versions "
+                                 f"{[r['version'] for r in records]}")
         gen_tokens = srv["metrics"]["total_generated"]
         stats.update(
             global_step=result["global_step"], server_final_version=srv["version"],
@@ -2340,7 +2391,559 @@ def async_ppo_phase(torch, rng, dev, cfg, seed, card, sizes=ASYNC_SIZES):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
-        tracing._ENABLED = None
+        tracing._ENABLED, tracing._REC = None, None
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ----------------------------------------------------------------------
+# Phase 11: disaggregated serving and the KV plane
+# ----------------------------------------------------------------------
+
+# P prefill (bf16 pool), D decode (bf16 pool, a tier and a prefix budget
+# below a wave's parks, so they spill), D8 decode (int8 pool), U unified
+# (bf16, the drain target and the unified reference) in the manager's
+# fleet; U8 unified int8 outside it (the int8 reference).
+DISAGG_SIZES = dict(wave=16, prompt=(1025, 3072), new=128, cont=6, fresh=64, cont_new=32,
+                    slots=16, max_seq_len=4096, page=128, chunk=1024, d_prefix=16384,
+                    tier_mb=4096, bytes_prompt=1024, burst=32, burst_prompt=3000,
+                    burst_new=32, rerole_high=16384)
+DISAGG_TIMEOUT_S = 300.0
+
+
+def http_raw(url, headers=None, timeout=120.0):
+    """(status, headers, raw body) of one GET."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, None, headers or {})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, dict(resp.headers), resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def kv_wire_tokens(meta, payload, n):
+    """The first n tokens of every array of an int8-wire blob, as bytes."""
+    import torch
+
+    from areal_tpu_torch.engine import kv_handoff as kvh
+
+    arrs = kvh.unpack_arrays(meta, payload)
+    return {k: v[:, :, :n].contiguous().view(torch.uint8).numpy().tobytes()
+            for k, v in arrs.items()}
+
+
+def teacher_forced_agreement(torch, cfg, params, dev, prompts, outputs):
+    """(greedy tokens within 0.1 nats of the forward's argmax, tokens,
+    median |logprob - forward's|): the check of check_results, on a
+    server's outputs."""
+    from areal_tpu_torch.models.transformer import forward
+
+    agree, n_tok, diffs = 0, 0, []
+    for prompt, (ids, lps) in zip(prompts, outputs):
+        seq = list(prompt) + ids[:-1]
+        t = torch.tensor([seq], dtype=torch.int32, device=dev)
+        pos = torch.arange(len(seq), dtype=torch.int32, device=dev)[None]
+        with torch.inference_mode():
+            logits = forward(params, cfg, t, torch.ones_like(t), pos,
+                             device=dev)[0, len(prompt) - 1:]
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        out = torch.tensor(ids, device=dev)
+        picked = logp.gather(-1, out[:, None])[:, 0]
+        gap = (logp.max(dim=-1).values - picked).cpu().numpy()
+        agree += int((gap <= 0.1).sum())
+        n_tok += len(ids)
+        diffs.extend(np.abs(picked.cpu().numpy() - np.asarray(lps)).tolist())
+    return agree, n_tok, float(np.median(diffs))
+
+
+def disagg_phase(torch, rng, dev, cfg, seed, card, sizes=DISAGG_SIZES):
+    """Disaggregated serving through the port's workers: four generation
+    servers and the gserver manager spawned by LocalController (each a
+    process of its own, like a launched fleet), driven by the
+    PartialRolloutManager client and plain HTTP:
+
+    1. a wave through the manager paired P -> D, the same wave on U (at
+       once, and as the handoff computes it: the first token, then the
+       continuation), the wave paired P -> D8, and on U8 (int8 reference):
+       P -> D equals U's two-leg tokens exactly, P -> D8 passes the
+       teacher-forced check, every handoff succeeds; one 1024-token
+       prompt alone: the int8 pages D8 wrote from P's bf16 wire equal
+       byte for byte the pages U8 wrote for it;
+    2. continuations of the wave hit D's prefixes by affinity (parked or
+       restored from D's tier, where its small prefix budget spilled
+       them), with U's tokens;
+    3. the manager drains D: every parked and tiered prefix migrates,
+       D deregisters and exits with code 0, a continuation of a migrated
+       session is routed to U by the prefix index and restored there;
+    4. a prompt burst on P makes the manager's sizer flip U to prefill,
+       and fresh work then pairs by the new roles.
+
+    Steering: the manager routes a fresh request to the least-loaded
+    pair; a shed window (the routing hint a 429 leaves, reported with
+    /schedule_request) keeps D8 and U out of the first wave and D out of
+    the second. The servers trace (AREAL_RL_TRACE): export, transfer,
+    import, spill and restore times come from their spans; launches and
+    peak memory from their exit records."""
+    import asyncio
+    import shutil
+    import tempfile
+
+    from areal_tpu_torch.api.config import ModelAbstraction
+    from areal_tpu_torch.api.model_api import GenerationHyperparameters
+    from areal_tpu_torch.api.system_api import (
+        ExperimentConfig, GenerationServerConfig, GserverManagerConfig)
+    from areal_tpu_torch.base import name_resolve, names
+    from areal_tpu_torch.models.transformer import init_params
+    from areal_tpu_torch.system.controller import LocalController
+    from areal_tpu_torch.system.generation_server import exit_record_path
+    from areal_tpu_torch.system.partial_rollout import PartialRolloutManager
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_disagg_")
+    exp, trial, ref_trial = os.path.basename(tmp), "disagg", "u8"
+    trace_dir = os.path.join(tmp, "trace")
+    env = {"AREAL_RL_TRACE": "1", "AREAL_RL_TRACE_DIR": trace_dir,
+           "AREAL_FILEROOT": os.path.join(tmp, "fileroot")}
+    saved_env = {k: os.environ.get(k) for k in env}
+    nr_cfg = {"backend": "nfs", "record_root": os.path.join(tmp, "name_resolve")}
+    name_resolve.reconfigure(**nr_cfg)
+    os.environ["AREAL_FILEROOT"] = env["AREAL_FILEROOT"]
+    model = ModelAbstraction("tpu_transformer", args=dict(config=dataclasses.asdict(cfg)))
+    tier = sizes["tier_mb"] << 20
+    base = dict(experiment_name=exp, trial_name=trial, model=model,
+                max_concurrent_requests=sizes["slots"], max_seq_len=sizes["max_seq_len"],
+                kv_page_size=sizes["page"], decode_block_steps=16,
+                prefill_chunk=sizes["chunk"], prefix_cache_tokens=4 * sizes["slots"]
+                * sizes["max_seq_len"], warm_on_start=True, seed=seed, device=dev.type)
+    roles = {
+        "P": dict(server_index=0, role="prefill"),
+        "D": dict(server_index=1, role="decode", kv_tier_bytes=tier,
+                  prefix_cache_tokens=sizes["d_prefix"]),
+        "D8": dict(server_index=2, role="decode", kv_cache_dtype="int8",
+                   kv_tier_bytes=256 << 20),
+        "U": dict(server_index=3, kv_tier_bytes=tier),
+        "U8": dict(server_index=5, trial_name=ref_trial, kv_cache_dtype="int8",
+                   kv_tier_bytes=256 << 20),
+    }
+    configs = {k: GenerationServerConfig(**{**base, **v}) for k, v in roles.items()}
+    mgr = GserverManagerConfig(
+        experiment_name=exp, trial_name=trial, n_servers=4, train_batch_size=8,
+        max_head_offpolicyness=8, kv_index_size=4096, elastic_pools=True,
+        rerole_cooldown_s=2.0, prefill_queue_high_tokens=sizes["rerole_high"],
+        prefill_queue_low_tokens=0, drain_timeout_s=DISAGG_TIMEOUT_S)
+    ctl = LocalController(ExperimentConfig(
+        experiment_name=exp, trial_name=trial, gserver_manager=mgr,
+        generation_servers=list(configs.values())), name_resolve_cfg=nr_cfg, worker_env=env)
+    stats = dict(card=card)
+    procs = {}
+    try:
+        t0 = time.perf_counter()
+        ctl.start_workers()
+        procs = dict(zip(list(configs) + ["M"], ctl._procs))
+        url = {}
+        deadline = time.monotonic() + DISAGG_TIMEOUT_S
+        while len(url) < len(configs) + 1:
+            for k, c in configs.items():
+                try:
+                    url[k] = name_resolve.get(names.gen_server_url(
+                        exp, c.trial_name, str(c.server_index)))
+                except name_resolve.NameEntryNotFoundError:
+                    pass
+            try:
+                url["M"] = name_resolve.get(names.gen_server_manager(exp, trial))
+            except name_resolve.NameEntryNotFoundError:
+                pass
+            dead = [k for k, p in procs.items() if not p.is_alive()]
+            if dead or time.monotonic() > deadline:
+                raise AssertionError(f"disagg: fleet not up: dead {dead}, up {sorted(url)}")
+            time.sleep(0.2)
+        want_roles = {url[k]: configs[k].role for k in ("P", "D", "D8", "U")}
+        while http_call(url["M"], "/status")[2]["pools"]["roles"] != want_roles:
+            if time.monotonic() > deadline:
+                raise AssertionError("disagg: the manager never learned the roles")
+            time.sleep(0.2)
+        stats["fleet_up_s"] = time.perf_counter() - t0
+        log(f"  fleet up in {stats['fleet_up_s']:.1f} s: " + ", ".join(
+            f"{k} {url[k]}" for k in url))
+
+        def metrics(k):
+            out = {}
+            for n, v in http_call(url[k], "/metrics")[2].items():
+                try:
+                    out[n] = float(v)
+                except ValueError:
+                    out[n] = v
+            return out
+
+        def steer(shed, clear=()):
+            """Shed windows on the manager: `shed` out of routing for an
+            hour, `clear` back in (a 1 ms window)."""
+            for k, ra in [(k, 3600.0) for k in shed] + [(k, 0.001) for k in clear]:
+                http_call(url["M"], "/schedule_request", {
+                    "qid": "", "shed_server_url": url[k], "shed_retry_after": ra})
+
+        def through_manager(items, continuation=False):
+            """generate_group (n=1) for each (qid, prompt, new) at once;
+            {qid: (output ids, logprobs)}."""
+            async def go():
+                prm = PartialRolloutManager(url["M"], request_timeout=DISAGG_TIMEOUT_S)
+                try:
+                    outs = await asyncio.gather(*[prm.generate_group(
+                        q, list(p), GenerationHyperparameters(n=1, max_new_tokens=n,
+                                                              greedy=True),
+                        continuation=continuation) for q, p, n in items])
+                finally:
+                    await prm.close()
+                # logprobs cover the whole sequence (the prompt's are 0).
+                return {q: (o.seqs[0][len(p):], list(o.logprobs[0][len(p):]))
+                        for (q, p, _), o in zip(items, outs)}
+            return asyncio.run(go())
+
+        def direct(k, bodies):
+            """POST /generate to one server from a thread a body;
+            {qid: response}."""
+            out, errors = {}, []
+
+            def one(b):
+                try:
+                    st, _, reply = http_call(url[k], "/generate", b, timeout=DISAGG_TIMEOUT_S)
+                    if st != 200:
+                        raise RuntimeError(f"{st} {reply}")
+                    out[b["qid"]] = reply
+                except Exception as e:  # reported below with the qid
+                    errors.append(f"{b['qid']}: {e!r}")
+
+            threads = [threading.Thread(target=one, args=(b,)) for b in bodies]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            if errors:
+                raise AssertionError(f"disagg: /generate on {k} failed: {errors[:3]}")
+            return out
+
+        def body(qid, prompt, n, **extra):
+            return {"qid": qid, "input_ids": list(prompt),
+                    "gconfig": {"max_new_tokens": n, "greedy": True}, **extra}
+
+        def two_leg(k, tag, prompts, n):
+            """The handoff's computation on one server: the first token,
+            then prompt + it as a priority-0 continuation."""
+            out = {}
+
+            def one(q, p):
+                first = http_call(url[k], "/generate", body(f"{tag}{q}", p, 1))[2]
+                rest = http_call(url[k], "/generate", body(
+                    f"{tag}{q}", p + first["output_ids"], n - 1, priority=0),
+                    timeout=DISAGG_TIMEOUT_S)[2]
+                out[q] = first["output_ids"] + rest["output_ids"]
+
+            threads = [threading.Thread(target=one, args=(q, p)) for q, p in prompts.items()]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            if len(out) != len(prompts):
+                raise AssertionError(f"disagg: two-leg wave on {k}: {len(out)} answers")
+            return out
+
+        V, new = cfg.vocab_size, sizes["new"]
+        lo, hi = sizes["prompt"]
+        wave = {f"w{i}": rng.integers(0, V, size=int(rng.integers(lo, hi + 1))).tolist()
+                for i in range(sizes["wave"])}
+        n_prompt = sum(len(p) for p in wave.values())
+
+        # 1a. The wave through the manager, paired P -> D.
+        steer(("D8", "U"))
+        m_p0 = metrics("P")
+        t1 = time.perf_counter()
+        split = through_manager([(q, p, new) for q, p in wave.items()])
+        stats["wave_pd_s"] = time.perf_counter() - t1
+        m_p1, m_d = metrics("P"), metrics("D")
+        ok = m_p1["areal:kv_handoff_ok"] - m_p0["areal:kv_handoff_ok"]
+        if (ok != len(wave) or m_p1["areal:kv_handoff_failed"]
+                or m_p1["areal:kv_handoff_fallback"] or m_d["areal:kv_import_total"] != ok):
+            raise AssertionError(f"disagg: P -> D wave: {ok} handoffs ok, failed "
+                                 f"{m_p1['areal:kv_handoff_failed']}, fallback "
+                                 f"{m_p1['areal:kv_handoff_fallback']}, D imports "
+                                 f"{m_d['areal:kv_import_total']}")
+        if any(len(ids) != new for ids, _ in split.values()):
+            raise AssertionError("disagg: a P -> D answer is short")
+        # 1b. The same wave on U: at once (the unified baseline) and as the
+        # handoff computes it (its tokens must be equal).
+        t1 = time.perf_counter()
+        uni = direct("U", [body(f"p:{q}", p, new) for q, p in wave.items()])
+        stats["wave_u_s"] = time.perf_counter() - t1
+        m_u = metrics("U")
+        legs = two_leg("U", "u:", wave, new)
+        same = sum(split[q][0] == legs[q] for q in wave)
+        same_once = sum(split[q][0] == uni[f"p:{q}"]["output_ids"] for q in wave)
+        log(f"  P -> D wave: {len(wave)} requests ({n_prompt} prompt tokens, {new} new each) "
+            f"in {stats['wave_pd_s']:.2f} s, {ok:.0f} handoffs, fallback 0; U at once "
+            f"{stats['wave_u_s']:.2f} s; tokens equal to U's two-leg run {same}/{len(wave)}, "
+            f"to U's one-shot run {same_once}/{len(wave)}; P TTFT p50/p99 "
+            f"{m_p1['areal:ttft_p50_ms']}/{m_p1['areal:ttft_p99_ms']} ms, D ITL p50/p99 "
+            f"{m_d['areal:itl_p50_ms']}/{m_d['areal:itl_p99_ms']} ms; U TTFT "
+            f"{m_u['areal:ttft_p50_ms']}/{m_u['areal:ttft_p99_ms']}, ITL "
+            f"{m_u['areal:itl_p50_ms']}/{m_u['areal:itl_p99_ms']} ms; {card}")
+        if same != len(wave):
+            raise AssertionError(f"disagg: P -> D tokens differ from U's two-leg run on "
+                                 f"{len(wave) - same} of {len(wave)} requests")
+
+        # 1c. The wave again, paired P -> D8, and on U8.
+        steer(("D",), clear=("D8",))
+        wave8 = {f"e{i}": p for i, p in enumerate(wave.values())}
+        t1 = time.perf_counter()
+        split8 = through_manager([(q, p, new) for q, p in wave8.items()])
+        stats["wave_pd8_s"] = time.perf_counter() - t1
+        m_p2, m_d8 = metrics("P"), metrics("D8")
+        ok8 = m_p2["areal:kv_handoff_ok"] - m_p1["areal:kv_handoff_ok"]
+        if (ok8 != len(wave) or m_p2["areal:kv_handoff_failed"]
+                or m_p2["areal:kv_handoff_fallback"] or m_d8["areal:kv_import_total"] != ok8):
+            raise AssertionError(f"disagg: P -> D8 wave: {ok8} handoffs, D8 imports "
+                                 f"{m_d8['areal:kv_import_total']}")
+        legs8 = two_leg("U8", "u8:", wave8, new)
+        same8 = sum(split8[q][0] == legs8[q] for q in wave8)
+        params = init_params(cfg, seed=seed, device=dev)
+        agree, n_tok, med = teacher_forced_agreement(
+            torch, cfg, params, dev, list(wave8.values()), [split8[q] for q in wave8])
+        del params
+        log(f"  P -> D8 wave: {stats['wave_pd8_s']:.2f} s, {ok8:.0f} handoffs; tokens equal "
+            f"to U8's two-leg run {same8}/{len(wave)} (P prefilled in bf16, U8 over its int8 "
+            f"pool); teacher-forced {agree}/{n_tok} greedy tokens within 0.1 nats, median "
+            f"|logprob diff| {med:.4f}")
+        if agree < 0.95 * n_tok or med > 0.05:
+            raise AssertionError("disagg: D8's greedy outputs disagree with the forward")
+
+        # 1d. One prompt of one chunk, alone: D8's pages from P's bf16 wire
+        # against U8's own.
+        nb = sizes["bytes_prompt"]
+        bprompt = rng.integers(0, V, size=nb).tolist()
+        r = http_call(url["P"], "/generate", body("bytes", bprompt, 2, decode_url=url["D8"]))
+        r8 = http_call(url["U8"], "/generate", body("bytes", bprompt, 2))
+        if r[0] != 200 or "fallback" in r[2]["disagg"] or r8[0] != 200:
+            raise AssertionError(f"disagg: the page-check request failed: {r} {r8}")
+        pages = {}
+        for k in ("D8", "U8"):
+            st, _, man = http_call(url[k], "/kv/manifest?qid=bytes")
+            st2, _, payload = http_raw(url[k] + "/kv/chunk?qid=bytes")
+            if st != 200 or st2 != 200 or man["meta"]["kv_wire"] != "int8":
+                raise AssertionError(f"disagg: {k} /kv/manifest {st} /kv/chunk {st2}")
+            pages[k] = kv_wire_tokens(man["meta"], payload, nb)
+            stats[f"int8_wire_bytes_per_token_{k}"] = len(payload) / man["meta"]["n_tokens"]
+        if pages["D8"] != pages["U8"]:
+            raise AssertionError("disagg: D8's int8 pages from the bf16 wire differ from U8's")
+        log(f"  one {nb}-token prompt: the int8 pages D8 wrote from P's bf16 wire equal U8's "
+            f"byte for byte ({sum(len(v) for v in pages['D8'].values())} bytes of data and "
+            f"scales)")
+
+        # 2. Continuations by affinity to D; some of D's parks spilled.
+        steer((), clear=("D",))
+        _, _, idx_d = http_call(url["D"], "/kv/index")
+        tiers = {e["qid"]: e["tier"] for e in idx_d["held"]}
+        spilled = [q for q in wave if tiers.get(f"{q}/0") == "host"]
+        parked = [q for q in wave if tiers.get(f"{q}/0") == "hbm"]
+        half = sizes["cont"] // 2
+        cont_q = spilled[:half] + parked[:sizes["cont"] - min(half, len(spilled))]
+        cont = {q: wave[q] + split[q][0] + rng.integers(0, V, size=sizes["fresh"]).tolist()
+                for q in cont_q}
+        m_d0 = metrics("D")
+        got = through_manager([(q, p, sizes["cont_new"]) for q, p in cont.items()],
+                              continuation=True)
+        m_d1 = metrics("D")
+        ref_cont = direct("U", [body(f"u:{q}", p, sizes["cont_new"], priority=0)
+                                for q, p in cont.items()])
+        hits = m_d1["areal:prefix_cache_hits"] - m_d0["areal:prefix_cache_hits"]
+        restores = m_d1["areal:kv_restore_total"] - m_d0["areal:kv_restore_total"]
+        same_c = sum(got[q][0] == ref_cont[f"u:{q}"]["output_ids"] for q in cont)
+        log(f"  continuations: {len(cont)} ({len(spilled)} of D's {len(wave)} prefixes had "
+            f"spilled; {min(half, len(spilled))} continued from the tier); D prefix hits "
+            f"+{hits:.0f}, restores +{restores:.0f}, tokens reused "
+            f"+{m_d1['areal:prefix_tokens_reused'] - m_d0['areal:prefix_tokens_reused']:.0f}; "
+            f"tokens equal to U's continuation {same_c}/{len(cont)}; D spills "
+            f"{m_d1['areal:kv_spill_total']:.0f}, lost {m_d1['areal:kv_prefix_lost_total']:.0f}")
+        if hits != len(cont) or same_c != len(cont):
+            raise AssertionError(f"disagg: continuations: {hits} prefix hits on D, {same_c} "
+                                 f"equal to U's, of {len(cont)}")
+        if (m_d1["areal:kv_spill_total"] <= 0 or m_d1["areal:kv_restore_total"] <= 0
+                or m_d1["areal:kv_prefix_lost_total"] != 0):
+            raise AssertionError(f"disagg: spills {m_d1['areal:kv_spill_total']}, restores "
+                                 f"{m_d1['areal:kv_restore_total']}, lost "
+                                 f"{m_d1['areal:kv_prefix_lost_total']}")
+
+        # 3. Drain D through the manager.
+        steer((), clear=("U", "D"))
+        held_before = http_call(url["D"], "/kv/index")[2]["held"]
+        t1 = time.perf_counter()
+        st, _, res = http_call(url["M"], "/drain_server", {"url": url["D"], "reason": "smoke"})
+        if st != 200 or not res.get("success"):
+            raise AssertionError(f"disagg: /drain_server answered {st} {res}")
+        last = None
+        while procs["D"].is_alive():
+            try:
+                last = http_call(url["D"], "/drain", timeout=10)[2]
+            except OSError:
+                break
+            if time.perf_counter() - t1 > DISAGG_TIMEOUT_S:
+                raise AssertionError(f"disagg: the drain did not finish: {last}")
+            time.sleep(0.05)
+        procs["D"].join(timeout=120)
+        stats["drain_wall_s"] = time.perf_counter() - t1
+        code = procs["D"].exitcode
+        beat = json.loads(name_resolve.get(names.health(exp, trial, "generation_server/1")))
+        if code != 0 or not beat.get("stopped") or beat.get("drain_lost") != 0:
+            raise AssertionError(f"disagg: D exited {code}, final beat {beat}")
+        if not ctl.supervise_once():  # an exit code 0 is no failure
+            raise AssertionError("disagg: the controller counted the drained server")
+        try:
+            name_resolve.get(names.gen_server_url(exp, trial, "1"))
+            raise AssertionError("disagg: D did not deregister")
+        except name_resolve.NameEntryNotFoundError:
+            pass
+        # The final heartbeat carries the drain's result; GET /drain's last
+        # answer (when it came after the enumeration) what was held.
+        held = beat.get("drain_migrated", -1)
+        if held < len(held_before) or (last and last.get("done") and last["held"] != held):
+            raise AssertionError(f"disagg: migrated {held} ({last}; {len(held_before)} "
+                                 f"advertised before the drain)")
+        stats["drain_ms"] = (last or {}).get("drain_ms")
+        log(f"  drain: D migrated {held} prefixes ({len(held_before)} advertised before), "
+            f"lost 0, drain {stats['drain_ms']} ms, {stats['drain_wall_s']:.1f} s to exit "
+            f"code {code}")
+        # A migrated session that was not continued: the index sends it to
+        # U, which restores it from its tier.
+        u_held = {e["qid"] for e in http_call(url["U"], "/kv/index")[2]["held"]}
+        on_u = [q for q in wave if f"{q}/0" in u_held]
+        if not on_u:
+            raise AssertionError("disagg: no migrated prefix landed on U")
+        q = next((q for q in on_u if q not in cont), on_u[0])
+        # What D held for q: the wave's, or the continuation's.
+        turn = (wave[q] + split[q][0] if q not in cont else cont[q] + got[q][0])
+        deadline = time.monotonic() + 60
+        while url["D"] not in http_call(url["M"], "/status")[2]["evicted_servers"]:
+            if time.monotonic() > deadline:
+                raise AssertionError("disagg: the manager never dropped D")
+            time.sleep(0.2)
+        time.sleep(5.0)  # two metrics polls: the index reads U's tier
+        after = {q: turn + rng.integers(0, V, size=sizes["fresh"]).tolist()}
+        m_u0 = metrics("U")
+        mig = through_manager([(q, after[q], sizes["cont_new"])], continuation=True)
+        m_u1 = metrics("U")
+        ref_mig = direct("U", [body(f"u:{q}", after[q], sizes["cont_new"], priority=0)])
+        if (m_u1["areal:kv_restore_total"] - m_u0["areal:kv_restore_total"] != 1
+                or mig[q][0] != ref_mig[f"u:{q}"]["output_ids"]):
+            raise AssertionError(f"disagg: the migrated session {q} was not restored on U "
+                                 f"with U's tokens")
+        log(f"  migrated session {q}: routed to U by the prefix index, restored from its "
+            f"tier, tokens equal U's own continuation")
+
+        # 4. The sizer: a prompt burst on P flips U to prefill.
+        burst = [body(f"b{i}", rng.integers(0, V, size=sizes["burst_prompt"]).tolist(),
+                      sizes["burst_new"]) for i in range(sizes["burst"])]
+        box = {}
+        burster = threading.Thread(target=lambda: box.update(direct("P", burst)))
+        burster.start()
+        deadline = time.monotonic() + 60
+        while http_call(url["M"], "/status")[2]["pools"]["roles"][url["U"]] != "prefill":
+            if time.monotonic() > deadline:
+                raise AssertionError("disagg: the sizer never re-roled U")
+            time.sleep(0.05)
+        pairs = [http_call(url["M"], "/schedule_request",
+                           {"qid": f"r{i}", "prompt_len": 64, "new_token_budget": 8})[2]
+                 for i in range(4)]
+        burster.join()
+        if any(p.get("decode_url") != url["D8"] or p["url"] not in (url["P"], url["U"])
+               for p in pairs):
+            raise AssertionError(f"disagg: routing ignored U's new role: {pairs}")
+        status = http_call(url["M"], "/status")[2]
+        log(f"  re-role: the sizer flipped U to prefill under the burst ({len(burst)} prompts "
+            f"on P); fresh pairs then {[(p['url'][-5:], p['decode_url'][-5:]) for p in pairs]}"
+            f"; re-roles {[(e['from'], e['to']) for e in status['pools']['reroles']]}")
+
+        # Leave: the manager, then the servers, on COMPLETE.
+        for t in (trial, ref_trial):
+            name_resolve.add(names.experiment_status(exp, t), "COMPLETE", replace=True)
+        for k, p in procs.items():
+            p.join(timeout=180)
+        codes = {k: p.exitcode for k, p in procs.items()}
+        if any(c != 0 for c in codes.values()):
+            raise AssertionError(f"disagg: exit codes {codes}")
+        records = {}
+        for k, c in configs.items():
+            with open(exit_record_path(exp, c.trial_name, c.worker_name)) as f:
+                records[k] = json.load(f)
+        launches = {n: sum(r["launches"][n] for r in records.values())
+                    for n in records["P"]["launches"]}
+        for k in ("flash_attn_fwd_bf16", "paged_decode_bf16", "paged_decode_int8"):
+            if dev.type == "cuda" and launches[k] <= 0:
+                raise AssertionError(f"disagg: kernel {k} was not launched by the fleet")
+
+        spans = read_trace(trace_dir)
+
+        def attr_list(worker, name, key):
+            return [r["attrs"][key] for r in spans.get(worker, [])
+                    if r["name"] == name and key in r["attrs"]]
+
+        def dur_ms(worker, name, **match):
+            return [(r["end_ns"] - r["start_ns"]) / 1e6 for r in spans.get(worker, [])
+                    if r["name"] == name
+                    and all(r["attrs"].get(a) == v for a, v in match.items())]
+
+        def summary(xs):
+            xs = sorted(xs)
+            return {"n": len(xs), "median": xs[len(xs) // 2], "max": xs[-1]} if xs else None
+
+        stats.update(
+            requests=len(wave), prompt_tokens=n_prompt, new_tokens=new,
+            handoffs=dict(d=ok, d8=ok8), fallback=m_p2["areal:kv_handoff_fallback"],
+            equal_two_leg=dict(d=same, d8=same8), equal_one_shot_u=same_once,
+            teacher_forced=dict(agree=agree, tokens=n_tok, median_lp_diff=med),
+            export_ms=summary(attr_list("generation_server/0", "server.kv_export",
+                                        "export_ms")),
+            transfer_ms={k: summary(attr_list(w, "server.kv_import", "transfer_ms"))
+                         for k, w in (("d", "generation_server/1"),
+                                      ("d8", "generation_server/2"))},
+            import_ms={k: summary(attr_list(w, "server.kv_import", "import_ms"))
+                       for k, w in (("d", "generation_server/1"),
+                                    ("d8", "generation_server/2"))},
+            handoff_bytes_bf16=summary(attr_list("generation_server/1", "server.kv_import",
+                                                 "bytes")),
+            handoff_tokens=summary([len(p) for p in wave.values()]),
+            spill_ms=summary(dur_ms("generation_server/1", "server.kv_spill")),
+            spill_bytes=summary(attr_list("generation_server/1", "server.kv_spill", "bytes")),
+            restore_ms=summary(dur_ms("generation_server/1", "server.kv_restore", tier="local")
+                               + dur_ms("generation_server/3", "server.kv_restore",
+                                        tier="local")),
+            spills=m_d1["areal:kv_spill_total"], restores=m_d1["areal:kv_restore_total"],
+            prefix_lost=m_d1["areal:kv_prefix_lost_total"],
+            continuations=len(cont), continued_from_tier=min(half, len(spilled)),
+            migrated=held, drain_exit_code=code,
+            ttft_ms=dict(p=[m_p1["areal:ttft_p50_ms"], m_p1["areal:ttft_p99_ms"]],
+                         u=[m_u["areal:ttft_p50_ms"], m_u["areal:ttft_p99_ms"]]),
+            itl_ms=dict(d=[m_d["areal:itl_p50_ms"], m_d["areal:itl_p99_ms"]],
+                        u=[m_u["areal:itl_p50_ms"], m_u["areal:itl_p99_ms"]]),
+            reroles=[(e["from"], e["to"]) for e in status["pools"]["reroles"]],
+            peak_memory_gb={k: r["peak_memory_bytes"] / 1e9 for k, r in records.items()},
+            launches=launches, launches_by_server={k: r["launches"] for k, r in records.items()})
+        log(f"  handoff: export ms {stats['export_ms']}, transfer ms {stats['transfer_ms']}, "
+            f"import ms {stats['import_ms']}; bf16 wire bytes {stats['handoff_bytes_bf16']} "
+            f"for prompts of {stats['handoff_tokens']} tokens; int8 wire "
+            f"{stats['int8_wire_bytes_per_token_D8']:.0f} bytes a token")
+        log(f"  spill ms {stats['spill_ms']} ({stats['spill_bytes']} bytes), restore ms "
+            f"{stats['restore_ms']}; peak memory GB {stats['peak_memory_gb']}; launches "
+            f"{launches}; {card}")
+        return stats
+    finally:
+        for p in procs.values():
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=30)
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
         shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -2526,6 +3129,19 @@ def main() -> int:
                 main_counts[k] = main_counts.get(k, 0) + n
         torch.cuda.empty_cache()
         phase_done("async_ppo", t0)
+
+    if "disagg" in phases:
+        log("phase disagg")
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        report["phases"]["disagg"] = disagg_phase(
+            torch, np.random.default_rng([args.seed, 8]), dev, cfg, args.seed, card)
+        # Disaggregated serving is a main path of its own: its launches add.
+        for k, n in report["phases"]["disagg"]["launches"].items():
+            if n:
+                main_counts[k] = main_counts.get(k, 0) + n
+        torch.cuda.empty_cache()
+        phase_done("disagg", t0)
 
     kernels_line = []
     for name, row in kernel_rows.items():

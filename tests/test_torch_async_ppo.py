@@ -11,7 +11,9 @@ every trained sample is within the staleness bound (read from the run's
 trace); this test runs it and holds its report to the same facts. No
 time is asserted: CPU speed says nothing of the card's.
 
-The launcher's option surface is checked beside it: ``--help-config``
+A second run puts a prefill and a decode server in the fleet (a KV
+tier, the prefix cache and the manager's prefix index) and holds the
+rollouts to handoffs. The launcher's option surface is checked beside it: ``--help-config``
 lists the reference's keys, and options the port lacks raise before any
 worker starts.
 """
@@ -49,6 +51,24 @@ def test_async_ppo_loop_trains_two_steps_on_cpu():
     assert np.isfinite(stats["importance_weight_step1"])
 
 
+def test_async_ppo_loop_trains_through_a_prefill_decode_pair_on_cpu():
+    """The same loop with gen_server_roles=prefill,decode, a KV tier, the
+    prefix cache and the manager's prefix index: rollouts are handed off
+    from the prefill server to the decode server, both servers take both
+    versions, and the trainer's two steps land.
+    Pages are 8 tokens, so every prompt covers one (a shorter prompt has
+    no parked KV to hand off and is served where it prefilled)."""
+    cfg = r1_distill_qwen_1_5b_config(n_layers=2, hidden_dim=64, n_q_heads=4, n_kv_heads=2,
+                                      head_dim=16, intermediate_dim=128, vocab_size=512,
+                                      max_position_embeddings=4096)
+    stats = chip_smoke.async_ppo_phase(torch, np.random.default_rng(0), torch.device("cpu"),
+                                       cfg, 0, "cpu", sizes=dict(TINY_SIZES, page=8),
+                                       disagg=True)
+    assert stats["global_step"] == 2 and stats["server_final_version"] == 2
+    assert stats["handoff"]["ok"] > 0 and stats["handoff"]["imports"] >= stats["handoff"]["ok"]
+    assert max(stats["staleness_hist"]) <= TINY_SIZES["offpolicy"]
+
+
 def test_help_config_lists_the_reference_keys(capsys):
     with pytest.raises(SystemExit) as e:
         main_async_ppo.main(["--help-config"])
@@ -61,7 +81,7 @@ def test_help_config_lists_the_reference_keys(capsys):
 
 @pytest.mark.parametrize("override", [
     "recover_mode=auto", "auto_eval=true", "allocation_mode=d2", "agent_type=tool-use",
-    "gen_weight_plane=true", "gen_elastic_fleet=true", "gen_server_roles=prefill",
+    "gen_weight_plane=true", "gen_elastic_fleet=true", "gen_autoscale=true",
     "gen_tensor_parallel=2", "actor.prefetch_depth=2", "ppo.generation_size=8",
     "exp_ctrl.save_freq_steps=1",
 ])

@@ -16,7 +16,7 @@ both through ``/update_weights_from_disk``; then:
 - ``/health`` is equal, each package's name_resolve reads the URL the
   other registered, and the heartbeat records carry the same fields;
 - the port refuses every unported option at boot and answers 404 on the
-  routes it does not serve.
+  routes it does not serve (the weight plane's).
 """
 
 import json
@@ -267,8 +267,8 @@ def test_health_and_discovery_cross_packages(fleet):
 
 @pytest.mark.timeout(120)
 @pytest.mark.parametrize("path,method", [
-    ("/drain", "POST"), ("/set_role", "POST"), ("/kv_handoff", "POST"),
-    ("/kv/index", "GET"), ("/distribute_weights", "POST"), ("/weights/manifest", "GET"),
+    ("/distribute_weights", "POST"), ("/cutover_weights", "POST"),
+    ("/weights/manifest", "GET"), ("/weights/chunk", "GET"),
 ])
 def test_unported_routes_answer_404(fleet, path, method):
     url = fleet["port"].address + path
@@ -279,11 +279,8 @@ def test_unported_routes_answer_404(fleet, path, method):
 
 
 @pytest.mark.parametrize("option", [
-    dict(role="prefill"), dict(tensor_parallel=2), dict(weight_shard_rank=0,
-                                                        weight_shard_degree=2),
-    dict(kv_tier_bytes=1 << 20), dict(kv_tier_disk_dir="/nonexistent"),
-    dict(kv_spill_dtype="int8"), dict(speculative_draft_len=2),
-    dict(decode_weight_dtype="int8"), dict(kv_tier_disk_bytes=1 << 20),
+    dict(tensor_parallel=2), dict(weight_shard_rank=0, weight_shard_degree=2),
+    dict(speculative_draft_len=2), dict(decode_weight_dtype="int8"),
     dict(weight_shard_degree=2),
 ])
 def test_unported_options_are_refused_at_boot(option):

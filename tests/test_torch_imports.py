@@ -1,4 +1,5 @@
-"""The port imports neither JAX nor the JAX package.
+"""The port imports neither JAX nor the JAX package, nor ml_dtypes (the
+KV wire moves bfloat16 and float8 as torch tensors).
 
 areal_tpu_torch and chip_smoke.py keep their own copies of what they
 need from areal_tpu (config, quantization constants, ...): an AST scan
@@ -14,7 +15,7 @@ import sys
 import pytest
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "areal_tpu")
+FORBIDDEN = ("jax", "jaxlib", "areal_tpu", "ml_dtypes")
 
 
 def _port_files():
@@ -62,6 +63,8 @@ def test_port_sources_import_no_jax():
     "areal_tpu_torch.system.controller, areal_tpu_torch.system.master_worker, "
     "areal_tpu_torch.system.model_worker, areal_tpu_torch.system.stream_dataset, "
     "areal_tpu_torch.engine.factories, areal_tpu_torch.models.hf",
+    "areal_tpu_torch.engine.kv_handoff, areal_tpu_torch.engine.kv_tier, "
+    "areal_tpu_torch.system.generation_server, areal_tpu_torch.system.gserver_manager",
 ])
 def test_importing_the_port_loads_no_jax(modules):
     code = (

@@ -226,6 +226,14 @@ def _port_manager(policy="round_robin", urls=(A, B, C), **cfg_kw):
     m._server_shed_until = {u: 0.0 for u in urls}
     m._server_shed_total = {u: 0.0 for u in urls}
     m._affinity = collections.OrderedDict()
+    m._kv_index_size = 0
+    m._prefix_index = collections.OrderedDict()
+    m._server_kv_index = {}
+    m._server_roles = {u: "unified" for u in urls}
+    m._server_queued_toks = {u: 0.0 for u in urls}
+    m._server_free_pages = {}
+    m._draining = set()
+    m._drain_deadline = {}
     m.weight_version = 0
     return m
 
