@@ -1,7 +1,7 @@
 """The named chaos-injection points the port fires (the port's copy of
 the entries of ``areal_tpu/base/fault_points.py`` that its generation
-server, serving engine, worker system, rollout worker and gserver manager
-fire; names and meanings are the reference's, so one ``AREAL_FAULTS``
+server, serving engine, worker system, rollout worker, gserver manager
+and weight plane fire; names and meanings are the reference's, so one ``AREAL_FAULTS``
 spec arms reference and port processes alike).
 
 Names under ``test.`` are reserved for the injector's own tests and are
@@ -47,6 +47,21 @@ _POINTS: List[FaultPoint] = [
                "KV chunk/blob payload corrupted after its chunk index was "
                "minted: the puller's per-chunk sha256 verify must reject and "
                "re-fetch."),
+    FaultPoint("gserver.distribute_weights", _GS,
+               "Plane fanout transfer dies on this server (mid-fetch peer "
+               "kill in the weight-plane e2e)."),
+    FaultPoint("gserver.weight_fetch", _GS,
+               "One chunk fetch inside the plane transfer fails (transient "
+               "peer error; the stream must retry/re-source)."),
+    FaultPoint("gserver.cutover_weights", _GS,
+               "Cutover window dies between interrupt and swap."),
+    FaultPoint("weight_plane.serve_chunk",
+               ("areal_tpu_torch/system/weight_plane.py",) + _GS,
+               "A serving peer/origin fails mid-chunk."),
+    FaultPoint("weight_plane.chunk_bytes", ("areal_tpu_torch/system/weight_plane.py",),
+               "Weight chunk payload corrupted on the wire AFTER its hash was "
+               "stamped: the puller's sha256 verify must reject and re-fetch; "
+               "corrupt weights never cut over."),
     FaultPoint("engine.kv_spill", ("areal_tpu_torch/engine/serving.py",),
                "KV tier spill write fails: the eviction falls back to a clean "
                "free, counted as kv_prefix_lost, never a wedge."),
@@ -58,6 +73,8 @@ _POINTS: List[FaultPoint] = [
                "The trainer dies while journaling an accepted trajectory."),
     FaultPoint("rollout.episode", ("areal_tpu_torch/system/rollout_worker.py",),
                "One rollout episode dies mid-flight (agent/env crash)."),
+    FaultPoint("manager.plane_fanout", ("areal_tpu_torch/system/gserver_manager.py",),
+               "The manager dies inside the weight-plane fanout push."),
     FaultPoint("manager.fanout", ("areal_tpu_torch/system/gserver_manager.py",),
                "The manager dies inside the update-weights fanout wave."),
     FaultPoint("buffer.consume", ("areal_tpu_torch/system/buffer.py",),

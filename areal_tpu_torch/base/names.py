@@ -61,3 +61,10 @@ def health(experiment_name: str, trial_name: str, member: str) -> str:
 
 def health_root(experiment_name: str, trial_name: str) -> str:
     return f"{trial_root(experiment_name, trial_name)}/health/"
+
+
+def weight_plane_source(experiment_name: str, trial_name: str, model_name: str) -> str:
+    """HTTP origin of the weight-distribution plane for one model role
+    (system/weight_plane.py): the trainer-side dump rank (or the gserver
+    manager's fallback) registers its URL here."""
+    return f"{trial_root(experiment_name, trial_name)}/weight_plane/{model_name}"

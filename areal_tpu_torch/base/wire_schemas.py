@@ -1,5 +1,5 @@
-"""Wire schema tags of the KV plane (the port's copy of the entries of
-``areal_tpu/base/wire_schemas.py`` it speaks). The strings are the
+"""Wire schema tags of the KV and weight planes (the port's copy of the
+entries of ``areal_tpu/base/wire_schemas.py`` it speaks). The strings are the
 reference's byte for byte: a blob or manifest of either package is read
 by the other."""
 
@@ -12,3 +12,9 @@ KV_HANDOFF_V1 = "areal-kv-handoff/v1"
 # Tiered-KV manifest: where a spilled or parked prefix lives (holder url
 # and tier); the bytes inside stay KV_HANDOFF_V1 blobs.
 KV_TIER_V1 = "areal-kv-tier/v1"
+
+# Content-hashed weight chunk stream + manifest (base/chunking.py).
+WEIGHT_CHUNKS_V1 = "areal-weight-chunks/v1"
+
+# Trainer dump layout sidecar (system/weight_transfer.py).
+WEIGHT_LAYOUT_V1 = "areal-weight-layout/v1"

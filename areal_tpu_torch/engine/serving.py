@@ -35,11 +35,12 @@ and a decode engine; with ``kv_tier_bytes`` an evicted prefix spills to
 a host (+ disk) tier (engine/kv_tier.py) on a spill thread instead of
 being lost, and ``restore_from_tier`` brings it back for a continuation.
 Work on loop-owned state from other threads goes through the loop door
-(``_run_on_loop``).
+(``_run_on_loop``). The weight plane's ``cutover_params`` stages a
+prefetched tree and blocks until the loop has swapped to it.
 
 Not ported yet: speculative decoding, int8 weights, mesh / tensor
-parallelism, the staged cutover of the weight plane and the env knobs
-(the tier is configured by argument only).
+parallelism (with it the shard-leaf cutover) and the env knobs (the tier
+is configured by argument only).
 """
 
 from __future__ import annotations
@@ -329,6 +330,7 @@ class ServingEngine:
         self.n_preempted = 0
         self.last_weight_swap_s = 0.0
         self.last_weight_stage_s = 0.0
+        self.last_weight_cutover_s = 0.0
         # Off-thread snapshots of loop-only state, refreshed every lap.
         self._backlog_len = 0
         self._kv_pages_free = self._allocator.n_free
@@ -862,6 +864,32 @@ class ServingEngine:
         if allow_interrupt:
             self._interrupt.set()
 
+    def cutover_params(self, params, version: int, allow_interrupt: bool = True,
+                       timeout_s: float = 120.0) -> float:
+        """The weight plane's cutover: swap to ``params`` (pinned to
+        ``version``) and block until the serve loop has landed it, the
+        whole interrupt -> host-to-device copy -> pointer flip window. The
+        bytes were prefetched to host memory, so all of it is cutover
+        cost. Returns the seconds, also kept as ``last_weight_cutover_s``;
+        raises TimeoutError if the version never lands, RuntimeError if
+        the loop died."""
+        t0 = time.monotonic()
+        self.update_params(params, allow_interrupt=allow_interrupt, version=int(version))
+        return self._await_pinned(int(version), t0, timeout_s)
+
+    def _await_pinned(self, version: int, t0: float, timeout_s: float) -> float:
+        deadline = t0 + timeout_s
+        while self._applied_pinned < version:
+            if self.fatal_error is not None:
+                raise RuntimeError(f"cutover v{version}: serve loop died: "
+                                   f"{self.fatal_error!r}") from self.fatal_error
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"cutover v{version} did not land within {timeout_s}s "
+                                   f"(live v{self.version})")
+            time.sleep(0.002)
+        self.last_weight_cutover_s = time.monotonic() - t0
+        return self.last_weight_cutover_s
+
     @property
     def queue_depth(self) -> int:
         """Requests accepted but not yet admitted to a slot (the
@@ -912,7 +940,7 @@ class ServingEngine:
             "num_preempted_reqs": float(self.n_preempted),
             "last_weight_swap_s": float(self.last_weight_swap_s),
             "last_weight_stage_s": float(self.last_weight_stage_s),
-            "last_weight_cutover_s": 0.0,
+            "last_weight_cutover_s": float(self.last_weight_cutover_s),
             "prefix_cache_hits": float(self.prefix_cache_hits),
             "prefix_tokens_reused": float(self.prefix_tokens_reused),
             "prefix_cached_tokens": float(self._cached_tokens),

@@ -49,8 +49,6 @@ def refuse_unported(cfg: AsyncPPOMATHExpConfig):
         "gen_tensor_parallel": cfg.gen_tensor_parallel != 1,
         "gen_speculative_draft_len": cfg.gen_speculative_draft_len != 0,
         "gen_decode_weight_dtype": cfg.gen_decode_weight_dtype not in (None, "model"),
-        "gen_weight_plane": cfg.gen_weight_plane,
-        "gen_weight_wire_dtype": cfg.gen_weight_wire_dtype is not None,
         "gen_weight_shards": bool(cfg.gen_weight_shards.strip(",")),
         "gen_elastic_fleet": cfg.gen_elastic_fleet,
         "gen_autoscale": cfg.gen_autoscale,
@@ -210,6 +208,11 @@ def build_async_ppo_math_experiment(cfg: AsyncPPOMATHExpConfig) -> ExperimentCon
         max_head_offpolicyness=cfg.ppo.max_head_offpolicyness,
         train_batch_size=cfg.train_batch_size,
         max_concurrent_rollouts=cfg.ppo.max_concurrent_rollouts,
+        weight_plane=cfg.gen_weight_plane,
+        weight_chunk_bytes=cfg.gen_weight_chunk_mb << 20,
+        weight_fanout_degree=cfg.gen_weight_fanout,
+        weight_cutover_budget_s=cfg.gen_weight_cutover_budget_s,
+        weight_wire_dtype=cfg.gen_weight_wire_dtype,
         kv_index_size=cfg.gen_kv_index_size,
         elastic_pools=cfg.gen_elastic_pools,
         prefill_queue_high_tokens=cfg.gen_prefill_queue_high_tokens,

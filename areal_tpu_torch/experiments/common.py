@@ -100,6 +100,9 @@ def base_model_worker(
         seed=cfg.seed,
         stream_dataset=stream_dataset,
         n_pullers=n_workers if stream_dataset else 1,
+        weight_plane=bool(getattr(cfg, "gen_weight_plane", False)),
+        weight_chunk_bytes=int(getattr(cfg, "gen_weight_chunk_mb", 8)) << 20,
+        weight_wire_dtype=getattr(cfg, "gen_weight_wire_dtype", None),
         device=cfg.device,
     )
 

@@ -31,6 +31,12 @@ from areal_tpu_torch.base import logging, name_resolve
 
 logger = logging.getLogger("controller")
 
+# How long the workers get to leave after the master completes: the
+# generation servers outlive the trial's COMPLETE for up to 120 s
+# (generation_server.LAST_FANOUT_WAIT_S) while the manager fans the last
+# version out, which over the weight plane is a whole transfer.
+EXIT_WAIT_S = 150.0
+
 def _run_worker_proc(
     worker_type: str,
     config: Any,
@@ -234,7 +240,7 @@ class LocalController:
                 # a genuine Ctrl-C suppresses this — teardown noise from
                 # interrupted workers must not override the user's stop.
                 self.check_worker_errors()
-            self.join(timeout=30)
+            self.join(timeout=EXIT_WAIT_S)
         return {"global_step": master.step_info.global_step,
                 "perf_summary": dict(master.perf_summary)}
 

@@ -39,15 +39,25 @@ HTTP runs on the standard library's ``ThreadingHTTPServer`` (HTTP/1.1,
 ``json_response`` sends), one thread a request. A ``/generate`` thread
 does no device work: it submits to the engine and waits for the
 request's ``done_cb``; a weight update loads and stages on its own
-request thread while the engine loop keeps decoding. The reference's
-async handlers become blocking ones on the request's thread; its peer
-client is ``urllib``; the drain runs on a thread of its own.
+request thread while the engine loop keeps decoding, and so does a
+plane fetch, which holds its request thread for the whole transfer while
+other threads serve its verified chunks. The reference's async handlers
+become blocking ones on the request's thread; its peer client is
+``urllib``; the drain runs on a thread of its own.
 
-Not ported yet (they answer 404 and are refused at boot when
-configured): ``/distribute_weights``, ``/cutover_weights`` and
-``/weights/*`` (the weight plane, sharded weights); tensor parallelism,
-speculative decoding, int8 decode weights; the HF fallback of a weight
-update. The server serves an HF checkpoint (``model_path``) in its
+- the weight-distribution plane (system/weight_plane.py): ``POST
+  /distribute_weights`` ``{version, manifest, upstreams, origin}``
+  prefetches a version's chunk stream into a host ChunkStore while the
+  current version keeps serving, and returns once it is complete and
+  verified (a duplicate joins the fetch in flight; an older version is
+  refused); ``POST /cutover_weights`` ``{version, budget_s}`` swaps to
+  it (``ServingEngine.cutover_params``) and reports the window against
+  the budget; ``GET /weights/manifest`` and ``/weights/chunk`` serve the
+  held store to sibling servers, during the fetch too.
+
+Not ported yet (refused at boot when configured): tensor parallelism
+and weight shards (with them the plane's shard streams), speculative
+decoding, int8 decode weights; the HF fallback of a weight update. The server serves an HF checkpoint (``model_path``) in its
 compute dtype and takes its EOS from the tokenizer (``tokenizer_path``,
 else the checkpoint's).
 """
@@ -65,6 +75,7 @@ import urllib.request
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from areal_tpu_torch import kernels
 from areal_tpu_torch.api import data_api
 from areal_tpu_torch.api.config import ModelAbstraction
 from areal_tpu_torch.api.system_api import GenerationServerConfig
@@ -77,8 +88,11 @@ from areal_tpu_torch.base.latency import encode_counts
 from areal_tpu_torch.base.wire_schemas import KV_TIER_V1
 from areal_tpu_torch.engine.kv_handoff import KVHandoffError, KVHandoffVersionMismatch
 from areal_tpu_torch.engine.serving import GenRequest, ServingEngine
+from areal_tpu_torch.engine.weight_client import ChunkStore, assemble_params
 from areal_tpu_torch.models.config import TransformerConfig
 from areal_tpu_torch.models.transformer import init_params
+from areal_tpu_torch.system.weight_plane import (
+    serve_store_chunk, serve_store_manifest, write_response)
 from areal_tpu_torch.system.worker_base import PollResult, Worker
 
 logger = logging.getLogger("generation_server")
@@ -274,6 +288,24 @@ class GenerationServer(Worker):
         self._kv_manifests_served = 0
         self._kv_chunks_served = 0
         self._kv_chunk_bytes_served = 0
+        # Weight-plane prefetch state: idle -> fetching -> ready (or
+        # failed). The store outlives its cutover, so this server keeps
+        # serving chunks to later-wave siblings and re-fanouts; a newer
+        # /distribute_weights replaces it.
+        self._wp_lock = threading.Lock()
+        self._wp_store: Any = None
+        self._wp_state = "idle"
+        self._wp_transfer_ms = 0.0
+        self._wp_verify_ms = 0.0
+        self._wp_cutover_ms = 0.0
+        self._wp_bytes_from_origin = 0
+        self._wp_bytes_from_peers = 0
+        self._wp_chunks_served = 0
+        self._wp_bytes_served = 0
+        self._wp_expected_bytes = 0
+        self._wp_ingress_eq = 0.0
+        self._wp_wire = "raw"
+        self._launches_at_cutover: Dict[str, int] = {}
 
         self._routes: Dict[str, Dict[str, Callable[..., Response]]] = {
             "/generate": {"POST": self._h_generate},
@@ -287,6 +319,10 @@ class GenerationServer(Worker):
             "/set_role": {"POST": self._h_set_role},
             "/configure": {"POST": self._h_configure},
             "/update_weights_from_disk": {"POST": self._h_update_weights},
+            "/distribute_weights": {"POST": self._h_distribute_weights},
+            "/cutover_weights": {"POST": self._h_cutover_weights},
+            "/weights/manifest": {"GET": self._h_weights_manifest},
+            "/weights/chunk": {"GET": self._h_weights_chunk},
             "/metrics": {"GET": self._h_metrics},
             "/health": {"GET": self._h_health},
         }
@@ -344,18 +380,7 @@ class GenerationServer(Worker):
             except Exception:
                 logger.exception(f"error handling {method} {handler.path}")
                 resp = _text("500 Internal Server Error\n\nServer got itself in trouble", 500)
-        status, data, ctype, headers = resp
-        handler.send_response(status)
-        handler.send_header("Content-Type", ctype)
-        handler.send_header("Content-Length", str(len(data)))
-        for k, v in {**headers, **extra}.items():
-            handler.send_header(k, v)
-        handler.end_headers()
-        try:
-            handler.wfile.write(data)
-        except (BrokenPipeError, ConnectionResetError):
-            # The client gave up (a cancelled rollout at shutdown).
-            logger.debug(f"client left before the reply to {method} {handler.path}")
+        write_response(handler, resp, extra)
 
     def _admission_overloaded(self) -> Optional[float]:
         """Backpressure watermark check: the Retry-After seconds when
@@ -1150,6 +1175,207 @@ class GenerationServer(Worker):
         shm = shm_transfer_dir(self.cfg.experiment_name, self.cfg.trial_name, role)
         return load_for_serving(model_path, shm_dir=shm, want_version=want_version)
 
+    # ------------------------------------------------------------------
+    # Weight-distribution plane (system/weight_plane.py)
+    # ------------------------------------------------------------------
+
+    def _wp_held_reply(self) -> Response:
+        return _json({"success": True, "already_held": True,
+                      "transfer_ms": self._wp_transfer_ms, "verify_ms": self._wp_verify_ms})
+
+    def _h_distribute_weights(self, headers, body: bytes, query=None) -> Response:
+        """Prefetch version-N chunks into host memory while version N-1
+        keeps serving. Returns once the payload is complete and verified,
+        so the manager can make this server a parent in the next wave."""
+        faults.maybe_fail("gserver.distribute_weights")
+        d = json.loads(body)
+        version = int(d["version"])
+        upstreams = [u for u in (d.get("upstreams") or []) if u]
+        origin = d.get("origin")
+        # An unsharded server accepts only the unsharded stream; the 409
+        # teaches the caller its real spec.
+        man_shard = (d.get("manifest") or {}).get("shard") or {}
+        man_key = (int(man_shard.get("tp_rank") or 0), int(man_shard.get("tp_degree") or 1))
+        if man_key != (0, 1):
+            return _json({"success": False,
+                          "error": f"manifest shard {man_key} != server shard (0, 1)",
+                          "weight_shard": [0, 1]}, 409)
+        fetch_span = tracing.start_span("server.weight_fetch", ctx=tracing.extract_from(d),
+                                        version=version, n_upstreams=len(upstreams))
+
+        def superseded(held) -> Response:
+            if fetch_span is not None:
+                fetch_span.end(error="superseded")
+            return _json({"success": False, "error": f"superseded by v{held.version}"}, 409)
+
+        def held_already() -> Response:
+            if fetch_span is not None:
+                fetch_span.end(already_held=True)
+            return self._wp_held_reply()
+
+        with self._wp_lock:
+            held = self._wp_store
+            joining = False
+            if held is not None and held.version > version:
+                # A stale edge (a retry from an older fanout): refused
+                # before the payload-sized allocation below.
+                return superseded(held)
+            if held is not None and held.version == version:
+                if self._wp_state == "ready":
+                    return held_already()
+                if self._wp_state == "fetching":
+                    # A duplicate of an in-flight fetch joins it: starting
+                    # over would drop every verified chunk.
+                    store, joining = held, True
+        if not joining:
+            try:
+                store = ChunkStore(d["manifest"])
+            except Exception as e:
+                if fetch_span is not None:
+                    fetch_span.end(error=repr(e))
+                return _json({"success": False, "error": repr(e)}, 400)
+            with self._wp_lock:
+                held = self._wp_store
+                if held is not None and held.version > version:
+                    return superseded(held)
+                if held is not None and held.version == version:
+                    if self._wp_state == "ready":
+                        return held_already()
+                    if self._wp_state == "fetching":
+                        store, joining = held, True
+                if not joining:
+                    self._wp_store = store
+                    self._wp_state = "fetching"
+
+        if joining:
+            deadline = time.monotonic() + float(d.get("deadline_s") or 600.0)
+            state = "timeout"
+            while time.monotonic() < deadline:
+                with self._wp_lock:
+                    if self._wp_store is not store:
+                        state = "superseded"
+                        break
+                    if self._wp_state != "fetching":
+                        state = self._wp_state
+                        break
+                time.sleep(0.05)
+            with self._wp_lock:
+                reply = {"success": state == "ready", "joined": True,
+                         "transfer_ms": self._wp_transfer_ms, "verify_ms": self._wp_verify_ms}
+            if state != "ready":
+                reply["error"] = f"in-flight fetch ended: {state}"
+            if fetch_span is not None:
+                fetch_span.end(joined=True, state=state)
+            return _json(reply, 200 if state == "ready" else 500)
+
+        try:
+            faults.maybe_fail("gserver.weight_fetch")
+            stats = store.fetch(upstreams, origin=origin,
+                                timeout=float(d.get("chunk_timeout") or 30.0),
+                                deadline_s=float(d.get("deadline_s") or 600.0))
+        except Exception as e:
+            with self._wp_lock:
+                if self._wp_store is store:
+                    self._wp_state = "failed"
+            logger.exception("weight-plane prefetch failed")
+            if fetch_span is not None:
+                fetch_span.end(error=repr(e))
+            return _json({"success": False, "error": repr(e)}, 500)
+        with self._wp_lock:
+            # A fetch superseded by a newer /distribute_weights must not
+            # overwrite the live version's numbers.
+            if self._wp_store is store:
+                self._wp_state = "ready"
+                self._wp_transfer_ms = stats["fetch_s"] * 1000.0
+                self._wp_verify_ms = stats["verify_s"] * 1000.0
+                self._wp_bytes_from_origin = stats["bytes_from_origin"]
+                self._wp_bytes_from_peers = stats["bytes_from_peers"]
+                self._wp_expected_bytes = stats["expected_bytes"]
+                self._wp_ingress_eq = stats["ingress_payload_equivalents"]
+                self._wp_wire = stats.get("wire") or "raw"
+        logger.info(f"weight-plane prefetch v{version}: {stats['total_bytes']} bytes in "
+                    f"{stats['fetch_s']:.3f}s (origin {stats['bytes_from_origin']}, peers "
+                    f"{stats['bytes_from_peers']}); still serving v{self.engine.version}")
+        if fetch_span is not None:
+            fetch_span.end(fetch_s=stats["fetch_s"], verify_s=stats["verify_s"],
+                           bytes_from_origin=stats["bytes_from_origin"],
+                           bytes_from_peers=stats["bytes_from_peers"])
+        return _json({"success": True,
+                      "transfer_ms": stats["fetch_s"] * 1000.0,
+                      "verify_ms": stats["verify_s"] * 1000.0,
+                      "bytes_from_origin": stats["bytes_from_origin"],
+                      "bytes_from_peers": stats["bytes_from_peers"],
+                      "n_chunks": stats["n_chunks"],
+                      "resumed_chunks": stats["resumed_chunks"]})
+
+    def _h_cutover_weights(self, headers, body: bytes, query=None) -> Response:
+        """Swap to the prefetched version: running requests are
+        interrupted (partial results return for the client's re-prefill),
+        the host buffer is staged on the device and the loop flips to it.
+        Measured end to end, apart from the transfer, and held against
+        the cutover budget."""
+        faults.maybe_fail("gserver.cutover_weights")
+        d = json.loads(body)
+        version = int(d["version"])
+        budget_s = float(d.get("budget_s") or 0.0)
+        cut_span = tracing.start_span("server.weight_cutover", ctx=tracing.extract_from(d),
+                                      version=version, n_running=self.engine.n_running)
+        with self._wp_lock:
+            store = self._wp_store
+            if store is None or store.version != version or self._wp_state != "ready":
+                if cut_span is not None:
+                    cut_span.end(error="not holding")
+                return _json({"success": False,
+                              "error": f"not holding v{version} (state={self._wp_state})"}, 409)
+        n_running = self.engine.n_running
+        try:
+            params, v = assemble_params(store)
+            cut_s = self.engine.cutover_params(
+                params, version=v, allow_interrupt=bool(d.get("allow_interrupt", True)),
+                timeout_s=max(120.0, budget_s * 10.0))
+            del params
+        except Exception as e:
+            logger.exception("weight-plane cutover failed")
+            if cut_span is not None:
+                cut_span.end(error=repr(e))
+            return _json({"success": False, "error": repr(e)}, 500)
+        with self._wp_lock:
+            self._wp_cutover_ms = cut_s * 1000.0
+            # The exit record's split of kernel launches before and after
+            # the last cutover.
+            self._launches_at_cutover = dict(kernels.launches)
+        self._last_load_info = {"source": "weight_plane", "version": version,
+                                "load_s": self._wp_transfer_ms / 1000.0}
+        within = budget_s <= 0.0 or cut_s <= budget_s
+        if not within:
+            logger.warning(f"weight cutover v{version} took {cut_s:.3f}s, over the "
+                           f"{budget_s:.3f}s budget")
+        logger.info(f"weight-plane cutover to v{version}: {cut_s * 1000:.1f}ms "
+                    f"({n_running} request(s) interrupted)")
+        if cut_span is not None:
+            cut_span.end(cutover_s=cut_s, within_budget=within, n_paused=n_running)
+        return _json({"success": True, "cutover_ms": cut_s * 1000.0,
+                      "transfer_ms": self._wp_transfer_ms, "within_budget": within,
+                      "num_paused_requests": n_running})
+
+    def _h_weights_manifest(self, headers, body: bytes, query=None) -> Response:
+        with self._wp_lock:
+            store = self._wp_store
+        return serve_store_manifest(store, query or {})
+
+    def _h_weights_chunk(self, headers, body: bytes, query=None) -> Response:
+        """Peer hop: serve a verified chunk to a sibling, during this
+        server's own fetch too (deeper tree levels pipeline)."""
+        faults.maybe_fail("weight_plane.serve_chunk")
+        with self._wp_lock:
+            store = self._wp_store
+        resp, served = serve_store_chunk(store, query or {}, headers)
+        if served:
+            with self._wp_lock:
+                self._wp_chunks_served += 1
+                self._wp_bytes_served += served
+        return resp
+
     def _h_metrics(self, headers, body: bytes, query=None) -> Response:
         m = self.engine.metrics()
         snap = self.engine.latency_snapshot()
@@ -1235,18 +1461,19 @@ class GenerationServer(Worker):
             f"{self._last_load_info['load_s'] if self._last_load_info else 0.0}",
             f"areal:weight_load_fast_path "
             f"{1.0 if (self._last_load_info or {}).get('source') == 'shm_raw' else 0.0}",
-            # The weight plane is not ported: its lines read what a
-            # reference server that never used it reads.
-            f"areal:weight_transfer_ms {0.0}",
-            f"areal:weight_cutover_ms {0.0}",
-            f"areal:weight_verify_ms {0.0}",
-            f"areal:weight_bytes_from_origin {0.0}",
-            f"areal:weight_bytes_from_peers {0.0}",
-            f"areal:weight_chunks_served {0.0}",
-            f"areal:weight_bytes_served {0.0}",
-            f"areal:weight_expected_bytes {0.0}",
-            f"areal:weight_ingress_payload_equivalents {0.0}",
-            "areal:weight_wire raw",
+            # The weight plane: transfer (overlaps serving) and cutover
+            # (the interrupt + swap window) are separate numbers.
+            f"areal:weight_transfer_ms {self._wp_transfer_ms}",
+            f"areal:weight_cutover_ms {self._wp_cutover_ms}",
+            f"areal:weight_verify_ms {self._wp_verify_ms}",
+            f"areal:weight_bytes_from_origin {float(self._wp_bytes_from_origin)}",
+            f"areal:weight_bytes_from_peers {float(self._wp_bytes_from_peers)}",
+            f"areal:weight_chunks_served {float(self._wp_chunks_served)}",
+            f"areal:weight_bytes_served {float(self._wp_bytes_served)}",
+            f"areal:weight_expected_bytes {float(self._wp_expected_bytes)}",
+            f"areal:weight_ingress_payload_equivalents {self._wp_ingress_eq}",
+            f"areal:weight_wire {self._wp_wire}",
+            # Weight shards are refused at boot: never sharded.
             "areal:weight_shard -",
         ]
         return _text("\n".join(lines) + "\n")
@@ -1304,24 +1531,34 @@ class GenerationServer(Worker):
     def _write_exit_record(self):
         """What this process did on its device, for the launcher to read
         after the run: its weight version, the port's kernel launches, the
-        peak device memory, the engine's metrics and the handoff counters.
+        peak device memory and host RSS, the engine's metrics, the handoff
+        counters and the weight plane's last transfer.
         /metrics keeps the reference's lines only, so these travel in a file:
         ``<log path>/exit_records/<worker name>.json``."""
-        import torch
+        import resource
 
-        from areal_tpu_torch import kernels
+        import torch
 
         dev = self.engine.device
         record = {
             "worker": self.worker_name,
             "version": self.engine.version,
             "launches": dict(kernels.launches),
+            "launches_at_cutover": dict(self._launches_at_cutover),
             "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
                                   if dev.type == "cuda" else 0),
             "metrics": self.engine.metrics(),
             "handoff": {"ok": self._handoff_ok, "failed": self._handoff_failed,
                         "fallback": self._handoff_fallback,
                         "last_transfer_ms": self._last_kv_transfer_ms},
+            # ru_maxrss is in KiB on Linux.
+            "max_rss_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
+            "weight_plane": {"transfer_ms": self._wp_transfer_ms,
+                             "verify_ms": self._wp_verify_ms,
+                             "cutover_ms": self._wp_cutover_ms,
+                             "bytes_from_origin": self._wp_bytes_from_origin,
+                             "bytes_from_peers": self._wp_bytes_from_peers,
+                             "bytes_served": self._wp_bytes_served, "wire": self._wp_wire},
         }
         write_exit_record(self.cfg.experiment_name, self.cfg.trial_name,
                           self.worker_name, record)

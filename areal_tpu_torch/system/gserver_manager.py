@@ -29,9 +29,17 @@ A singleton worker that:
   dump out to every healthy server with ``/update_weights_from_disk``
   (``allow_interrupt``, ``version``), quorum-based: a server that fails
   the update is evicted;
+- with ``weight_plane``, fans it out over the weight-distribution plane
+  instead: a degree-bounded peer tree (``weight_fanout_degree``) from
+  the origin (the trainer's registered source, else one this manager
+  starts over the dump dir), wave by wave with ``/distribute_weights``,
+  an edge whose parent failed re-parented onto a holder (the origin
+  last), then every holder's ``/cutover_weights`` at once; the
+  ``weight_wire_dtype`` stream when the dump has it, else the raw one;
 - evicts servers whose heartbeat dies or that a client reports failed,
-  and readmits a returning one after re-syncing it to the current
-  version;
+  and readmits a returning one after bringing it to the current version
+  (over the plane from peers that hold it, the origin last, or with
+  ``/update_weights_from_disk``);
 - logs the fleet's generation throughput from the servers' ``/metrics``.
 
 The JSON bodies of every route are the reference's, so a port manager
@@ -40,9 +48,9 @@ fronts reference servers and a reference client reaches a port manager.
 Not ported, each refused at ``configure`` when set: autoscaling
 (``autoscale``, which needs a launcher), the elastic fleet and its HA
 lease (``elastic_fleet``, ``standby``; so a drained server that leaves
-is evicted as missed heartbeats, not removed), the weight plane
-(``weight_plane``, ``weight_wire_dtype``), multi-model pools
-(``multi_model``) and the gateway's tenant rows. The per-peer circuit
+is evicted as missed heartbeats, not removed), multi-model pools
+(``multi_model``) and the gateway's tenant rows; the plane fans out to
+unsharded servers only (shard streams wait for multi-device). The per-peer circuit
 breakers are not ported either: a client-reported failure evicts the
 server.
 
@@ -69,7 +77,7 @@ from aiohttp import web
 
 from areal_tpu_torch.api.system_api import GserverManagerConfig
 from areal_tpu_torch.base import (
-    constants, health, logging, name_resolve, names, network, tracing)
+    constants, health, logging, name_resolve, names, network, rpc, tracing)
 from areal_tpu_torch.base.fault_injection import faults
 from areal_tpu_torch.system.worker_base import PollResult, Worker
 
@@ -97,15 +105,13 @@ def _refuse_unported(config: GserverManagerConfig):
         "autoscale": config.autoscale,
         "elastic_fleet": config.elastic_fleet,
         "standby": config.standby,
-        "weight_plane": config.weight_plane,
-        "weight_wire_dtype": config.weight_wire_dtype is not None,
         "multi_model": config.multi_model,
     }
     bad = [k for k, v in refused.items() if v]
     if bad:
         raise NotImplementedError(
             f"the port's gserver manager does not support {bad} yet (ROADMAP "
-            f"Queue A items 2.3 and 4): leave them off")
+            f"Queue A item 4): leave them off")
 
 
 class GserverManager(Worker):
@@ -201,6 +207,10 @@ class GserverManager(Worker):
         )
         self._rollout_seen: set = set()
         self._last_health_poll = 0.0
+        # Weight plane: the origin this manager started when no trainer
+        # source is registered, and the last tree fanout for /status.
+        self._own_source = None
+        self._wp_last: Dict = {}
 
         self._http_loop = asyncio.new_event_loop()
         # Prime the staleness-gate snapshot before /allocate_rollout can
@@ -526,6 +536,76 @@ class GserverManager(Worker):
                 self._server_versions[url] = target_v
         return ok
 
+    def _bootstrap_server(self, url: str) -> bool:
+        """Bring a returning server to the current weight version before
+        it re-enters rotation: over the plane from peers that hold it (the
+        origin last) when the plane is armed, else by the disk re-sync.
+        False keeps it evicted until the next health poll."""
+        if self.weight_version <= 0:
+            return True
+        if self.cfg.weight_plane:
+            try:
+                return self._plane_bootstrap(url)
+            except Exception:
+                logger.warning(f"plane bootstrap of {url} failed; staying evicted",
+                               exc_info=True)
+                return False
+        return self._resync_server(url)
+
+    def _plane_bootstrap(self, url: str) -> bool:
+        """One server's weight bootstrap over the plane: the manifest and
+        chunks from healthy peers at the current version (their stores
+        outlive the cutover for this), the origin last, then a cutover."""
+        from areal_tpu_torch.engine.weight_client import fetch_manifest
+
+        version = self.weight_version
+        with self._lock:
+            holders = [u for u in self._healthy_urls()
+                       if u != url and self._server_versions.get(u, 0) == version]
+        origin = self._weight_plane_origin(self._current_param_path())
+        man = None
+        if self.cfg.join_bootstrap != "origin":
+            for h in holders:
+                try:
+                    man = fetch_manifest(h, version=version, timeout=5.0,
+                                         wire=self.cfg.weight_wire_dtype)
+                    break
+                except Exception:
+                    continue
+        if man is None:
+            if origin is None:
+                logger.warning(f"bootstrap of {url}: no peer holds v{version} and no plane "
+                               f"origin is reachable; retrying next poll")
+                return False
+            man = self._fetch_plane_manifest(origin, version)
+        upstreams = ([origin] if origin else []) if self.cfg.join_bootstrap == "origin" \
+            else holders[:3] + ([origin] if origin else [])
+        payload = {"version": version, "manifest": man, "upstreams": upstreams,
+                   "origin": origin, "deadline_s": self.cfg.flush_request_timeout}
+        cut_total = self._cutover_timeout()
+
+        async def _push():
+            async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(
+                    total=self.cfg.flush_request_timeout + cut_total)) as sess:
+                _, ok, body = await self._post_distribute(
+                    sess, url, upstreams[0] if upstreams else "", payload, None)
+                if not ok:
+                    return False, body
+                _, ok2, body2 = await self._post_cutover(sess, url, version, None)
+                return ok2, {**body, **body2}
+
+        fut = asyncio.run_coroutine_threadsafe(_push(), self._http_loop)
+        ok, body = self._await_fut(fut, self.cfg.flush_request_timeout + cut_total + 10)
+        if not ok:
+            logger.warning(f"plane bootstrap of {url} rejected: {body}")
+            return False
+        with self._lock:
+            self._server_versions[url] = version
+        logger.info(f"plane bootstrap of {url} to v{version}: "
+                    f"{float(body.get('bytes_from_peers') or 0.0):.0f} bytes from peers, "
+                    f"{float(body.get('bytes_from_origin') or 0.0):.0f} from the origin")
+        return True
+
     def _poll_health(self):
         """Fold the health registry into the healthy/evicted split:
         heartbeat loss evicts, heartbeat return (after a weight re-sync)
@@ -560,7 +640,7 @@ class GserverManager(Worker):
                     if u in alive_urls and u not in self._draining]:
             self._beat()
             if (self._server_versions.get(url, 0) >= self.weight_version
-                    or self._resync_server(url)):
+                    or self._bootstrap_server(url)):
                 self._readmit(url)
         # A rollout worker whose heartbeat died can never finish its
         # episodes: give its outstanding slots back.
@@ -764,6 +844,10 @@ class GserverManager(Worker):
                     "per_server": dict(self._server_shed_total),
                 },
                 "affinity_entries": len(self._affinity),
+                # The last tree fanout: per-server transfer and cutover
+                # ms, the tree, and its evictions. Empty when the plane
+                # is off.
+                "weight_plane": dict(self._wp_last),
             }
         return web.json_response(status)
 
@@ -958,7 +1042,11 @@ class GserverManager(Worker):
     def flush_requests_and_update_weights(self, path: str):
         """Quorum-based fanout: push the new version to every healthy
         server; the step proceeds when at least one succeeds, and the
-        failed ones are evicted (they re-sync on readmission)."""
+        failed ones are evicted (they re-sync on readmission). With the
+        weight plane armed this is the tree fanout instead."""
+        origin = self._weight_plane_origin(path)
+        if origin is not None:
+            return self._plane_update_weights(origin)
         t_start = time.monotonic()
         targets = self._healthy_urls()
         if not targets:
@@ -1019,6 +1107,229 @@ class GserverManager(Worker):
                 f"all servers updated to weight version {self._new_version} "
                 f"in {self.last_weight_sync_s:.3f}s "
                 f"(loads: {', '.join(f'{s} {t:.3f}s' for s, t in load_stats)})")
+
+    # ------------------------------------------------------------------
+    # Weight-distribution plane (system/weight_plane.py)
+    # ------------------------------------------------------------------
+
+    def _cutover_timeout(self) -> float:
+        """A client timeout above the server's own cutover timeout
+        (max(120, budget * 10)): timing out first would evict a server
+        whose slow cutover already serves the new version."""
+        return max(self.cfg.flush_request_timeout, 120.0,
+                   self.cfg.weight_cutover_budget_s * 10.0) + 10
+
+    def _weight_plane_origin(self, path: Optional[str]) -> Optional[str]:
+        """The plane's origin URL, or None when the plane is off: the
+        trainer-side source registered in name_resolve while it answers,
+        else a source this manager starts over the dump dir ``path`` (one
+        read of the dump here instead of one per server). The fallback
+        also covers the trainer's exit: the last version, which this
+        manager fans out after the trial completes, outlives its
+        source."""
+        import urllib.error
+        import urllib.request
+
+        if not self.cfg.weight_plane:
+            return None
+        try:
+            url = name_resolve.get(names.weight_plane_source(
+                self.cfg.experiment_name, self.cfg.trial_name, self.cfg.model_name))
+            with urllib.request.urlopen(f"{url}/weights/stats", timeout=5.0):
+                return url
+        except urllib.error.HTTPError:
+            return url  # it answers
+        except (name_resolve.NameEntryNotFoundError, OSError):
+            pass
+        if self._own_source is None:
+            if path is None:
+                return None  # no source and no dump: peers only
+            from areal_tpu_torch.system.weight_plane import WeightPlaneSource
+
+            self._own_source = WeightPlaneSource(
+                path, chunk_bytes=self.cfg.weight_chunk_bytes, host=network.gethostip()).start()
+            logger.info(f"weight plane: no trainer-side source registered for "
+                        f"{self.cfg.model_name!r}; manager-hosted origin at "
+                        f"{self._own_source.address} over {path}")
+        return self._own_source.address
+
+    def _fetch_plane_manifest(self, origin: str, version: int) -> Dict:
+        """The pinned-version manifest from the origin, retried briefly
+        (the version's publication can race the dump). With
+        ``weight_wire_dtype`` armed it asks for that stream; a definitive
+        404 for it, with the raw stream of the version there, proves the
+        dump has no such wire, and the raw stream is used instead."""
+        import urllib.error
+
+        from areal_tpu_torch.engine.weight_client import fetch_manifest
+
+        wire = self.cfg.weight_wire_dtype
+        deadline = time.monotonic() + 15.0
+        while True:
+            try:
+                return fetch_manifest(origin, version=version, timeout=5.0, wire=wire)
+            except Exception as e:
+                if (wire is not None and isinstance(e, urllib.error.HTTPError)
+                        and e.code == 404):
+                    try:
+                        man = fetch_manifest(origin, version=version, timeout=5.0)
+                        logger.warning(f"weight plane: no {wire!r}-wire stream for "
+                                       f"v{version}; falling back to the raw wire")
+                        return man
+                    except Exception:
+                        pass  # the dump is still landing: retry the wire
+                if time.monotonic() > deadline:
+                    raise
+                time.sleep(0.2)
+
+    async def _post_distribute(self, sess, url, parent, payload, span):
+        edge_span = tracing.start_span("manager.weight_update.fetch",
+                                       ctx=span.ctx if span else None, server=url,
+                                       parent=parent)
+        try:
+            # The hop inherits the wave's budget as its deadline.
+            dl = rpc.Deadline.after(self.cfg.flush_request_timeout)
+            async with sess.post(
+                    f"{url}/distribute_weights", headers=dl.headers(),
+                    json=tracing.inject_ctx_into(
+                        dict(payload),
+                        edge_span.ctx if edge_span else (span.ctx if span else None))) as r:
+                body = await r.json()
+            ok = bool(body.get("success"))
+        except Exception as e:
+            ok, body = False, {"error": repr(e)}
+        if edge_span is not None:
+            edge_span.end(ok=ok, transfer_ms=float(body.get("transfer_ms") or 0.0),
+                          verify_ms=float(body.get("verify_ms") or 0.0))
+        return url, ok, body
+
+    async def _post_cutover(self, sess, url, version, span):
+        cut_span = tracing.start_span("manager.weight_update.cutover",
+                                      ctx=span.ctx if span else None, server=url)
+        try:
+            dl = rpc.Deadline.after(self.cfg.flush_request_timeout)
+            async with sess.post(
+                    f"{url}/cutover_weights", headers=dl.headers(),
+                    json=tracing.inject_ctx_into(
+                        {"version": version, "allow_interrupt": True,
+                         "budget_s": self.cfg.weight_cutover_budget_s},
+                        cut_span.ctx if cut_span else (span.ctx if span else None))) as r:
+                body = await r.json()
+            ok = bool(body.get("success"))
+        except Exception as e:
+            ok, body = False, {"error": repr(e)}
+        if cut_span is not None:
+            cut_span.end(ok=ok, cutover_ms=float(body.get("cutover_ms") or 0.0),
+                         within_budget=bool(body.get("within_budget", True)))
+        return url, ok, body
+
+    def _plane_update_weights(self, origin: str):
+        """Tree fanout over the plane, wave by wave. An edge whose planned
+        parent failed is re-parented onto a server that holds the version
+        (the origin last), so a dead peer costs its subtree a hop, not an
+        origin upload. Once the transfer is done every holder cuts over at
+        once: one short interrupt window a server, measured apart from
+        the transfer."""
+        from areal_tpu_torch.system.weight_plane import plan_fanout
+
+        faults.maybe_fail("manager.plane_fanout")
+        t_start = time.monotonic()
+        version = self._new_version
+        targets = self._healthy_urls()
+        if not targets:
+            raise RuntimeError("weight-plane fanout: no healthy generation servers")
+        fanout_span = tracing.start_span("manager.weight_update", version=version,
+                                         n_targets=len(targets), plane=True)
+        successes: List[str] = []
+        failures: Dict[str, str] = {}
+        transfer_ms: Dict[str, float] = {}
+        cutover_ms: Dict[str, float] = {}
+        ready: List[str] = []
+        try:
+            man = self._fetch_plane_manifest(origin, version)
+            waves = plan_fanout(origin, targets, self.cfg.weight_fanout_degree)
+
+            async def _run_wave(wave):
+                # Headroom over the servers' fetch deadline (deadline_s): a
+                # transfer that ends just inside it must not be timed out
+                # here and its ready server evicted.
+                async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(
+                        total=self.cfg.flush_request_timeout + 10)) as sess:
+                    tasks = []
+                    for url, parent in wave:
+                        eff = parent
+                        if eff != origin and eff not in ready:
+                            eff = ready[0] if ready else origin
+                        upstreams = ([eff] + [u for u in ready if u != eff][:2]
+                                     + ([origin] if eff != origin else []))
+                        tasks.append(self._post_distribute(
+                            sess, url, eff,
+                            {"version": version, "manifest": man, "upstreams": upstreams,
+                             "origin": origin, "deadline_s": self.cfg.flush_request_timeout},
+                            fanout_span))
+                    return await asyncio.gather(*tasks)
+
+            for wave in waves:
+                self._beat()  # a wave can take a whole transfer
+                fut = asyncio.run_coroutine_threadsafe(_run_wave(wave), self._http_loop)
+                for url, ok, body in self._await_fut(fut, self.cfg.flush_request_timeout + 20):
+                    if ok:
+                        ready.append(url)
+                        transfer_ms[url] = float(body.get("transfer_ms") or 0.0)
+                    else:
+                        failures[url] = f"prefetch failed: {body}"
+            if not ready:
+                raise RuntimeError(f"weight plane v{version}: no server prefetched: {failures}")
+            cut_total = self._cutover_timeout()
+
+            async def _run_cutovers():
+                async with aiohttp.ClientSession(
+                        timeout=aiohttp.ClientTimeout(total=cut_total)) as sess:
+                    return await asyncio.gather(*[
+                        self._post_cutover(sess, u, version, fanout_span) for u in ready])
+
+            self._beat()
+            fut = asyncio.run_coroutine_threadsafe(_run_cutovers(), self._http_loop)
+            for url, ok, body in self._await_fut(fut, cut_total + 10):
+                if ok:
+                    successes.append(url)
+                    cutover_ms[url] = float(body.get("cutover_ms") or 0.0)
+                else:
+                    failures[url] = f"cutover failed: {body}"
+            if not successes:
+                raise RuntimeError(f"weight plane v{version}: no server cut over: {failures}")
+        finally:
+            if fanout_span is not None:
+                fanout_span.end(n_success=len(successes), n_failed=len(failures))
+        for u, reason in failures.items():
+            self._mark_unhealthy(u, f"weight plane: {reason}")
+        with self._lock:
+            self.weight_version = version
+            for u in successes:
+                self._server_versions[u] = version
+            self.last_weight_sync_s = time.monotonic() - t_start
+            self._wp_last = {
+                "version": version,
+                "model": self.cfg.model_name,
+                "origin": origin,
+                "tree": [[[u, p] for u, p in w] for w in waves],
+                "total_bytes": int(man["total_bytes"]),
+                "n_chunks": int(man["n_chunks"]),
+                "wire": man.get("wire", "raw"),
+                "groups": {"0/1": {"servers": list(targets),
+                                   "shard_bytes": int(man["total_bytes"]),
+                                   "n_chunks": int(man["n_chunks"])}},
+                "transfer_ms": dict(transfer_ms),
+                "cutover_ms": dict(cutover_ms),
+                "failures": dict(failures),
+                "sync_s": self.last_weight_sync_s,
+            }
+        (logger.warning if failures else logger.info)(
+            f"weight plane v{version}: {len(successes)}/{len(targets)} servers in "
+            f"{self.last_weight_sync_s:.3f}s (transfer max "
+            f"{max(transfer_ms.values(), default=0):.1f}ms, cutover max "
+            f"{max(cutover_ms.values(), default=0):.1f}ms"
+            + (f"; evicted {sorted(failures)}" if failures else "") + ")")
 
     def _last_fanout(self):
         """At COMPLETE, fan out a version the trainer published after
@@ -1178,6 +1489,8 @@ class GserverManager(Worker):
 
     def _exit_hook(self):
         try:
+            if getattr(self, "_own_source", None) is not None:
+                self._own_source.close()
             self._http_loop.call_soon_threadsafe(self._http_loop.stop)
             self._http_thread.join(timeout=5)
         except Exception:

@@ -22,8 +22,9 @@ Not ported yet, each refused with ``NotImplementedError``: the "save",
 "ckpt", "restore" and "evaluate" handlers and hooks, "offload", the
 "generate" MFC, the param-realloc target branch (weights loaded from
 another replica), dataset loaders (``datasets`` without
-``stream_dataset``), the multi-host train group, the weight plane and
-its int8 wire. Per-prompt ``scores`` in an MFC's output merge into the
+``stream_dataset``) and the multi-host train group. With
+``weight_plane`` the dump rank serves its dumps as the weight plane's
+origin (system/weight_plane.py). Per-prompt ``scores`` in an MFC's output merge into the
 shared eval-score file (``system/eval_scores.py``), as in the reference.
 """
 
@@ -52,6 +53,7 @@ from areal_tpu_torch.base import (
     monitor,
     name_resolve,
     names,
+    network,
     seeding,
     stats_tracker,
     tracing,
@@ -87,13 +89,12 @@ class ModelWorker(Worker):
             "datasets without stream_dataset (the rollout slice's dataset loaders)":
                 bool(config.datasets) and not config.stream_dataset,
             "train_n_hosts > 1 (Queue A item 7)": int(config.train_n_hosts or 1) > 1,
-            "weight_plane (Queue A item 2.3)": bool(config.weight_plane),
-            "weight_wire_dtype (Queue A item 2.3)": config.weight_wire_dtype is not None,
         }
         bad = [k for k, v in refused.items() if v]
         if bad:
             raise NotImplementedError(f"model worker options not ported yet: {bad}")
         self.cfg = config
+        self._wp_sources: Dict[str, Any] = {}
         self.device = resolve_device(config.device)
         constants.set_experiment_trial_names(
             config.experiment_name, config.trial_name
@@ -295,8 +296,11 @@ class ModelWorker(Worker):
         writes the raw dump of its params, stamped with `model.version`
         (the value `_publish_version` announces next; a generation server
         verifies that the dump it loads holds the version it asked for),
-        then `step.txt` with the global step, and returns the dump's
-        seconds. Only the disk dump is written (no tmpfs mirror)."""
+        with its chunk index at the plane's chunk size and, with
+        `weight_wire_dtype`, the int8 companion; with `weight_plane` it
+        serves the dump dir as the plane's origin; then it writes
+        `step.txt` with the global step and returns the dump's seconds.
+        Only the disk dump is written (no tmpfs mirror)."""
         from areal_tpu_torch.system.weight_transfer import dump_raw_params
 
         src, dst = hook.get("source"), hook.get("target")
@@ -312,16 +316,34 @@ class ModelWorker(Worker):
             constants.get_param_realloc_path(self.cfg.experiment_name, self.cfg.trial_name),
             role,
         )
-        dump_s = dump_raw_params(model.module.get_params(), d, version=model.version)
+        dump_s = dump_raw_params(model.module.get_params(), d, version=model.version,
+                                 chunk_bytes=self.cfg.weight_chunk_bytes,
+                                 wire_dtype=self.cfg.weight_wire_dtype)
         logger.info(
             f"param_realloc dump for {role} step {step}: raw dump "
             f"v{model.version} {dump_s:.3f}s"
         )
+        if self.cfg.weight_plane:
+            self._ensure_weight_plane_source(role, d)
         tmp = os.path.join(d, "step.txt.tmp")
         with open(tmp, "w") as f:
             f.write(str(step))
         os.replace(tmp, os.path.join(d, "step.txt"))
         return dump_s
+
+    def _ensure_weight_plane_source(self, role: str, dump_dir: str):
+        """Start (once per role) the trainer-side origin of the weight
+        plane over the role's dump dir and register its URL for the
+        manager."""
+        if role in self._wp_sources:
+            return
+        from areal_tpu_torch.system.weight_plane import WeightPlaneSource
+
+        src = WeightPlaneSource(dump_dir, chunk_bytes=self.cfg.weight_chunk_bytes,
+                                host=network.gethostip()).start()
+        src.register(self.cfg.experiment_name, self.cfg.trial_name, role)
+        self._wp_sources[role] = src
+        logger.info(f"weight-plane source for {role} at {src.address} over {dump_dir}")
 
     # ------------------------------------------------------------------
 
@@ -357,6 +379,8 @@ class ModelWorker(Worker):
 
     def _exit_hook(self):
         try:
+            for src in self._wp_sources.values():
+                src.close()
             self.stream.close()
             self.data_manager.close()
             if self._dataset is not None:

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--out report.json] [--profile-serving]
         [--phases build,parity,serve_bf16,serve_int8,interrupt,http,grad,train,workers,
-                  async_ppo,disagg]
+                  async_ppo,disagg,weight_plane]
 
 Phases (every one must pass; the script exits nonzero on the first that
 fails, and on a machine without CUDA):
@@ -65,15 +65,17 @@ fails, and on a machine without CUDA):
                  pool, 16 slots x 4096 tokens), the gserver manager, a
                  rollout worker running the math agent and env over a
                  seeded prompt set under a tiny tokenizer, and a model
-                 worker training the actor at full width and depth (float32
-                 params, bf16 compute) for 2 steps at
+                 worker training the actor at full width and 7 of the 28
+                 layers (the weight_plane phase runs the loop at all 28;
+                 float32 params, bf16 compute) for 2 steps at
                  max_head_offpolicyness 1. The fanout must land versions
                  1 and 2 on the server, every trained sample must be within
                  the staleness bound, and launches of the forward and
                  paged_decode_bf16 in the server and of the forward, both
                  backward kernels and packed_gae_f32 in the model worker
                  must be > 0.
-11. disagg     - disaggregated serving at full width and depth: a prefill
+11. disagg     - disaggregated serving at full width and 14 of the 28
+                 layers (since PR 10, for the run's time limit): a prefill
                  server P (bf16 pool), decode servers D (bf16 pool, a KV
                  tier, a small prefix budget) and D8 (int8 pool), a
                  unified server U (the drain target) behind the gserver
@@ -93,6 +95,26 @@ fails, and on a machine without CUDA):
                  burst makes the sizer re-role U and routing follows.
                  Launches of the forward, paged_decode_bf16 and
                  paged_decode_int8 in the fleet must be > 0.
+12. weight_plane - the weight-distribution plane at full width and
+                 depth: (a) this process dumps version 1 of perturbed
+                 float32 params with the int8 companion and serves it from
+                 a WeightPlaneSource registered as a trainer's; three
+                 GenerationServer processes behind a GserverManager with
+                 weight_plane=True at fanout degree 1 (the chain origin ->
+                 S0 -> S1 -> S2) serve a greedy wave while it fans out and
+                 cuts over: requests in flight come back interrupted and
+                 finish on version 1, each server's greedy tokens equal an
+                 engine's on the dumped params, the origin sends one
+                 payload and the peers two; (b) version 2 on the int8 wire
+                 to two servers by /distribute_weights and /cutover_weights:
+                 the held leaves equal dequantize_wire_leaf(
+                 quantize_wire_leaf(x)) bit for bit and the greedy tokens an
+                 engine's on them; (c) the async RL loop of phase 10 at 28
+                 layers with gen_weight_plane=true, two servers at fanout
+                 degree 1: versions 1 and 2 land on both through the plane.
+                 The forward and paged_decode_bf16 must launch on every
+                 server after its last cutover, and the loop's four kernels
+                 (forward, both backward kernels, packed_gae_f32) > 0.
 
 Before the last line it prints the card's name and power limit (as
 nvidia-smi reports them) and one {"kernels": [...]} JSON line; the last
@@ -151,7 +173,7 @@ GAE_PLAN_SHAPES = ((64, 4096), (4096, 4096), (66, 8192), (66, 16384), (132, 1638
 # compute end to end: per leaf, against the leaf's largest reference value.
 LEAF_TOL = 5e-2
 PHASES = ("build", "parity", "serve_bf16", "serve_int8", "interrupt", "http", "grad", "train",
-          "workers", "async_ppo", "disagg")
+          "workers", "async_ppo", "disagg", "weight_plane")
 # The train phase at real size; a rehearsal on the CPU passes smaller ones.
 TRAIN_SIZES = dict(n_prompts=8, group=4, prompt=(128, 512), response=(256, 3072),
                    row_len=4096, max_tokens_per_mb=16384, n_minibatches=4,
@@ -2137,6 +2159,10 @@ ASYNC_SIZES = dict(n_prompts=64, prompt=(256, 1024), train_batch_size=8, group=4
                    max_new_tokens=256, offpolicy=1, steps=2, slots=16, max_seq_len=4096,
                    row_len=4096, max_tokens_per_mb=16384, n_minibatches=4, words=400)
 ASYNC_TIMEOUT_S = 900.0
+# The async_ppo phase's depth since PR 10 (the weight_plane phase runs the
+# loop at all 28 layers), and the disagg phase's: cut to keep the default
+# run inside its time limit.
+ASYNC_LAYERS = 7
 
 
 def tiny_tokenizer(rng, save_dir, n_words):
@@ -2195,12 +2221,15 @@ def read_trace(trace_dir):
     return out
 
 
-def async_ppo_phase(torch, rng, dev, cfg, seed, card, sizes=ASYNC_SIZES, disagg=False):
+def async_ppo_phase(torch, rng, dev, cfg, seed, card, sizes=ASYNC_SIZES, disagg=False,
+                    plane=None):
     """The async RL loop through the port's entry point,
     areal_tpu_torch.training.main_async_ppo.main(argv), with the
     reference's override keys: a GenerationServer (with ``disagg``, a
     prefill and a decode server with a KV tier, the prefix cache and the
-    manager's prefix index, every rollout handed off), the gserver manager,
+    manager's prefix index, every rollout handed off; with ``plane``, two
+    servers fed by the weight plane, ``gen_weight_plane=true`` at fanout
+    degree 1 on ``plane["wire"]``), the gserver manager,
     a rollout worker running the math agent and env, and a model worker
     training the actor (loaded with the server from an HF directory of
     seeded random weights and the tiny tokenizer) on the pushed
@@ -2268,6 +2297,11 @@ def async_ppo_phase(torch, rng, dev, cfg, seed, card, sizes=ASYNC_SIZES, disagg=
             argv += ["gen_server_roles=prefill,decode", "gen_kv_tier_mb=64",
                      f"gen_prefix_cache_tokens={sizes['slots'] * sizes['max_seq_len']}",
                      "gen_kv_index_size=4096"]
+        if plane is not None:
+            servers.append("generation_server/1")
+            argv += ["gen_weight_plane=true", "gen_weight_fanout=1"]
+            if plane.get("wire"):
+                argv.append(f"gen_weight_wire_dtype={plane['wire']}")
         argv.append(f"n_generation_servers={len(servers)}")
         log(f"  main_async_ppo {' '.join(argv)}")
         os.environ.update(env)
@@ -2293,9 +2327,12 @@ def async_ppo_phase(torch, rng, dev, cfg, seed, card, sizes=ASYNC_SIZES, disagg=
                         if r["name"] == "manager.weight_update"
                         and r["attrs"].get("n_success", 0) >= 1)
         want = list(range(1, sizes["steps"] + 1))
+        # A disk update's span carries its source, a plane cutover its window.
+        landed_span, landed_attr = (("server.weight_cutover", "cutover_s") if plane is not None
+                                    else ("server.weight_update", "source"))
         for name in servers:
             served = sorted(int(r["attrs"]["version"]) for r in spans.get(name, [])
-                            if r["name"] == "server.weight_update" and "source" in r["attrs"])
+                            if r["name"] == landed_span and landed_attr in r["attrs"])
             if landed != want or served != want:
                 raise AssertionError(f"async_ppo: fanout landed versions {landed}, {name} "
                                      f"loaded {served}, want {want}")
@@ -2323,6 +2360,39 @@ def async_ppo_phase(torch, rng, dev, cfg, seed, card, sizes=ASYNC_SIZES, disagg=
             with open(exit_record_path(exp, trial, name)) as f:
                 records.append(json.load(f))
         srv = records[0]
+        if plane is not None:
+            srv = dict(records[0], launches={
+                k: sum(r["launches"][k] for r in records) for k in records[0]["launches"]},
+                peak_memory_bytes=max(r["peak_memory_bytes"] for r in records),
+                metrics={k: sum(r["metrics"].get(k, 0.0) for r in records)
+                         for k in ("total_generated", "last_weight_stage_s",
+                                   "last_weight_swap_s")})
+            fetches = {name: [r["attrs"] for r in spans.get(name, [])
+                              if r["name"] == "server.weight_fetch" and "fetch_s" in r["attrs"]]
+                       for name in servers}
+            stats["plane"] = dict(
+                wire=plane.get("wire") or "raw",
+                fetch_s={n: [a["fetch_s"] for a in f] for n, f in fetches.items()},
+                verify_s={n: [a["verify_s"] for a in f] for n, f in fetches.items()},
+                bytes_from_origin={n: [a["bytes_from_origin"] for a in f]
+                                   for n, f in fetches.items()},
+                bytes_from_peers={n: [a["bytes_from_peers"] for a in f]
+                                  for n, f in fetches.items()},
+                cutover_s={n: [r["attrs"]["cutover_s"] for r in spans.get(n, [])
+                               if r["name"] == "server.weight_cutover"
+                               and "cutover_s" in r["attrs"]] for n in servers},
+                max_rss_gb={n: r["max_rss_bytes"] / 1e9 for n, r in zip(servers, records)})
+            # Degree 1 over two servers is the chain origin -> S0 -> S1:
+            # every version's second hop is peer to peer.
+            peer_in = [sum(f[i] for f in stats["plane"]["bytes_from_peers"].values())
+                       for i in range(sizes["steps"])]
+            if any(f != sizes["steps"] for f in map(len, fetches.values())) or min(peer_in) <= 0:
+                raise AssertionError(f"async_ppo: plane fetches {stats['plane']}")
+            log(f"  weight plane: fetch s {stats['plane']['fetch_s']}, verify s "
+                f"{stats['plane']['verify_s']}, cutover s {stats['plane']['cutover_s']}, "
+                f"bytes from the origin {stats['plane']['bytes_from_origin']}, from peers "
+                f"{stats['plane']['bytes_from_peers']}; host RSS GB "
+                f"{stats['plane']['max_rss_gb']}")
         if disagg:
             srv = dict(records[0], launches={
                 k: sum(r["launches"][k] for r in records) for k in records[0]["launches"]},
@@ -2408,6 +2478,7 @@ DISAGG_SIZES = dict(wave=16, prompt=(1025, 3072), new=128, cont=6, fresh=64, con
                     tier_mb=4096, bytes_prompt=1024, burst=32, burst_prompt=3000,
                     burst_new=32, rerole_high=16384)
 DISAGG_TIMEOUT_S = 300.0
+DISAGG_LAYERS = 14
 
 
 def http_raw(url, headers=None, timeout=120.0):
@@ -2947,6 +3018,385 @@ def disagg_phase(torch, rng, dev, cfg, seed, card, sizes=DISAGG_SIZES):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ----------------------------------------------------------------------
+# Phase 12: the weight-distribution plane
+# ----------------------------------------------------------------------
+
+# The serving configuration behind the plane; the in-flight wave (two
+# client threads a server, 256 greedy tokens a request), the greedy
+# checks, and the plane's 8 MiB chunks.
+PLANE_SIZES = dict(slots=16, max_seq_len=4096, page=128, chunk=1024, wave_threads=2,
+                   wave_prompt=(256, 1024), wave_new=256, resume_new=16,
+                   greedy_lens=(300, 1200), greedy_new=32, chunk_bytes=8 << 20)
+PLANE_TIMEOUT_S = 600.0
+
+
+def greedy_tokens(torch, engine_or_url, cfg, reqs, dev=None, sz=PLANE_SIZES):
+    """{qid: greedy output ids}, one request at a time, from a server URL
+    over HTTP or from a ServingEngine built here on `engine_or_url` (a
+    param tree) with the server's configuration."""
+    from areal_tpu_torch.engine.serving import GenRequest, ServingEngine
+
+    out = {}
+    if isinstance(engine_or_url, str):
+        for r in reqs:
+            status, _, reply = http_call(engine_or_url, "/generate", generate_body(r))
+            if status != 200:
+                raise AssertionError(f"weight_plane: /generate {r.qid}: {status} {reply}")
+            out[r.qid] = (reply["output_ids"], reply["version_start"], reply["version_end"])
+        return out
+    engine = ServingEngine(cfg=cfg, params=engine_or_url, max_batch_size=sz["slots"],
+                           max_seq_len=sz["max_seq_len"], decode_block_steps=16,
+                           eos_token_id=None, page_size=sz["page"], prefill_chunk=sz["chunk"],
+                           device=dev)
+    engine.start()
+    try:
+        for r in reqs:
+            res, _ = run_requests(engine, [GenRequest(
+                qid=r.qid, input_ids=r.input_ids, max_new_tokens=r.max_new_tokens,
+                greedy=True, stop_token_ids=r.stop_token_ids)])
+            out[r.qid] = res[r.qid].output_ids
+    finally:
+        engine.stop()
+    return out
+
+
+def weight_plane_phase(torch, rng, dev, cfg, seed, card, sizes=PLANE_SIZES,
+                       loop_sizes=ASYNC_SIZES):
+    """The weight-distribution plane through the port's workers:
+
+    (a) this process dumps version 1 of perturbed float32 params
+        (``dump_raw_params(..., wire_dtype="int8")``: the raw bin with its
+        chunk and layout sidecars, then the int8 companion) and serves the
+        dump with a WeightPlaneSource registered as a trainer's; three
+        GenerationServer processes stand behind a GserverManager with
+        ``weight_plane=True`` at fanout degree 1 (the chain origin -> S0 ->
+        S1 -> S2), each serving a greedy wave while the fanout and the
+        cutover land: requests in flight come back interrupted and finish
+        on version 1; each server's greedy tokens then equal an engine's
+        here on the dumped params cast to bf16; the origin sends one
+        payload, the servers' ``weight_bytes_from_origin`` sum to one
+        payload and ``weight_bytes_from_peers`` to two;
+    (b) version 2 on the int8 wire, posted to S0 (from the origin) and S1
+        (from S0) with ``/distribute_weights`` and ``/cutover_weights``:
+        the leaves S0 holds assemble bit-equal to ``dequantize_wire_leaf(
+        quantize_wire_leaf(x))`` computed here, and both servers' greedy
+        tokens equal an engine's on those params;
+    (c) the async RL loop through ``main_async_ppo.main(argv)`` with
+        ``gen_weight_plane=true``, two servers at fanout degree 1
+        (``async_ppo_phase`` with ``plane``): versions 1 and 2 land on
+        both servers through the plane.
+
+    The forward and paged decode kernels must launch in every server
+    after its last cutover (the exit records split the counts there)."""
+    import shutil
+    import tempfile
+
+    from areal_tpu_torch.api.config import ModelAbstraction
+    from areal_tpu_torch.api.system_api import (
+        ExperimentConfig, GenerationServerConfig, GserverManagerConfig)
+    from areal_tpu_torch.base import constants, name_resolve, names
+    from areal_tpu_torch.engine import weight_client as wc
+    from areal_tpu_torch.engine.serving import GenRequest
+    from areal_tpu_torch.models.transformer import init_params
+    from areal_tpu_torch.system import weight_transfer as wt
+    from areal_tpu_torch.system.controller import LocalController
+    from areal_tpu_torch.system.generation_server import exit_record_path
+    from areal_tpu_torch.system.weight_plane import WeightPlaneSource
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_plane_")
+    exp, trial = os.path.basename(tmp), "plane"
+    env = {"AREAL_FILEROOT": os.path.join(tmp, "fileroot")}
+    saved_env = {k: os.environ.get(k) for k in env}
+    nr_cfg = {"backend": "nfs", "record_root": os.path.join(tmp, "name_resolve")}
+    name_resolve.reconfigure(**nr_cfg)
+    os.environ.update(env)
+    cb = sizes["chunk_bytes"]
+    stats = dict(card=card)
+    procs, src = {}, None
+    try:
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        base = init_params(cfg, seed=seed, device=dev, dtype=torch.float32)
+        params = perturbed(torch, base, seed + 21)
+        del base
+        dump_dir = os.path.join(constants.get_param_realloc_path(exp, trial), "actor")
+
+        def dump(tree, version):
+            wt.dump_raw_params(tree, dump_dir, version=version, chunk_bytes=cb, wire_dtype="int8")
+            d = dict(wt.LAST_DUMP_STATS)
+            out = dict(raw_s=d["seconds"] - d["wire_seconds"], int8_s=d["wire_seconds"],
+                       raw_bytes=d["total_bytes"], int8_bytes=d["wire_total_bytes"])
+            log(f"  dump v{version}: raw bin with its sidecars {out['raw_s']:.2f} s "
+                f"({out['raw_bytes'] / 1e9:.3f} GB), int8 companion {out['int8_s']:.2f} s "
+                f"({out['int8_bytes'] / 1e9:.3f} GB); {card}")
+            return out
+
+        stats["dump_v1"] = dump(params, 1)
+        src = WeightPlaneSource(dump_dir, chunk_bytes=cb).start().register(exp, trial, "actor")
+        V = cfg.vocab_size
+        reqs = [GenRequest(qid=f"g{i}", input_ids=rng.integers(0, V, n).tolist(),
+                           max_new_tokens=sizes["greedy_new"], greedy=True,
+                           stop_token_ids=(STOP_TOKEN,))
+                for i, n in enumerate(sizes["greedy_lens"])]
+        want1 = greedy_tokens(torch, cast_tree(params, torch.bfloat16), cfg, reqs, dev, sizes)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        # The fleet: three servers behind the manager, each a process.
+        model = ModelAbstraction("tpu_transformer", args=dict(config=dataclasses.asdict(cfg)))
+        configs = [GenerationServerConfig(
+            experiment_name=exp, trial_name=trial, server_index=i, model=model,
+            max_concurrent_requests=sizes["slots"], max_seq_len=sizes["max_seq_len"],
+            kv_page_size=sizes["page"], decode_block_steps=16, prefill_chunk=sizes["chunk"],
+            seed=seed, device=dev.type) for i in range(3)]
+        mgr_cfg = GserverManagerConfig(
+            experiment_name=exp, trial_name=trial, model_name="actor", n_servers=3,
+            train_batch_size=8, max_head_offpolicyness=8, weight_plane=True,
+            weight_fanout_degree=1, weight_chunk_bytes=cb,
+            flush_request_timeout=PLANE_TIMEOUT_S)
+        ctl = LocalController(ExperimentConfig(
+            experiment_name=exp, trial_name=trial, gserver_manager=mgr_cfg,
+            generation_servers=configs), name_resolve_cfg=nr_cfg, worker_env=env)
+        t0 = time.perf_counter()
+        ctl.start_workers()
+        procs = dict(zip([f"S{i}" for i in range(3)] + ["M"], ctl._procs))
+        url = {}
+        deadline = time.monotonic() + PLANE_TIMEOUT_S
+        while len(url) < 4:
+            for i, c in enumerate(configs):
+                try:
+                    url[f"S{i}"] = name_resolve.get(names.gen_server_url(exp, trial, str(i)))
+                except name_resolve.NameEntryNotFoundError:
+                    pass
+            try:
+                url["M"] = name_resolve.get(names.gen_server_manager(exp, trial))
+            except name_resolve.NameEntryNotFoundError:
+                pass
+            dead = [k for k, p in procs.items() if not p.is_alive()]
+            if dead or time.monotonic() > deadline:
+                raise AssertionError(f"weight_plane: fleet not up: dead {dead}, up {sorted(url)}")
+            time.sleep(0.2)
+        servers = sorted(url[f"S{i}"] for i in range(3))
+        name_of = {url[f"S{i}"]: f"S{i}" for i in range(3)}
+        stats["fleet_up_s"] = time.perf_counter() - t0
+
+        # (a) The wave in flight while version 1 fans out and cuts over.
+        stop = threading.Event()
+        interrupted = {u: [] for u in servers}
+        errors = []
+        lo, hi = sizes["wave_prompt"]
+        prompts = [[rng.integers(0, V, int(rng.integers(lo, hi + 1))).tolist() for _ in range(64)]
+                   for _ in range(sizes["wave_threads"] * len(servers))]
+
+        def client(u, k):
+            try:
+                for i, prompt in enumerate(prompts[k]):
+                    if stop.is_set():
+                        return
+                    qid = f"w{k}-{i}"
+                    st, _, r = http_call(u, "/generate", {
+                        "qid": qid, "input_ids": prompt, "gconfig": {
+                            "max_new_tokens": sizes["wave_new"],
+                            "min_new_tokens": sizes["wave_new"], "greedy": True}})
+                    if st != 200:
+                        raise RuntimeError(f"{st} {r}")
+                    if r["interrupted"]:
+                        # The rollout client's resubmission: the remainder
+                        # as a continuation, now on the new version.
+                        st, _, r2 = http_call(u, "/generate", {
+                            "qid": qid, "input_ids": prompt + r["output_ids"], "priority": 0,
+                            "gconfig": {"max_new_tokens": sizes["resume_new"], "greedy": True}})
+                        if st != 200:
+                            raise RuntimeError(f"{st} {r2}")
+                        interrupted[u].append((r, r2))
+                        return
+            except Exception as e:  # reported below
+                errors.append(f"{u}: {e!r}")
+
+        threads = [threading.Thread(target=client, args=(u, j * len(servers) + n))
+                   for j in range(sizes["wave_threads"]) for n, u in enumerate(servers)]
+        for t in threads:
+            t.start()
+        time.sleep(2.0)  # the wave is running
+        with open(os.path.join(dump_dir, "step.txt"), "w") as f:
+            f.write("1")
+        name_resolve.add(names.model_version(exp, trial, "actor"), "1", replace=True)
+        t0 = time.perf_counter()
+        while http_call(url["M"], "/status")[2]["weight_version"] != 1:
+            if time.perf_counter() - t0 > PLANE_TIMEOUT_S or errors:
+                raise AssertionError(f"weight_plane: v1 never landed ({errors[:2]})")
+            time.sleep(0.1)
+        stats["fanout_s"] = time.perf_counter() - t0
+        stop.set()
+        for t in threads:
+            t.join(timeout=PLANE_TIMEOUT_S)
+        if errors:
+            raise AssertionError(f"weight_plane: the wave failed: {errors[:3]}")
+        status = http_call(url["M"], "/status")[2]
+        row = status["weight_plane"]
+        for u in servers:
+            got = interrupted[u]
+            if not got or any(r["version_end"] != 0 or r2["version_start"] != 1
+                              or r2["version_end"] != 1 or r2["interrupted"] for r, r2 in got):
+                raise AssertionError(f"weight_plane: {name_of[u]}: in-flight requests "
+                                     f"{[(r['version_end'], r2['version_start']) for r, r2 in got]}"
+                                     f", want interrupted at v0 and finished on v1")
+        total = row["total_bytes"]
+        if row["tree"] != [[[servers[0], src.address]], [[servers[1], servers[0]]],
+                           [[servers[2], servers[1]]]] or row["failures"]:
+            raise AssertionError(f"weight_plane: fanout row {row}")
+        for u in servers:
+            got = greedy_tokens(torch, u, cfg, reqs)
+            if {q: ids for q, (ids, _, _) in got.items()} != want1 or any(
+                    (v0, v1) != (1, 1) for _, v0, v1 in got.values()):
+                raise AssertionError(f"weight_plane: {name_of[u]}'s greedy tokens differ from "
+                                     f"the engine's on the dumped params")
+        m = {u: {k: float(v) for k, v in http_call(u, "/metrics")[2].items()
+                 if k.startswith("areal:weight_") and k not in ("areal:weight_wire",
+                                                                "areal:weight_shard")}
+             for u in servers}
+        origin_out = src.stats()["bytes_served"].get(1, 0)
+        from_origin = sum(x["areal:weight_bytes_from_origin"] for x in m.values())
+        from_peers = sum(x["areal:weight_bytes_from_peers"] for x in m.values())
+        if not (origin_out == total == from_origin and from_peers == 2 * total):
+            raise AssertionError(f"weight_plane: origin sent {origin_out}, servers took "
+                                 f"{from_origin} from it and {from_peers} from peers; payload "
+                                 f"{total}")
+        hops = {name_of[u]: dict(transfer_ms=m[u]["areal:weight_transfer_ms"],
+                                 verify_ms=m[u]["areal:weight_verify_ms"],
+                                 cutover_ms=m[u]["areal:weight_cutover_ms"],
+                                 from_origin=m[u]["areal:weight_bytes_from_origin"],
+                                 from_peers=m[u]["areal:weight_bytes_from_peers"])
+                for u in servers}
+        stats["raw"] = dict(payload_bytes=total, n_chunks=row["n_chunks"], hops=hops,
+                            origin_bytes=origin_out, from_origin=from_origin,
+                            from_peers=from_peers, sync_s=row["sync_s"],
+                            interrupted={name_of[u]: len(v) for u, v in interrupted.items()})
+        log(f"  fleet up {stats['fleet_up_s']:.1f} s; v1 raw fanout (chain origin -> S0 -> S1 -> "
+            f"S2, {total / 1e9:.3f} GB, {row['n_chunks']} chunks) landed in "
+            f"{stats['fanout_s']:.2f} s (manager sync_s {row['sync_s']:.2f}); per hop "
+            f"{hops}; origin sent {origin_out} bytes, servers took {from_origin:.0f} from the "
+            f"origin and {from_peers:.0f} from peers; in-flight requests interrupted and "
+            f"finished on v1 {stats['raw']['interrupted']}; greedy tokens equal the engine's "
+            f"on every server; {card}")
+        log(f"  manager /status weight_plane: {json.dumps(row)}")
+
+        # (b) Version 2 on the int8 wire, to S0 from the origin and S1 from S0.
+        params = perturbed(torch, params, seed + 22)
+        stats["dump_v2"] = dump(params, 2)
+        man8 = wc.fetch_manifest(src.address, version=2, wire="int8")
+        int8_hops = {}
+        for u, ups in ((servers[0], [src.address]), (servers[1], [servers[0], src.address])):
+            st, _, d = http_call(u, "/distribute_weights", {
+                "version": 2, "manifest": man8, "upstreams": ups, "origin": src.address,
+                "deadline_s": PLANE_TIMEOUT_S})
+            if st != 200 or not d["success"]:
+                raise AssertionError(f"weight_plane: int8 distribute to {name_of[u]}: {st} {d}")
+            st, _, c = http_call(u, "/cutover_weights", {"version": 2, "budget_s": 3.0})
+            if st != 200 or not c["success"]:
+                raise AssertionError(f"weight_plane: int8 cutover on {name_of[u]}: {st} {c}")
+            int8_hops[name_of[u]] = dict(
+                transfer_ms=d["transfer_ms"], verify_ms=d["verify_ms"],
+                cutover_ms=c["cutover_ms"], within_budget=c["within_budget"],
+                from_origin=d["bytes_from_origin"], from_peers=d["bytes_from_peers"])
+        # The leaves S0 holds, assembled here, against the wire computed here.
+        store = wc.ChunkStore(man8)
+        t0 = time.perf_counter()
+        store.fetch([servers[0]])
+        held = wc.assemble_leaves(store)
+        assemble_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mismatched = []
+        for path, leaf in wt._flatten(params):
+            if wt._wire_quantizable(path, leaf):
+                want = wt.dequantize_wire_leaf(*wt.quantize_wire_leaf(leaf), "float32")
+            else:
+                want = leaf.detach().cpu()
+            got = held[path]
+            if got.shape != want.shape or got.dtype != want.dtype or not torch.equal(
+                    got.reshape(-1).view(torch.uint8), want.reshape(-1).view(torch.uint8)):
+                mismatched.append(path)
+        if mismatched:
+            raise AssertionError(f"weight_plane: int8 leaves differ from dequantize_wire_leaf("
+                                 f"quantize_wire_leaf(x)): {mismatched[:4]}")
+        check_s = time.perf_counter() - t0
+        del params
+        deq = wt.unflatten_leaves({p: t.to(dev, torch.bfloat16) for p, t in held.items()})
+        del held, store
+        want2 = greedy_tokens(torch, deq, cfg, reqs, dev, sizes)
+        del deq
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        for u in servers[:2]:
+            got = greedy_tokens(torch, u, cfg, reqs)
+            if {q: ids for q, (ids, _, _) in got.items()} != want2:
+                raise AssertionError(f"weight_plane: {name_of[u]}'s int8-wire greedy tokens "
+                                     f"differ from the engine's on the dequantized params")
+        stats["int8"] = dict(payload_bytes=man8["total_bytes"], n_chunks=man8["n_chunks"],
+                             hops=int8_hops, fetch_and_assemble_s=assemble_s,
+                             quantize_and_compare_s=check_s)
+        log(f"  v2 int8 wire ({man8['total_bytes'] / 1e9:.3f} GB, {man8['n_chunks']} chunks): "
+            f"{int8_hops}; the leaves S0 holds equal dequantize_wire_leaf(quantize_wire_leaf(x)) "
+            f"bit for bit (fetch + assemble here {assemble_s:.2f} s, quantize + compare "
+            f"{check_s:.2f} s); greedy tokens on S0 and S1 "
+            f"equal the engine's on them; {card}")
+
+        # Leave: the manager, then the servers, on COMPLETE.
+        name_resolve.add(names.experiment_status(exp, trial), "COMPLETE", replace=True)
+        for p in procs.values():
+            p.join(timeout=180)
+        codes = {k: p.exitcode for k, p in procs.items()}
+        if any(c != 0 for c in codes.values()):
+            raise AssertionError(f"weight_plane: exit codes {codes}")
+        records = {}
+        for i, c in enumerate(configs):
+            with open(exit_record_path(exp, trial, c.worker_name)) as f:
+                records[f"S{i}"] = json.load(f)
+        after = {k: {n: r["launches"][n] - r["launches_at_cutover"].get(n, 0)
+                     for n in r["launches"]} for k, r in records.items()}
+        for k, a in after.items():
+            for n in ("flash_attn_fwd_bf16", "paged_decode_bf16"):
+                if dev.type == "cuda" and a[n] <= 0:
+                    raise AssertionError(f"weight_plane: {n} did not launch on {k} after its "
+                                         f"cutover")
+        launches = {n: sum(r["launches"][n] for r in records.values())
+                    for n in records["S0"]["launches"]}
+        stats.update(
+            launches_after_cutover=after, server_launches=launches,
+            peak_memory_gb=dict({k: r["peak_memory_bytes"] / 1e9 for k, r in records.items()},
+                                launcher=(torch.cuda.max_memory_allocated(dev) / 1e9
+                                          if dev.type == "cuda" else 0.0)),
+            host_rss_gb={k: r["max_rss_bytes"] / 1e9 for k, r in records.items()})
+        log(f"  peak device memory GB {stats['peak_memory_gb']}; host RSS GB (peak) "
+            f"{stats['host_rss_gb']}; launches after the last cutover {after}")
+        src.close()
+        src = None
+
+        # (c) The async RL loop over the plane.
+        log("  the async RL loop with gen_weight_plane=true, two servers, fanout degree 1")
+        t0 = time.perf_counter()
+        loop = async_ppo_phase(torch, rng, dev, cfg, seed, card, sizes=loop_sizes,
+                               plane=dict(wire=None))
+        loop["phase_s"] = time.perf_counter() - t0
+        stats["loop"] = loop
+        stats["launches"] = {n: launches[n] + loop["launches"][n] for n in launches}
+        return stats
+    finally:
+        if src is not None:
+            src.close()
+        for p in procs.values():
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=30)
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def cast_tree(tree, dtype):
     if isinstance(tree, dict):
         return {k: cast_tree(v, dtype) for k, v in tree.items()}
@@ -3121,8 +3571,11 @@ def main() -> int:
     if "async_ppo" in phases:
         log("phase async_ppo")
         t0 = time.perf_counter()
+        # Cut in depth: the weight_plane phase runs the same loop at all 28
+        # layers (over the plane).
         report["phases"]["async_ppo"] = async_ppo_phase(
-            torch, np.random.default_rng([args.seed, 7]), dev, cfg, args.seed, card)
+            torch, np.random.default_rng([args.seed, 7]), dev,
+            dataclasses.replace(cfg, n_layers=ASYNC_LAYERS), args.seed, card)
         # The async loop is a main path of its own: its launches add.
         for k, n in report["phases"]["async_ppo"]["launches"].items():
             if n:
@@ -3134,14 +3587,39 @@ def main() -> int:
         log("phase disagg")
         t0 = time.perf_counter()
         torch.cuda.empty_cache()
+        # Cut in depth since PR 10 (DISAGG_LAYERS): the run's time limit.
         report["phases"]["disagg"] = disagg_phase(
-            torch, np.random.default_rng([args.seed, 8]), dev, cfg, args.seed, card)
+            torch, np.random.default_rng([args.seed, 8]), dev,
+            dataclasses.replace(cfg, n_layers=DISAGG_LAYERS), args.seed, card)
         # Disaggregated serving is a main path of its own: its launches add.
         for k, n in report["phases"]["disagg"]["launches"].items():
             if n:
                 main_counts[k] = main_counts.get(k, 0) + n
         torch.cuda.empty_cache()
         phase_done("disagg", t0)
+
+    if "weight_plane" in phases:
+        log("phase weight_plane")
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        wp = report["phases"]["weight_plane"] = weight_plane_phase(
+            torch, np.random.default_rng([args.seed, 9]), dev, cfg, args.seed, card)
+        # The plane is a main path of its own: its launches add.
+        for k, n in wp["launches"].items():
+            if n:
+                main_counts[k] = main_counts.get(k, 0) + n
+        loop = wp["loop"]
+        disk = report["phases"].get("async_ppo")
+        log(f"  the loop over the plane (28 layers): step e2e "
+            f"{[round(x, 3) for x in loop['step_e2e_s']]} s, fanouts "
+            f"{[round(x, 3) for x in loop['last_weight_sync_s']]} s, dumps "
+            f"{[round(x, 2) for x in loop['dump_s']]} s"
+            + (f"; the async_ppo phase's disk path ({ASYNC_LAYERS} layers) in this run: step "
+               f"e2e {[round(x, 3) for x in disk['step_e2e_s']]} s, fanouts "
+               f"{[round(x, 3) for x in disk['last_weight_sync_s']]} s" if disk else "")
+            + f"; {card}")
+        torch.cuda.empty_cache()
+        phase_done("weight_plane", t0)
 
     kernels_line = []
     for name, row in kernel_rows.items():

@@ -81,7 +81,7 @@ def test_help_config_lists_the_reference_keys(capsys):
 
 @pytest.mark.parametrize("override", [
     "recover_mode=auto", "auto_eval=true", "allocation_mode=d2", "agent_type=tool-use",
-    "gen_weight_plane=true", "gen_elastic_fleet=true", "gen_autoscale=true",
+    "gen_weight_shards=0/1", "gen_elastic_fleet=true", "gen_autoscale=true",
     "gen_tensor_parallel=2", "actor.prefetch_depth=2", "ppo.generation_size=8",
     "exp_ctrl.save_freq_steps=1",
 ])
@@ -90,3 +90,25 @@ def test_unported_options_raise(override):
     cli_args.apply_overrides(cfg, ["actor.path=/nonexistent", "device=cpu", override])
     with pytest.raises(NotImplementedError, match=override.split("=")[0]):
         make_experiment("async-ppo-math", cfg)
+
+
+def test_async_ppo_loop_trains_over_the_weight_plane_on_cpu():
+    """The same loop with gen_weight_plane=true on the int8 wire, two
+    servers at fanout degree 1: the model worker serves its dumps as the
+    plane's origin, the manager chains origin -> S0 -> S1, and both
+    servers cut over to versions 1 and 2 (the phase checks each version
+    landed through the plane and that every second hop came from a
+    peer)."""
+    cfg = r1_distill_qwen_1_5b_config(n_layers=2, hidden_dim=64, n_q_heads=4, n_kv_heads=2,
+                                      head_dim=16, intermediate_dim=128, vocab_size=512,
+                                      max_position_embeddings=4096)
+    stats = chip_smoke.async_ppo_phase(torch, np.random.default_rng(0), torch.device("cpu"),
+                                       cfg, 0, "cpu", sizes=TINY_SIZES, plane=dict(wire="int8"))
+    assert stats["global_step"] == 2 and stats["server_final_version"] == 2
+    plane = stats["plane"]
+    assert plane["wire"] == "int8"
+    for step in range(2):
+        origin = sum(b[step] for b in plane["bytes_from_origin"].values())
+        peers = sum(b[step] for b in plane["bytes_from_peers"].values())
+        assert origin == peers > 0  # one payload from the origin, one from the peer
+    assert max(stats["staleness_hist"]) <= TINY_SIZES["offpolicy"]

@@ -28,7 +28,8 @@ one raw dump):
 
 Manager (``system/gserver_manager.py``): the pool routing, the prefix
 index's hints and the re-role decisions equal the reference manager's
-on the same scripted fleet state; the options still unported raise.
+on the same scripted fleet state; the options still unported raise (the
+weight plane's are ported: tests/test_torch_weight_plane.py).
 """
 
 import asyncio
@@ -670,7 +671,7 @@ def test_rerole_decisions_match_reference():
 
 @pytest.mark.parametrize("option", [
     dict(autoscale=True), dict(elastic_fleet=True), dict(standby=True),
-    dict(weight_plane=True), dict(weight_wire_dtype="int8"), dict(multi_model=True),
+    dict(multi_model=True),
 ])
 def test_manager_refuses_what_is_still_unported(option):
     from areal_tpu_torch.api.system_api import GserverManagerConfig

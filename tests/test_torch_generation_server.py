@@ -15,8 +15,8 @@ both through ``/update_weights_from_disk``; then:
   (latency lines are compared by name only);
 - ``/health`` is equal, each package's name_resolve reads the URL the
   other registered, and the heartbeat records carry the same fields;
-- the port refuses every unported option at boot and answers 404 on the
-  routes it does not serve (the weight plane's).
+- the port refuses every unported option at boot; the weight plane's
+  routes answer a server holding nothing as the reference's do.
 """
 
 import json
@@ -271,10 +271,26 @@ def test_health_and_discovery_cross_packages(fleet):
     ("/weights/manifest", "GET"), ("/weights/chunk", "GET"),
 ])
 def test_unported_routes_answer_404(fleet, path, method):
-    url = fleet["port"].address + path
-    req = (urllib.request.Request(url, b"{}", {"Content-Type": "application/json"})
-           if method == "POST" else urllib.request.Request(url))
-    assert _call(req)[0] == 404
+    """The weight plane's routes (ported since; tests/test_torch_weight_plane.py
+    drives them) answer a server that holds no prefetched version as the
+    reference's does: the /weights GETs 404, a cutover 409, a distribute
+    of a malformed manifest 400. Unknown routes still 404."""
+    payload = {"/distribute_weights": {"version": 3, "manifest": {"schema": "bad"}},
+               "/cutover_weights": {"version": 3}}.get(path)
+    query = "?version=3&idx=0" if path == "/weights/chunk" else ""
+
+    def call(url):
+        url += path + query
+        req = (urllib.request.Request(url, json.dumps(payload).encode(),
+                                      {"Content-Type": "application/json"})
+               if method == "POST" else urllib.request.Request(url))
+        return _call(req)
+
+    ref, port = both(fleet, call)
+    assert port[0] == ref[0] == {"/distribute_weights": 400, "/cutover_weights": 409}.get(
+        path, 404)
+    assert set(json.loads(port[2])) == set(json.loads(ref[2]))
+    assert get(fleet["port"].address, "/weights/unknown")[0] == 404
     assert get(fleet["port"].address, "/generate")[0] == 405
 
 

@@ -65,6 +65,8 @@ def test_port_sources_import_no_jax():
     "areal_tpu_torch.engine.factories, areal_tpu_torch.models.hf",
     "areal_tpu_torch.engine.kv_handoff, areal_tpu_torch.engine.kv_tier, "
     "areal_tpu_torch.system.generation_server, areal_tpu_torch.system.gserver_manager",
+    "areal_tpu_torch.engine.weight_client, areal_tpu_torch.system.weight_plane, "
+    "areal_tpu_torch.base.chunking, areal_tpu_torch.system.weight_transfer",
 ])
 def test_importing_the_port_loads_no_jax(modules):
     code = (

@@ -227,8 +227,7 @@ def test_reference_worker_control_commands_a_port_worker(tmp_path):
 
 
 @pytest.mark.parametrize("option", [
-    dict(datasets=[object()]), dict(train_n_hosts=2), dict(weight_plane=True),
-    dict(weight_wire_dtype="int8")])
+    dict(datasets=[object()]), dict(train_n_hosts=2)])
 def test_model_worker_refuses_unported_options(option):
     cfg = tsys.ModelWorkerConfig(experiment_name="x", trial_name="t", device="cpu", **option)
     with pytest.raises(NotImplementedError):
