@@ -1,16 +1,18 @@
 """User-facing experiment option dataclasses and the ``key=value``
 override CLI (the port's copy of ``areal_tpu/api/cli_args.py``, trimmed
-to the async PPO experiment: ``ModelTrainEvalConfig``, ``MFCConfig``,
-``PPOHyperparameters``, ``DatasetConfig``, ``BaseExperimentConfig``,
-``PPOMATHExpConfig``, ``AsyncPPOMATHExpConfig``, ``apply_overrides`` and
-``format_options``). Field names, types and help are the reference's, so
-one command line configures either package. Three defaults differ, each
-because the port lacks the feature the reference's default turns on:
-``prefetch_depth`` 0, ``gen_elastic_fleet`` False and, with it, the
-manager's ``elastic_fleet``. ``device`` is the port's one field beyond
-the reference's: the torch device of the trainer and the servers.
-Options whose feature the port lacks stay declared and raise when set
-(``experiments/async_ppo_math_exp.refuse_unported``).
+to the SFT and async PPO experiments: ``ModelTrainEvalConfig``,
+``MFCConfig``, ``PPOHyperparameters``, ``DatasetConfig``,
+``BaseExperimentConfig``, ``SFTExpConfig``, ``PPOMATHExpConfig``,
+``AsyncPPOMATHExpConfig``, ``apply_overrides`` and ``format_options``,
+which lists the options of any of them). Field names, types and help
+are the reference's, so one command line configures either package.
+Three defaults differ, each because the port lacks the feature the
+reference's default turns on: ``prefetch_depth`` 0, ``gen_elastic_fleet``
+False and, with it, the manager's ``elastic_fleet``. ``device`` is the
+port's one field beyond the reference's: the torch device of the trainer
+and the servers. Options whose feature the port lacks stay declared and
+raise when set (``refuse_unported`` in ``experiments/sft_exp.py`` and
+``experiments/async_ppo_math_exp.py``).
 """
 
 from __future__ import annotations
@@ -53,7 +55,7 @@ class ModelTrainEvalConfig:
         metadata={
             "help": "overlapped input pipeline depth (the reference's "
             "default is 2); the port's engine runs eager, so only 0 is "
-            "accepted (ROADMAP Queue A item 3)"
+            "accepted (ROADMAP Queue A item 3.4)"
         },
     )
     stats_fetch_interval: int = dataclasses.field(
@@ -231,6 +233,20 @@ class BaseExperimentConfig:
     # model workers and generation servers run on ("cpu" runs the
     # kernels' plain versions).
     device: str = "cuda"
+
+
+@dataclasses.dataclass
+class SFTExpConfig(BaseExperimentConfig):
+    """Supervised fine-tuning on prompt/answer rows (reference
+    SFTExpConfig); the dataset type defaults to "prompt_answer"."""
+
+    model: ModelTrainEvalConfig = dataclasses.field(
+        default_factory=ModelTrainEvalConfig
+    )
+
+    def __post_init__(self):
+        if self.dataset.type_ == "math_code_prompt":
+            self.dataset.type_ = "prompt_answer"
 
 
 @dataclasses.dataclass

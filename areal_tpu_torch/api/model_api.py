@@ -187,6 +187,12 @@ class Model:
 class ModelInterface(abc.ABC):
     """Algorithm glue (ppo_actor, ppo_critic, sft, ...)."""
 
+    def save(self, model: Model, save_dir: str):
+        pass
+
+    def evaluate(self, model: Model, eval_dataloader) -> Dict:
+        return {}
+
     def inference(
         self, model: Model, input_: SequenceSample, mb_spec: MicroBatchSpec
     ) -> Optional[SequenceSample]:

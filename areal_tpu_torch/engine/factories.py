@@ -52,8 +52,10 @@ def make_transformer_model(
 
     Either `model_path` (HF checkpoint dir; config, weights and family
     read from it) or `config` (TransformerConfig fields, random init)
-    must be given. `dtype` is accepted as the reference's signature has
-    it and is not used, as there."""
+    must be given. The engine carries the HF family (``hf_family``, else
+    the one the checkpoint's config names; None from a config), which
+    ``save`` needs to write the HF format. `dtype` is accepted as the
+    reference's signature has it and is not used, as there."""
     if mesh_spec is not None or device_ids is not None:
         raise NotImplementedError(
             "device meshes are not ported: one engine runs on one device "
@@ -61,8 +63,10 @@ def make_transformer_model(
     if isinstance(name, str):
         name = ModelName.parse(name)
     if model_path is not None:
-        from areal_tpu_torch.models.hf import load_hf_model
+        from areal_tpu_torch.models.hf import family_from_hf_config, load_hf_config, load_hf_model
 
+        if hf_family is None:
+            hf_family = family_from_hf_config(load_hf_config(model_path)).name
         cfg, params = load_hf_model(model_path, is_critic=is_critic, family=hf_family)
         tokenizer_path = tokenizer_path or model_path
     else:
@@ -72,7 +76,8 @@ def make_transformer_model(
         params = init_params(cfg, seed=init_seed, device="cpu")
     tokenizer = load_hf_tokenizer(tokenizer_path) if tokenizer_path else None
     model = Model(name=name, module=None, tokenizer=tokenizer)
-    model._raw = dict(cfg=cfg, params=params, device=device)  # consumed by backends
+    model._raw = dict(cfg=cfg, params=params, device=device,  # consumed by backends
+                      hf_family=hf_family)
     return model
 
 
@@ -98,7 +103,7 @@ class JaxTrainBackend(ModelBackend):
             raw["cfg"], raw["params"], optimizer_config=optimizer_config,
             total_train_steps=total_train_steps, remat=remat,
             row_len_multiple=self.row_len_multiple, max_row_len=self.max_row_len,
-            device=raw["device"])
+            hf_family=raw["hf_family"], device=raw["device"])
 
     def initialize(self, model: Model, spec: FinetuneSpec) -> Model:
         model.module = self._engine(model._raw, self.optimizer,

@@ -58,11 +58,14 @@ class TorchTrainEngine(TrainEngine):
         remat: Any = "full",  # "full" | "none" (bools ok)
         row_len_multiple: int = 128,
         max_row_len: Optional[int] = None,
+        hf_family: Optional[str] = None,
         device="cuda",
     ):
         if model_cfg.moe is not None:
             raise NotImplementedError("MoE models are not ported yet")
         self.model_cfg = model_cfg
+        # The HF family the weights map through; SFTInterface.save needs it.
+        self.hf_family = hf_family
         self.device = resolve_device(device)
         self.remat = remat
         self.row_len_multiple = row_len_multiple

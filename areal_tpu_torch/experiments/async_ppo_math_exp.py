@@ -53,8 +53,10 @@ def refuse_unported(cfg: AsyncPPOMATHExpConfig):
         "gen_elastic_fleet": cfg.gen_elastic_fleet,
         "gen_autoscale": cfg.gen_autoscale,
     }
+    # Saves and evaluations run (PPOActorInterface.save writes the HF
+    # format); checkpoints come with ROADMAP Queue A item 3.2.
     for f in dataclasses.fields(cfg.exp_ctrl):
-        if f.name.startswith(("save_", "ckpt_", "eval_")):
+        if f.name.startswith("ckpt_"):
             refused[f"exp_ctrl.{f.name}"] = getattr(cfg.exp_ctrl, f.name) is not None
     for role, m in models.items():
         if m is None:

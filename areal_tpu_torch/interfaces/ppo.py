@@ -253,6 +253,11 @@ class PPOActorInterface(ModelInterface):
         stats_tracker.scalar(**agg)
         return agg
 
+    def save(self, model: Model, save_dir: str):
+        from areal_tpu_torch.interfaces.sft import SFTInterface
+
+        SFTInterface.save(self, model, save_dir)  # the same HF export
+
 
 def _n_response_tokens(mb: SequenceSample) -> float:
     pm = np.asarray(mb.data["prompt_mask"])

@@ -1,5 +1,6 @@
-"""SFT algorithm interface (counterpart of ``areal_tpu/interfaces/sft.py``;
-``evaluate`` and the HF-format ``save`` are not ported)."""
+"""SFT algorithm interface (counterpart of ``areal_tpu/interfaces/sft.py``):
+the train step, the response-token loss over an eval loader's batches,
+and the HF-format save."""
 
 from __future__ import annotations
 
@@ -61,6 +62,43 @@ class SFTInterface(ModelInterface):
         model.inc_version()
         stats_tracker.scalar(**stats)
         return stats
+
+    def evaluate(self, model: Model, eval_dataloader) -> Dict:
+        """Mean next-token loss over the response tokens of every batch
+        that ``eval_dataloader`` yields, and their count."""
+        engine = model.module
+        total_loss, total_tokens = 0.0, 0.0
+        for batch in eval_dataloader:
+            out = engine.forward(batch, MicroBatchSpec(), output_key="logprobs")
+            pm = np.asarray(batch.data["prompt_mask"]).astype(bool)
+            lp = np.asarray(out.data["logprobs"])
+            # Shifted frame: position t scores token t+1.
+            offset = 0
+            for sl in batch.seqlens["prompt_mask"]:
+                for l in sl:
+                    resp_next = ~pm[offset + 1 : offset + l]
+                    total_loss += float(-np.sum(lp[offset : offset + l - 1][resp_next]))
+                    total_tokens += float(resp_next.sum())
+                    offset += l
+        return {
+            "eval_loss": total_loss / max(total_tokens, 1.0),
+            "eval_n_tokens": total_tokens,
+        }
+
+    def save(self, model: Model, save_dir: str):
+        """The model as an HF checkpoint directory, with its tokenizer."""
+        from areal_tpu_torch.models.hf import save_hf_model
+
+        engine = model.module
+        family = getattr(engine, "hf_family", None)
+        if family is None:
+            raise ValueError(
+                "engine has no hf_family set; pass hf_family= when building "
+                "the TorchTrainEngine so save() knows which HF weight mapping "
+                "to use (silently guessing would corrupt the checkpoint)"
+            )
+        save_hf_model(save_dir, engine.model_cfg, engine.get_params(), family,
+                      tokenizer=model.tokenizer)
 
 
 register_interface("sft", SFTInterface)

@@ -1,10 +1,11 @@
 """HF checkpoint conversion and disk IO for the port (counterpart of
-``areal_tpu/models/hf/__init__.py``): a registry of the families of the
-ported slices (llama and qwen2), and ``load_hf_model`` /
+``areal_tpu/models/hf/__init__.py``): a registry of the dense families
+(llama, qwen2, qwen3, mistral, gemma, gpt2), and ``load_hf_model`` /
 ``save_hf_model`` through safetensors, so a checkpoint directory one
 package writes loads in the other. Tensors stay torch tensors on the CPU;
-``save_hf_model`` keeps each leaf's dtype (bfloat16 included), and
-``load_hf_model`` gives float32 params, as the reference does."""
+``save_hf_model`` keeps each leaf's dtype (bfloat16 included) and writes
+the tokenizer beside the weights when given one, and ``load_hf_model``
+gives float32 params, as the reference does."""
 
 from __future__ import annotations
 
@@ -16,7 +17,6 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from areal_tpu_torch.models.config import TransformerConfig
-from areal_tpu_torch.models.hf import llama, qwen2
 
 
 @dataclasses.dataclass
@@ -90,9 +90,11 @@ def load_hf_model(path: str, is_critic: bool = False,
     return cfg, params
 
 
-def save_hf_model(save_dir: str, cfg: TransformerConfig, params: Dict, family: str):
-    """Write an HF-format checkpoint (config.json + model.safetensors)
-    from a param tree of tensors on any device."""
+def save_hf_model(save_dir: str, cfg: TransformerConfig, params: Dict, family: str,
+                  tokenizer=None):
+    """Write an HF-format checkpoint (config.json + model.safetensors, and
+    the tokenizer's files when given one) from a param tree of tensors on
+    any device."""
     import safetensors.torch
 
     fam = get_family(family)
@@ -105,13 +107,14 @@ def save_hf_model(save_dir: str, cfg: TransformerConfig, params: Dict, family: s
     safetensors.torch.save_file(sd, os.path.join(save_dir, "model.safetensors"))
     with open(os.path.join(save_dir, "config.json"), "w") as f:
         json.dump(fam.config_to_hf(cfg), f, indent=2)
+    if tokenizer is not None:
+        tokenizer.save_pretrained(save_dir)
 
 
-for _fam in (
-    HFFamily("llama", "llama", llama.config_from_hf, llama.config_to_hf,
-             llama.params_from_hf, llama.params_to_hf),
-    HFFamily("qwen2", "qwen2", qwen2.config_from_hf, qwen2.config_to_hf,
-             qwen2.params_from_hf, qwen2.params_to_hf),
-):
-    register_hf_family(_fam.name, _fam)
-del _fam
+from areal_tpu_torch.models.hf import gemma, gpt2, llama, mistral, qwen2, qwen3  # noqa: E402
+
+for _mod in (llama, qwen2, qwen3, mistral, gemma, gpt2):
+    _name = _mod.__name__.rsplit(".", 1)[1]
+    register_hf_family(_name, HFFamily(_name, _name, _mod.config_from_hf, _mod.config_to_hf,
+                                       _mod.params_from_hf, _mod.params_to_hf))
+del _mod, _name

@@ -57,9 +57,11 @@ become blocking ones on the request's thread; its peer client is
 
 Not ported yet (refused at boot when configured): tensor parallelism
 and weight shards (with them the plane's shard streams), speculative
-decoding, int8 decode weights; the HF fallback of a weight update. The server serves an HF checkpoint (``model_path``) in its
-compute dtype and takes its EOS from the tokenizer (``tokenizer_path``,
-else the checkpoint's).
+decoding, int8 decode weights. The server serves an HF checkpoint
+(``model_path``) in its compute dtype and takes its EOS from the
+tokenizer (``tokenizer_path``, else the checkpoint's); a weight update
+from a directory that holds no raw dump or pickle reads it as an HF
+checkpoint (``"source": "hf"``).
 """
 
 from __future__ import annotations
@@ -1164,7 +1166,7 @@ class GenerationServer(Worker):
                       "load_s": info["load_s"], "source": info["source"]})
 
     def _load_params(self, model_path: str, want_version=None):
-        """Fastest source first: tmpfs raw, disk raw, pickle
+        """Fastest source first: tmpfs raw, disk raw, pickle, HF
         (system/weight_transfer.load_for_serving); a pinned version that
         no dump holds raises WeightVersionMismatch after brief retries.
         The tmpfs dump is keyed by the role name, the basename of the

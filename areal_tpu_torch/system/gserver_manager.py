@@ -210,6 +210,9 @@ class GserverManager(Worker):
         # Weight plane: the origin this manager started when no trainer
         # source is registered, and the last tree fanout for /status.
         self._own_source = None
+        # Set at COMPLETE: the trainer-side source closes as its model
+        # worker exits, so the last fanout is served from _own_source.
+        self._trainer_source_gone = False
         self._wp_last: Dict = {}
 
         self._http_loop = asyncio.new_event_loop()
@@ -1125,22 +1128,23 @@ class GserverManager(Worker):
         else a source this manager starts over the dump dir ``path`` (one
         read of the dump here instead of one per server). The fallback
         also covers the trainer's exit: the last version, which this
-        manager fans out after the trial completes, outlives its
-        source."""
+        manager fans out after the trial completes, outlives its source,
+        so that fanout always takes the fallback."""
         import urllib.error
         import urllib.request
 
         if not self.cfg.weight_plane:
             return None
-        try:
-            url = name_resolve.get(names.weight_plane_source(
-                self.cfg.experiment_name, self.cfg.trial_name, self.cfg.model_name))
-            with urllib.request.urlopen(f"{url}/weights/stats", timeout=5.0):
-                return url
-        except urllib.error.HTTPError:
-            return url  # it answers
-        except (name_resolve.NameEntryNotFoundError, OSError):
-            pass
+        if not self._trainer_source_gone:
+            try:
+                url = name_resolve.get(names.weight_plane_source(
+                    self.cfg.experiment_name, self.cfg.trial_name, self.cfg.model_name))
+                with urllib.request.urlopen(f"{url}/weights/stats", timeout=5.0):
+                    return url
+            except urllib.error.HTTPError:
+                return url  # it answers
+            except (name_resolve.NameEntryNotFoundError, OSError):
+                pass
         if self._own_source is None:
             if path is None:
                 return None  # no source and no dump: peers only
@@ -1339,6 +1343,9 @@ class GserverManager(Worker):
         path = self.check_new_params()
         if path is None:
             return
+        # A trainer source that still answers a probe may close before the
+        # servers pull from it.
+        self._trainer_source_gone = True
         try:
             self.flush_requests_and_update_weights(path)
         except Exception:

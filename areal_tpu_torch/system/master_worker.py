@@ -1,13 +1,16 @@
 """Master worker: drives one DFG traversal per train step (the port's
 copy of ``areal_tpu/system/master_worker.py``): configure the stream,
 buffer and executor, then per poll run a step, log its perf summary and
-publish the experiment status; tell the model workers to exit at the
-end.
+publish the experiment status, broadcast "save" and "evaluate" to the
+model workers at the ``exp_ctrl`` frequencies (``base/timeutil.py``);
+tell the model workers to exit at the end. As in the reference, a
+worker's reply to a broadcast is not read: one that answers with an
+error does not stop the run.
 
-Not ported yet: the save / checkpoint / evaluate broadcasts with their
-frequency controls, the recover record, the tensorboard and wandb sinks
-and the merged RL-trace summary. A config that asks for save, checkpoint
-or evaluate frequencies, or for recovery, is refused at configure.
+Not ported yet: the checkpoint broadcast and the recover record (a
+config that asks for a checkpoint frequency or for recovery is refused
+at configure), the tensorboard and wandb sinks and the merged RL-trace
+summary.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from typing import Dict, List, Optional
 
 from areal_tpu_torch.api.dfg import build_graph
 from areal_tpu_torch.api.system_api import MasterWorkerConfig
-from areal_tpu_torch.base import constants, logging, name_resolve, names, tracing
+from areal_tpu_torch.base import constants, logging, name_resolve, names, timeutil, tracing
 from areal_tpu_torch.base import metrics_registry as mreg
 from areal_tpu_torch.base.fault_injection import faults
 from areal_tpu_torch.base.recover import StepInfo
@@ -35,13 +38,12 @@ class MasterWorker(Worker):
     def _configure(self, config: MasterWorkerConfig):
         ctl = config.exp_ctrl
         asked = [f.name for f in dataclasses.fields(ctl)
-                 if f.name.startswith(("save_", "ckpt_", "eval_"))
-                 and getattr(ctl, f.name) is not None]
+                 if f.name.startswith("ckpt_") and getattr(ctl, f.name) is not None]
         if asked or config.recover_mode != "disabled":
             raise NotImplementedError(
-                f"the port's master has no save, checkpoint, evaluate or recover "
-                f"yet (asked: {asked or ['recover_mode=' + config.recover_mode]}; "
-                f"ROADMAP Queue A item 3)")
+                f"the port's master has no checkpoint or recover yet (asked: "
+                f"{asked or ['recover_mode=' + config.recover_mode]}; "
+                f"ROADMAP Queue A item 3.2)")
         self.cfg = config
         constants.set_experiment_trial_names(
             config.experiment_name, config.trial_name
@@ -63,6 +65,17 @@ class MasterWorker(Worker):
             ctrl=self.ctrl,
             experiment_name=config.experiment_name,
             trial_name=config.trial_name,
+        )
+
+        self.save_ctl = timeutil.FrequencyControl(
+            frequency_epoch=ctl.save_freq_epochs,
+            frequency_step=ctl.save_freq_steps,
+            frequency_sec=ctl.save_freq_secs,
+        )
+        self.eval_ctl = timeutil.FrequencyControl(
+            frequency_epoch=ctl.eval_freq_epochs,
+            frequency_step=ctl.eval_freq_steps,
+            frequency_sec=ctl.eval_freq_secs,
         )
 
         self.step_info = StepInfo()
@@ -137,6 +150,7 @@ class MasterWorker(Worker):
         # (the master is NOT a restartable fault domain).
         faults.maybe_fail("master.step")
         t0 = time.monotonic()
+        epoch_before = self.step_info.epoch
 
         # Keep the shared coroutine-control step info (shipped in every
         # MFC request: param-realloc stamps, trace attributes) in sync
@@ -177,6 +191,12 @@ class MasterWorker(Worker):
             f"e2e={e2e:.3f}s stats={ {k: {kk: round(vv, 5) for kk, vv in v.items()} for k, v in stats.items()} }"
         )
         self._log_step_perf(e2e)
+
+        epochs_inc = self.step_info.epoch - epoch_before
+        if self.save_ctl.check(steps=1, epochs=epochs_inc):
+            self._broadcast("save")
+        if self.eval_ctl.check(steps=1, epochs=epochs_inc):
+            self._broadcast("evaluate")
 
         done = False
         if self._total_steps_cap is not None:

@@ -6,10 +6,14 @@ device without a card raises) and acts as one DP rank of every model it
 hosts. Request handlers:
 
 - "spec": dataset size + readiness handshake
-- "fetch": next batch of pulled trajectories -> DataManager, reply metadata
+- "fetch": next dataloader batch (or of pulled trajectories) ->
+  DataManager, reply metadata
 - "mfc": execute pre-hooks (data_transfer pulls, param_realloc, ...),
   assemble the input batch, run the interface method, store outputs,
   reply meta + stats
+- "save": each model in the HF format under
+  ``<save path>/<role>/step<version>/dp<worker index>``
+- "evaluate": each interface's ``evaluate``
 - "clear_data_cache": per-step sample GC
 - "exit": leave the poll loop
 
@@ -18,11 +22,14 @@ every CUDA kernel of the port during that MFC (``launches/<kernel>``,
 summed across DP workers), so a run shows that its trainer went through
 the kernels.
 
-Not ported yet, each refused with ``NotImplementedError``: the "save",
-"ckpt", "restore" and "evaluate" handlers and hooks, "offload", the
-"generate" MFC, the param-realloc target branch (weights loaded from
-another replica), dataset loaders (``datasets`` without
-``stream_dataset``) and the multi-host train group. With
+As in the reference, "evaluate" hands each interface no eval loader
+(``iface.evaluate(model, None)``): the SFT interface raises ``TypeError``
+on it and the reply carries the error, which the master drops.
+
+Not ported yet, each refused with ``NotImplementedError``: the "ckpt"
+and "restore" handlers, the "offload" hook, the "generate" MFC, the
+param-realloc target branch (weights loaded from another replica) and
+the multi-host train group. With
 ``weight_plane`` the dump rank serves its dumps as the weight plane's
 origin (system/weight_plane.py). Per-prompt ``scores`` in an MFC's output merge into the
 shared eval-score file (``system/eval_scores.py``), as in the reference.
@@ -35,6 +42,7 @@ import time
 from typing import Any, Dict, Optional
 
 from areal_tpu_torch import kernels, resolve_device
+from areal_tpu_torch.api import data_api
 from areal_tpu_torch.api.data_api import MicroBatchSpec
 from areal_tpu_torch.api.model_api import (
     FinetuneSpec,
@@ -69,12 +77,10 @@ logger = logging.getLogger("model_worker")
 # Handlers and hooks of the reference that the port does not serve yet,
 # with the ROADMAP item that brings each.
 _NOT_PORTED = {
-    "save": "Queue A item 3 (save to HF format)",
-    "ckpt": "Queue A item 3 (engine-state checkpoint)",
-    "restore": "Queue A item 3 (engine-state checkpoint)",
-    "evaluate": "Queue A item 3 (SFTInterface.evaluate)",
-    "offload": "Queue A item 3 (offload)",
-    "generate": "Queue A item 3 (TrainEngine.generate)",
+    "ckpt": "Queue A item 3.2 (engine-state checkpoint)",
+    "restore": "Queue A item 3.2 (engine-state checkpoint)",
+    "offload": "Queue A item 3.3 (offload)",
+    "generate": "Queue A item 3.3 (TrainEngine.generate)",
 }
 
 
@@ -85,14 +91,9 @@ def _not_ported(what: str):
 
 class ModelWorker(Worker):
     def _configure(self, config: ModelWorkerConfig):
-        refused = {
-            "datasets without stream_dataset (the rollout slice's dataset loaders)":
-                bool(config.datasets) and not config.stream_dataset,
-            "train_n_hosts > 1 (Queue A item 7)": int(config.train_n_hosts or 1) > 1,
-        }
-        bad = [k for k, v in refused.items() if v]
-        if bad:
-            raise NotImplementedError(f"model worker options not ported yet: {bad}")
+        if int(config.train_n_hosts or 1) > 1:
+            raise NotImplementedError(
+                "model worker option not ported yet: train_n_hosts > 1 (ROADMAP Queue A item 7)")
         self.cfg = config
         self._wp_sources: Dict[str, Any] = {}
         self.device = resolve_device(config.device)
@@ -101,6 +102,7 @@ class ModelWorker(Worker):
         )
         seeding.set_random_seed(config.seed, config.worker_name)
         # Import factories/interfaces so registries are populated.
+        import areal_tpu_torch.datasets  # noqa: F401
         import areal_tpu_torch.engine.factories  # noqa: F401
         import areal_tpu_torch.interfaces.ppo  # noqa: F401
         import areal_tpu_torch.interfaces.sft  # noqa: F401
@@ -112,6 +114,8 @@ class ModelWorker(Worker):
             config.experiment_name, config.trial_name, config.worker_name
         )
 
+        # Datasets (only on data-hosting workers).
+        self.dataloader = None
         self._dataset = None
         if config.stream_dataset:
             from areal_tpu_torch.system.stream_dataset import PullerStreamDataset
@@ -120,6 +124,24 @@ class ModelWorker(Worker):
                 config.experiment_name,
                 config.trial_name,
                 puller_index=config.dataset_dp_rank,
+            )
+        elif config.datasets:
+            tokenizer = (data_api.load_hf_tokenizer(config.tokenizer_path)
+                         if config.tokenizer_path else None)
+            util = data_api.DatasetUtility(
+                seed=config.seed,
+                dp_rank=config.dataset_dp_rank,
+                world_size=config.dataset_dp_size,
+                tokenizer=tokenizer,
+            )
+            # As in the reference (which has no ConcatDataset), the first
+            # dataset is the one loaded.
+            self._dataset = [data_api.make_dataset(d, util) for d in config.datasets][0]
+            self.dataloader = data_api.PackedDataLoader(
+                self._dataset,
+                batch_size=max(1, config.train_batch_size // config.dataset_dp_size),
+                shuffle=config.shuffle_dataset,
+                seed=config.seed,
             )
 
         # Models.
@@ -156,11 +178,28 @@ class ModelWorker(Worker):
     def _handle_fetch(self, req):
         if self._dataset is None:
             return {"meta": None, "epoch_done": False}
-        batch = self._dataset.poll_batch()
-        if batch is None:
-            return {"meta": None, "epoch_done": False}
+        if self.dataloader is not None:
+            batch, epoch_done = self.dataloader.next_batch()
+            if epoch_done:
+                # Curriculum step at the epoch boundary: drop prompts the
+                # policy already solves; the dataloader sees the size
+                # change and reshuffles.
+                eval_scores.apply_filter(
+                    self._dataset,
+                    self.cfg.experiment_name,
+                    self.cfg.trial_name,
+                    tag=f"data{self.cfg.worker_index}",
+                    # Floor at the per-rank fetch batch: fewer would starve
+                    # the master's batch assembly.
+                    min_size=self.dataloader.batch_size,
+                )
+        else:
+            batch = self._dataset.poll_batch()
+            epoch_done = False
+            if batch is None:
+                return {"meta": None, "epoch_done": False}
         self.data_manager.store(batch)
-        return {"meta": batch.meta(), "epoch_done": False}
+        return {"meta": batch.meta(), "epoch_done": epoch_done}
 
     def _exec_hook(self, hook: Dict, model_name: str, step: int = 0) -> Optional[float]:
         """Run one hook; a param_realloc returns its dump seconds."""
@@ -168,7 +207,11 @@ class ModelWorker(Worker):
         if htype == "data_transfer":
             steps = [RedistribStep(**s) for s in hook["plan"]]
             self.data_manager.redistribute(steps)
-        elif htype in ("save", "evaluate", "offload"):
+        elif htype == "save":
+            self._save_model(model_name)
+        elif htype == "evaluate":
+            self._evaluate_model(model_name)
+        elif htype == "offload":
             raise _not_ported(htype)
         elif htype == "param_realloc":
             return self._param_realloc(hook, step)
@@ -291,6 +334,26 @@ class ModelWorker(Worker):
             replace=True,
         )
 
+    def _save_model(self, model_name: Optional[str] = None):
+        for mn, model in self.models.items():
+            if model_name is not None and mn != model_name:
+                continue
+            save_dir = os.path.join(
+                constants.get_save_path(self.cfg.experiment_name, self.cfg.trial_name),
+                ModelName.parse(mn).role,
+                f"step{model.version}",
+                f"dp{self.cfg.worker_index}",
+            )
+            self.interfaces[mn].save(model, save_dir)
+
+    def _evaluate_model(self, model_name: Optional[str] = None):
+        stats = {}
+        for mn, model in self.models.items():
+            if model_name is not None and mn != model_name:
+                continue
+            stats[mn] = self.interfaces[mn].evaluate(model, None)
+        return stats
+
     def _param_realloc(self, hook: Dict, step: int = 0) -> Optional[float]:
         """Disk-mediated weight hand-off: the source model's DP rank 0
         writes the raw dump of its params, stamped with `model.version`
@@ -307,7 +370,7 @@ class ModelWorker(Worker):
         if dst is not None:
             raise NotImplementedError(
                 "param_realloc into a target replica is not ported yet (sync PPO's "
-                "generation replica, ROADMAP Queue A item 3)")
+                "generation replica, ROADMAP Queue A item 3.3)")
         model = self.models.get(src) if src is not None else None
         if model is None or self._host_rank.get(src, 0) != 0:
             return None
@@ -360,7 +423,12 @@ class ModelWorker(Worker):
                 resp = self._handle_fetch(req)
             elif h == "mfc":
                 resp = self._handle_mfc(req)
-            elif h in ("save", "ckpt", "restore", "evaluate"):
+            elif h == "save":
+                self._save_model()
+                resp = {"ok": True}
+            elif h == "evaluate":
+                resp = self._evaluate_model()
+            elif h in ("ckpt", "restore"):
                 raise _not_ported(h)
             elif h == "clear_data_cache":
                 self.data_manager.clear(req.data)

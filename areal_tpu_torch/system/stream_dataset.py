@@ -85,9 +85,10 @@ class PullerStreamDataset:
                     "WAL replay: %d in-flight trajectories survived restart",
                     len(self._replayed),
                 )
+        # Set before the pull thread starts: it may take a trajectory at once.
+        self.n_pulled = 0
         self._thread = threading.Thread(target=self._pull_worker, daemon=True)
         self._thread.start()
-        self.n_pulled = 0
 
     def _pull_worker(self):
         while not self._stop.is_set():

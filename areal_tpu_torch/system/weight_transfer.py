@@ -23,8 +23,10 @@ each loads the other's dumps. The port also dumps a tree of torch
 tensors (bfloat16 leaves included, under the dtype name ``bfloat16``).
 It loads a dump as CPU tensors over the mapped file (numpy has no
 bfloat16 without ml_dtypes); the serving engine copies them to its
-device. Not ported: the reference's shard-local dumps (slabs, which wait
-for multi-device), the tmpfs mirror and loading an HF checkpoint.
+device. At the end of the load chain ``load_for_serving`` reads an HF
+checkpoint directory (version -1), as the reference does. Not ported:
+the reference's shard-local dumps (slabs, which wait for multi-device)
+and the tmpfs mirror.
 """
 
 from __future__ import annotations
@@ -490,9 +492,11 @@ def _load_once(
             params = pickle.load(f)["params"]
         return params, {"source": "pickle", "version": -1,
                         "load_s": time.monotonic() - t0}
-    raise NotImplementedError(
-        f"{model_path} holds no raw dump or engine_state.pkl; loading an HF "
-        "checkpoint is not ported yet (ROADMAP Queue A item 2.4)")
+    from areal_tpu_torch.models.hf import load_hf_model
+
+    _, params = load_hf_model(model_path)
+    return params, {"source": "hf", "version": -1,
+                    "load_s": time.monotonic() - t0}
 
 
 def load_for_serving(
@@ -504,7 +508,8 @@ def load_for_serving(
 ) -> Tuple[Any, Dict[str, Any]]:
     """Load params for a generation server's weight update, fastest source
     first: ``shm_dir`` raw dump, ``model_path`` raw dump, ``model_path``
-    pickle (``engine_state.pkl``). Returns (params, info) with the source
+    pickle (``engine_state.pkl``), ``model_path`` as an HF checkpoint
+    directory (float32 CPU tensors). Returns (params, info) with the source
     and load seconds for ``/metrics``.
 
     With ``want_version`` set, the loaded dump's version must match it: a

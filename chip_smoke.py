@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--out report.json] [--profile-serving]
         [--phases build,parity,serve_bf16,serve_int8,interrupt,http,grad,train,workers,
-                  async_ppo,disagg,weight_plane]
+                  async_ppo,disagg,weight_plane,sft]
 
 Phases (every one must pass; the script exits nonzero on the first that
 fails, and on a machine without CUDA):
@@ -48,7 +48,8 @@ fails, and on a machine without CUDA):
                  LocalController(ExperimentConfig).run(): a spawned model
                  worker loads the actor from an HF directory of seeded
                  random weights at the full width and 7 of the 28
-                 layers (the async_ppo phase runs all 28; float32
+                 layers (the sft phase trains the same engine through the
+                 worker system at all 28; float32
                  params, bf16 compute) and pulls 2 steps of the train
                  phase's PPO batch, pushed from this process as a
                  rollout worker would; the master runs 2 actor_train
@@ -66,7 +67,7 @@ fails, and on a machine without CUDA):
                  rollout worker running the math agent and env over a
                  seeded prompt set under a tiny tokenizer, and a model
                  worker training the actor at full width and 7 of the 28
-                 layers (the weight_plane phase runs the loop at all 28;
+                 layers (the weight_plane phase runs the loop at 7 too;
                  float32 params, bf16 compute) for 2 steps at
                  max_head_offpolicyness 1. The fanout must land versions
                  1 and 2 on the server, every trained sample must be within
@@ -74,8 +75,8 @@ fails, and on a machine without CUDA):
                  paged_decode_bf16 in the server and of the forward, both
                  backward kernels and packed_gae_f32 in the model worker
                  must be > 0.
-11. disagg     - disaggregated serving at full width and 14 of the 28
-                 layers (since PR 10, for the run's time limit): a prefill
+11. disagg     - disaggregated serving at full width and 7 of the 28
+                 layers (for the run's time limit): a prefill
                  server P (bf16 pool), decode servers D (bf16 pool, a KV
                  tier, a small prefix budget) and D8 (int8 pool), a
                  unified server U (the drain target) behind the gserver
@@ -95,26 +96,47 @@ fails, and on a machine without CUDA):
                  burst makes the sizer re-role U and routing follows.
                  Launches of the forward, paged_decode_bf16 and
                  paged_decode_int8 in the fleet must be > 0.
-12. weight_plane - the weight-distribution plane at full width and
-                 depth: (a) this process dumps version 1 of perturbed
-                 float32 params with the int8 companion and serves it from
-                 a WeightPlaneSource registered as a trainer's; three
-                 GenerationServer processes behind a GserverManager with
-                 weight_plane=True at fanout degree 1 (the chain origin ->
-                 S0 -> S1 -> S2) serve a greedy wave while it fans out and
-                 cuts over: requests in flight come back interrupted and
-                 finish on version 1, each server's greedy tokens equal an
-                 engine's on the dumped params, the origin sends one
-                 payload and the peers two; (b) version 2 on the int8 wire
-                 to two servers by /distribute_weights and /cutover_weights:
-                 the held leaves equal dequantize_wire_leaf(
-                 quantize_wire_leaf(x)) bit for bit and the greedy tokens an
-                 engine's on them; (c) the async RL loop of phase 10 at 28
-                 layers with gen_weight_plane=true, two servers at fanout
-                 degree 1: versions 1 and 2 land on both through the plane.
+12. weight_plane - the weight-distribution plane at full width and 14
+                 of the 28 layers: (a) this process dumps version 1 of
+                 perturbed float32 params with the int8 companion and
+                 serves it from a WeightPlaneSource registered as a
+                 trainer's; three GenerationServer processes behind a
+                 GserverManager with weight_plane=True at fanout degree 1
+                 (the chain origin -> S0 -> S1 -> S2) serve a greedy wave
+                 while it fans out and cuts over: requests in flight come
+                 back interrupted and finish on version 1, each server's
+                 greedy tokens equal an engine's on the dumped params, the
+                 origin sends one payload and the peers two; (b) version
+                 2 on the int8 wire to two servers by /distribute_weights
+                 and /cutover_weights: the held leaves equal
+                 dequantize_wire_leaf(quantize_wire_leaf(x)) bit for bit
+                 and the greedy tokens an engine's on them; (c) the async
+                 RL loop of phase 10 at 7 layers and max_head_offpolicyness
+                 0 with gen_weight_plane=true, two servers at fanout
+                 degree 1: versions 1 and 2 land on both through the
+                 plane. Both depths were cut since the sft phase joined
+                 the default run.
                  The forward and paged_decode_bf16 must launch on every
                  server after its last cutover, and the loop's four kernels
                  (forward, both backward kernels, packed_gae_f32) > 0.
+13. sft        - supervised fine-tuning through the port's entry point,
+                 areal_tpu_torch.training.main_sft.main(argv) with the
+                 reference's override keys, at the full width and all 28
+                 layers (float32 params, bf16 compute, remat): a model
+                 worker loads an HF directory of seeded random weights and
+                 64 prompt/answer rows (prompts of 256-1024 and answers of
+                 128-512 tokens under a tiny tokenizer), trains 3 steps of
+                 16 sequences, saves in the HF format and answers the
+                 "evaluate" broadcast. The save must hold its config,
+                 weights and tokenizer, every leaf finite and moved;
+                 SFTInterface.evaluate over the 64 rows must read a lower
+                 eval_loss on it than on the initial weights; a
+                 GenerationServer on the save (model_path) and one that
+                 takes it through /update_weights_from_disk ("source":
+                 "hf") must give an engine's greedy tokens on the saved
+                 params. The forward and both backward kernels in the
+                 worker, and the forward and paged_decode_bf16 in the
+                 servers, must launch.
 
 Before the last line it prints the card's name and power limit (as
 nvidia-smi reports them) and one {"kernels": [...]} JSON line; the last
@@ -173,7 +195,7 @@ GAE_PLAN_SHAPES = ((64, 4096), (4096, 4096), (66, 8192), (66, 16384), (132, 1638
 # compute end to end: per leaf, against the leaf's largest reference value.
 LEAF_TOL = 5e-2
 PHASES = ("build", "parity", "serve_bf16", "serve_int8", "interrupt", "http", "grad", "train",
-          "workers", "async_ppo", "disagg", "weight_plane")
+          "workers", "async_ppo", "disagg", "weight_plane", "sft")
 # The train phase at real size; a rehearsal on the CPU passes smaller ones.
 TRAIN_SIZES = dict(n_prompts=8, group=4, prompt=(128, 512), response=(256, 3072),
                    row_len=4096, max_tokens_per_mb=16384, n_minibatches=4,
@@ -2159,31 +2181,36 @@ ASYNC_SIZES = dict(n_prompts=64, prompt=(256, 1024), train_batch_size=8, group=4
                    max_new_tokens=256, offpolicy=1, steps=2, slots=16, max_seq_len=4096,
                    row_len=4096, max_tokens_per_mb=16384, n_minibatches=4, words=400)
 ASYNC_TIMEOUT_S = 900.0
-# The async_ppo phase's depth since PR 10 (the weight_plane phase runs the
-# loop at all 28 layers), and the disagg phase's: cut to keep the default
-# run inside its time limit.
+# The async_ppo phase's depth (the weight_plane phase runs the loop at 7
+# layers too, the sft phase the trainer at 28): cut to keep the default run
+# inside its time limit.
 ASYNC_LAYERS = 7
 
 
 def tiny_tokenizer(rng, save_dir, n_words):
-    """A WordPiece tokenizer trained on a seeded corpus of `n_words`
-    distinct words and the digits (the shape of tests.fixtures'
-    train_tiny_tokenizer), saved as an HF tokenizer in `save_dir`; each
-    word is one token. Returns the words."""
+    """A WordPiece tokenizer over a seeded vocabulary, saved as an HF
+    tokenizer in `save_dir`: `n_words` distinct words, the numbers 0-99
+    and the words of the math prompts, each one token, and the single
+    characters (alone and as "##" continuations) that spell anything
+    else. The vocabulary is built, not trained (the trainer's ids follow
+    its hash order, which changes from process to process), so a seed
+    gives the same ids in every run. Returns the words."""
+    import string
+
     from tokenizers import Tokenizer
     from tokenizers.models import WordPiece
     from tokenizers.pre_tokenizers import Whitespace
-    from tokenizers.trainers import WordPieceTrainer
     from transformers import PreTrainedTokenizerFast
 
     letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
     words = sorted({"".join(rng.choice(letters, int(rng.integers(3, 8))))
                     for _ in range(n_words)})
-    corpus = [" ".join(words), " ".join(str(d) for d in range(100)), "the answer is boxed"]
-    tok = Tokenizer(WordPiece(unk_token="[UNK]"))
+    chars = list(string.ascii_lowercase + string.digits + string.punctuation)
+    vocab = ["[UNK]", "[EOS]", *words, *map(str, range(100)),
+             *"the answer is boxed what plus".split(), *chars, *("##" + c for c in chars)]
+    tok = Tokenizer(WordPiece({t: i for i, t in enumerate(dict.fromkeys(vocab))},
+                              unk_token="[UNK]"))
     tok.pre_tokenizer = Whitespace()
-    tok.train_from_iterator(corpus, WordPieceTrainer(
-        vocab_size=len(words) + 256, min_frequency=0, special_tokens=["[UNK]", "[EOS]"]))
     os.makedirs(save_dir, exist_ok=True)
     path = os.path.join(save_dir, "tokenizer.json")
     tok.save(path)
@@ -2478,7 +2505,10 @@ DISAGG_SIZES = dict(wave=16, prompt=(1025, 3072), new=128, cont=6, fresh=64, con
                     tier_mb=4096, bytes_prompt=1024, burst=32, burst_prompt=3000,
                     burst_new=32, rerole_high=16384)
 DISAGG_TIMEOUT_S = 300.0
-DISAGG_LAYERS = 14
+# Cut in depth for the run's time limit: 14 since PR 10, 7 since the sft
+# phase joined the default run (the gates count tokens and pages, not
+# layers).
+DISAGG_LAYERS = 7
 
 
 def http_raw(url, headers=None, timeout=120.0):
@@ -3023,18 +3053,37 @@ def disagg_phase(torch, rng, dev, cfg, seed, card, sizes=DISAGG_SIZES):
 # ----------------------------------------------------------------------
 
 # The serving configuration behind the plane; the in-flight wave (two
-# client threads a server, 256 greedy tokens a request), the greedy
-# checks, and the plane's 8 MiB chunks.
+# client threads a server, 3072 greedy tokens a request), the greedy
+# checks, and the plane's 8 MiB chunks. The wave's requests are long
+# against the fanout (3072 tokens take ~2 min at 28 layers, where three
+# servers sharing the card decode ~25-30 tokens/s a request, against a ~1
+# min fanout; about half of both at 14 layers), so a server almost never
+# cuts over at a request boundary. At 256 tokens a server could swap in the
+# gap between two requests (an idle engine swaps at once) or in the block
+# that ends them, and its clients then saw no interrupted reply.
 PLANE_SIZES = dict(slots=16, max_seq_len=4096, page=128, chunk=1024, wave_threads=2,
-                   wave_prompt=(256, 1024), wave_new=256, resume_new=16,
+                   wave_prompt=(256, 1024), wave_new=3072, resume_new=16,
                    greedy_lens=(300, 1200), greedy_new=32, chunk_bytes=8 << 20)
 PLANE_TIMEOUT_S = 600.0
+# The depths of the plane's fleet, (a) and (b), and of (c), the async loop
+# over the plane: cut from 28 since the sft phase joined the default run,
+# to keep it inside the run's limit.
+PLANE_FLEET_LAYERS = 14
+PLANE_LOOP_LAYERS = 7
+# (c) runs at max_head_offpolicyness 0: the rollouts of step 2 start only
+# once v1 has landed, so v1's fanout ends before the trainer can finish.
+# At 1 the trainer could finish step 2 while v1 was still in flight from
+# its source, which closes with the model worker; the manager then fans
+# out the newest version, v2, and v1 never lands on the servers.
+PLANE_LOOP_SIZES = dict(ASYNC_SIZES, offpolicy=0)
 
 
-def greedy_tokens(torch, engine_or_url, cfg, reqs, dev=None, sz=PLANE_SIZES):
-    """{qid: greedy output ids}, one request at a time, from a server URL
-    over HTTP or from a ServingEngine built here on `engine_or_url` (a
-    param tree) with the server's configuration."""
+def greedy_tokens(torch, engine_or_url, cfg, reqs, dev=None, sz=PLANE_SIZES,
+                  eos_token_id=None, phase="weight_plane"):
+    """One request at a time: from a server URL over HTTP, {qid: (greedy
+    output ids, version_start, version_end)}; from a ServingEngine built
+    here on `engine_or_url` (a param tree) with the server's
+    configuration and `eos_token_id`, {qid: greedy output ids}."""
     from areal_tpu_torch.engine.serving import GenRequest, ServingEngine
 
     out = {}
@@ -3042,13 +3091,13 @@ def greedy_tokens(torch, engine_or_url, cfg, reqs, dev=None, sz=PLANE_SIZES):
         for r in reqs:
             status, _, reply = http_call(engine_or_url, "/generate", generate_body(r))
             if status != 200:
-                raise AssertionError(f"weight_plane: /generate {r.qid}: {status} {reply}")
+                raise AssertionError(f"{phase}: /generate {r.qid}: {status} {reply}")
             out[r.qid] = (reply["output_ids"], reply["version_start"], reply["version_end"])
         return out
     engine = ServingEngine(cfg=cfg, params=engine_or_url, max_batch_size=sz["slots"],
                            max_seq_len=sz["max_seq_len"], decode_block_steps=16,
-                           eos_token_id=None, page_size=sz["page"], prefill_chunk=sz["chunk"],
-                           device=dev)
+                           eos_token_id=eos_token_id, page_size=sz["page"],
+                           prefill_chunk=sz["chunk"], device=dev)
     engine.start()
     try:
         for r in reqs:
@@ -3062,7 +3111,7 @@ def greedy_tokens(torch, engine_or_url, cfg, reqs, dev=None, sz=PLANE_SIZES):
 
 
 def weight_plane_phase(torch, rng, dev, cfg, seed, card, sizes=PLANE_SIZES,
-                       loop_sizes=ASYNC_SIZES):
+                       loop_sizes=PLANE_LOOP_SIZES, loop_layers=PLANE_LOOP_LAYERS):
     """The weight-distribution plane through the port's workers:
 
     (a) this process dumps version 1 of perturbed float32 params
@@ -3084,8 +3133,9 @@ def weight_plane_phase(torch, rng, dev, cfg, seed, card, sizes=PLANE_SIZES,
         tokens equal an engine's on those params;
     (c) the async RL loop through ``main_async_ppo.main(argv)`` with
         ``gen_weight_plane=true``, two servers at fanout degree 1
-        (``async_ppo_phase`` with ``plane``): versions 1 and 2 land on
-        both servers through the plane.
+        (``async_ppo_phase`` with ``plane``), at ``loop_layers`` of the
+        model's layers and ``loop_sizes`` (max_head_offpolicyness 0):
+        versions 1 and 2 land on both servers through the plane.
 
     The forward and paged decode kernels must launch in every server
     after its last cutover (the exit records split the counts there)."""
@@ -3376,8 +3426,8 @@ def weight_plane_phase(torch, rng, dev, cfg, seed, card, sizes=PLANE_SIZES,
         # (c) The async RL loop over the plane.
         log("  the async RL loop with gen_weight_plane=true, two servers, fanout degree 1")
         t0 = time.perf_counter()
-        loop = async_ppo_phase(torch, rng, dev, cfg, seed, card, sizes=loop_sizes,
-                               plane=dict(wire=None))
+        loop = async_ppo_phase(torch, rng, dev, dataclasses.replace(cfg, n_layers=loop_layers),
+                               seed, card, sizes=loop_sizes, plane=dict(wire=None))
         loop["phase_s"] = time.perf_counter() - t0
         stats["loop"] = loop
         stats["launches"] = {n: launches[n] + loop["launches"][n] for n in launches}
@@ -3397,10 +3447,348 @@ def weight_plane_phase(torch, rng, dev, cfg, seed, card, sizes=PLANE_SIZES,
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def cast_tree(tree, dtype):
+# ----------------------------------------------------------------------
+# Phase 13: supervised fine-tuning through main_sft, saved and served
+# ----------------------------------------------------------------------
+
+# The sft phase at real size; a rehearsal on the CPU passes smaller ones.
+# The reference's override keys, as a user would pass them.
+SFT_SIZES = dict(n_rows=64, prompt=(256, 1024), answer=(128, 512), max_length=2048,
+                 train_batch_size=16, steps=3, words=400, row_len=4096,
+                 max_tokens_per_mb=16384, lr=1e-4, slots=16, max_seq_len=4096, page=128,
+                 chunk=1024, n_greedy=8, greedy_lens=(300, 1200), greedy_new=32)
+SFT_TIMEOUT_S = 600.0
+
+
+def sft_rows(rng, n, sizes, words):
+    """`n` prompt/answer rows of seeded words (one token a word under the
+    tiny tokenizer)."""
+    return [dict(id=f"r{i}", prompt=" ".join(rng.choice(words, _draw(rng, sizes["prompt"]))),
+                 answer=" ".join(rng.choice(words, _draw(rng, sizes["answer"]))))
+            for i in range(n)]
+
+
+def sft_phase(torch, rng, dev, cfg, seed, card, sizes=SFT_SIZES):
+    """Supervised fine-tuning through the port's entry point,
+    areal_tpu_torch.training.main_sft.main(argv), with the reference's
+    override keys: a spawned model worker loads the model from an HF
+    directory of seeded random weights (bf16 on disk; float32 params,
+    bf16 compute, remat) and the prompt/answer jsonl, trains ``steps`` SFT steps, saves the model
+    in the HF format at ``exp_ctrl.save_freq_steps`` and answers the
+    ``exp_ctrl.eval_freq_steps`` "evaluate" broadcast as the reference's
+    worker does (its reply, dropped by the master, is logged). Then the
+    save is checked: its config reads back, every leaf is finite and
+    moved, ``SFTInterface.evaluate`` over the same rows reads a lower
+    ``eval_loss`` on it than on the initial weights, a GenerationServer
+    started on it (``model_path``) answers greedy requests over HTTP equal
+    to an engine's on the params read back from ``model.safetensors``, and
+    a server started on the initial weights takes it through
+    ``/update_weights_from_disk`` (``"source": "hf"``) with the same
+    tokens."""
+    import shutil
+    import tempfile
+
+    from areal_tpu_torch import kernels, torch_dtype
+    from areal_tpu_torch.api.config import ModelAbstraction
+    from areal_tpu_torch.api.data_api import (DatasetUtility, PackedDataLoader,
+                                              load_hf_tokenizer)
+    from areal_tpu_torch.api.model_api import Model, ModelName
+    from areal_tpu_torch.api.system_api import GenerationServerConfig
+    from areal_tpu_torch.datasets.prompt_answer import PromptAnswerDataset
+    from areal_tpu_torch.engine.optimizer import tree_leaves
+    from areal_tpu_torch.engine.serving import GenRequest
+    from areal_tpu_torch.engine.torch_engine import TorchTrainEngine
+    from areal_tpu_torch.interfaces.sft import SFTInterface
+    from areal_tpu_torch.models.hf import load_hf_config, load_hf_model, save_hf_model
+    from areal_tpu_torch.models.hf.qwen2 import config_from_hf
+    from areal_tpu_torch.models.transformer import init_params
+    from areal_tpu_torch.system import master_worker
+    from areal_tpu_torch.system.generation_server import GenerationServer
+    from areal_tpu_torch.training import main_sft
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sft_")
+    exp, trial = os.path.basename(tmp), "sft"
+    fileroot = os.path.join(tmp, "fileroot")
+    env = {"AREAL_FILEROOT": fileroot}
+    saved_env = {k: os.environ.get(k) for k in env}
+    stats = dict(card=card)
+    servers = []
+    t_phase = time.perf_counter()
+    try:
+        t0 = time.perf_counter()
+        hf_dir = os.path.join(tmp, "hf")
+        words = tiny_tokenizer(rng, hf_dir, sizes["words"])
+        # bf16 on disk (half the bytes to write and read); the model worker
+        # trains float32 params from it.
+        params = init_params(cfg, seed=seed, device=dev, dtype=torch.bfloat16)
+        save_hf_model(hf_dir, cfg, params, "qwen2")
+        del params
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        data = os.path.join(tmp, "sft.jsonl")
+        with open(data, "w") as f:
+            f.writelines(json.dumps(r) + "\n" for r in sft_rows(rng, sizes["n_rows"], sizes,
+                                                                 words))
+        stats["setup_s"] = time.perf_counter() - t0
+        argv = [
+            f"experiment_name={exp}", f"trial_name={trial}", f"seed={seed}",
+            f"name_resolve_root={os.path.join(tmp, 'name_resolve')}",
+            f"model.path={hf_dir}", f"tokenizer_path={hf_dir}",
+            f"dataset.path={data}", f"dataset.max_length={sizes['max_length']}",
+            f"train_batch_size={sizes['train_batch_size']}",
+            f"exp_ctrl.benchmark_steps={sizes['steps']}",
+            f"exp_ctrl.save_freq_steps={sizes['steps']}",
+            f"exp_ctrl.eval_freq_steps={sizes['steps']}",
+            f"model.optimizer.lr={sizes['lr']}", "model.optimizer.warmup_steps_proportion=0.0",
+            f"model.row_len_multiple={sizes['row_len']}", f"model.max_row_len={sizes['row_len']}",
+            f"mb_spec_max_tokens={sizes['max_tokens_per_mb']}", f"device={dev.type}",
+        ]
+        log(f"  main_sft {' '.join(argv)}")
+        # The master runs in this process: time its save and evaluate
+        # broadcasts (each waits for the worker's reply) and keep the replies.
+        broadcasts = []
+        inner = master_worker.MasterWorker._broadcast
+
+        def timed(self, handle, timeout=3600):
+            t = time.perf_counter()
+            out = inner(self, handle, timeout)
+            broadcasts.append(dict(step=self.step_info.global_step, handle=handle,
+                                   seconds=time.perf_counter() - t, replies=out))
+            return out
+
+        os.environ.update(env)
+        master_worker.MasterWorker._broadcast = timed
+        t0 = time.perf_counter()
+        try:
+            result = main_sft.main(argv, worker_env=env, timeout=SFT_TIMEOUT_S)
+        finally:
+            master_worker.MasterWorker._broadcast = inner
+        stats["run_s"] = time.perf_counter() - t0
+        summary = result["perf_summary"]
+        steps = [s["trainDefault"] for s in summary["mfc_stats"]]
+        if result["global_step"] != sizes["steps"] or len(steps) != sizes["steps"]:
+            raise AssertionError(f"sft: {result['global_step']} steps, {len(steps)} reported")
+        bad = [k for s in steps for k, v in s.items() if not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"sft: non-finite MFC stats {bad}")
+        by_handle = {b["handle"]: b for b in broadcasts if b["handle"] != "exit"}
+        if sorted(by_handle) != ["evaluate", "save"] or len(broadcasts) != 3:
+            raise AssertionError(f"sft: broadcasts {[(b['step'], b['handle']) for b in broadcasts]}")
+        if by_handle["save"]["replies"] != [{"ok": True}]:
+            raise AssertionError(f"sft: the save replied {by_handle['save']['replies']}")
+        log(f"  the worker's reply to the step-{by_handle['evaluate']['step']} \"evaluate\" "
+            f"broadcast (the reference's handler passes no eval loader; the master drops "
+            f"it): {by_handle['evaluate']['replies']}")
+
+        # The save.
+        save_dir = os.path.join(fileroot, "checkpoints", exp, trial, "default",
+                                f"step{sizes['steps']}", "dp0")
+        missing = {"config.json", "model.safetensors", "tokenizer.json",
+                   "tokenizer_config.json"} - set(os.listdir(save_dir))
+        if missing:
+            raise AssertionError(f"sft: {save_dir} lacks {sorted(missing)}")
+        got_cfg = {k: v for k, v in dataclasses.asdict(
+            config_from_hf(load_hf_config(save_dir))).items() if not k.endswith("_dtype")}
+        want_cfg = {k: v for k, v in dataclasses.asdict(cfg).items()
+                    if not k.endswith("_dtype")}
+        if got_cfg != want_cfg:
+            raise AssertionError(f"sft: the saved config reads {got_cfg}, want {want_cfg}")
+        stats["save_bytes"] = sum(os.path.getsize(os.path.join(save_dir, f))
+                                  for f in os.listdir(save_dir))
+        stats["save_s"] = by_handle["save"]["seconds"]
+        # The model learnt: eval_loss on the same rows, initial against
+        # saved, each model on the card in an engine of its own.
+        tok = load_hf_tokenizer(hf_dir)
+        dataset = PromptAnswerDataset(DatasetUtility(seed=seed, tokenizer=tok),
+                                      sizes["max_length"], data)
+        loader = PackedDataLoader(dataset, batch_size=sizes["train_batch_size"], shuffle=False)
+        batches = [loader.next_batch()[0] for _ in range(len(loader))]
+        # The tokens each step trained on: the model worker's loader, replayed.
+        loader = PackedDataLoader(dataset, batch_size=sizes["train_batch_size"], seed=seed)
+        step_tokens = [loader.next_batch()[0].total_seqlen() for _ in steps]
+        evals, engines = {}, {}
+        for name, path in (("initial", hf_dir), ("saved", save_dir)):
+            t0 = time.perf_counter()
+            ecfg, eparams = load_hf_model(path)
+            load_s = time.perf_counter() - t0
+            engines[name] = TorchTrainEngine(ecfg, eparams, remat="none",
+                                             row_len_multiple=sizes["row_len"],
+                                             max_row_len=sizes["row_len"], device=dev)
+            del eparams
+            evals[name] = SFTInterface().evaluate(
+                Model(name=ModelName("default", 0), module=engines[name], tokenizer=tok),
+                batches)
+            evals[name].update(seconds=time.perf_counter() - t0, host_load_s=load_s)
+        stats["eval"] = evals
+        if not evals["saved"]["eval_loss"] < evals["initial"]["eval_loss"]:
+            raise AssertionError(f"sft: eval_loss did not fall: {evals}")
+        # The saved weights: every leaf finite and moved from the initial one.
+        saved_cfg = engines["saved"].model_cfg
+        trained = engines["saved"].get_params()
+        init = engines.pop("initial").get_params()
+        names_ = leaf_paths(trained)
+        if names_ != leaf_paths(init):
+            raise AssertionError("sft: the saved tree differs from the initial one")
+        still = [k for k, a, b in zip(names_, tree_leaves(trained), tree_leaves(init))
+                 if torch.equal(a, b)]
+        nonfinite = [k for k, a in zip(names_, tree_leaves(trained))
+                     if not torch.isfinite(a).all()]
+        if still or nonfinite:
+            raise AssertionError(f"sft: leaves that did not move {still}, non-finite "
+                                 f"{nonfinite}")
+        del init
+        # As the servers will hold them: the saved params in the compute
+        # dtype, kept on the host while the servers run so that their peak
+        # device memory is their own.
+        with torch.no_grad():
+            trained = cast_tree(trained, torch_dtype(saved_cfg.compute_dtype),
+                                device=torch.device("cpu"))
+        engines.clear()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        # Serving the save: from model_path, and through a weight update.
+        eos = tok.eos_token_id
+        reqs = [GenRequest(qid=f"sft{i}", max_new_tokens=sizes["greedy_new"], greedy=True,
+                           input_ids=rng.integers(0, cfg.vocab_size,
+                                                  _draw(rng, sizes["greedy_lens"])).tolist())
+                for i in range(sizes["n_greedy"])]
+        serve_kw = dict(max_concurrent_requests=sizes["slots"], max_seq_len=sizes["max_seq_len"],
+                        kv_page_size=sizes["page"], decode_block_steps=16,
+                        prefill_chunk=sizes["chunk"], seed=seed, device=str(dev))
+
+        def start_server(index, model_path):
+            gcfg = GenerationServerConfig(
+                experiment_name=exp, trial_name="serve", server_index=index,
+                model=ModelAbstraction("tpu_transformer", args={}), model_path=model_path,
+                **serve_kw)
+            server = GenerationServer()
+            t = time.perf_counter()
+            server.configure(gcfg, experiment_name=exp, trial_name=gcfg.trial_name,
+                             worker_name=gcfg.worker_name)
+            run = threading.Thread(target=server.run, daemon=True)
+            run.start()
+            servers.append((server, run))
+            return server, time.perf_counter() - t
+
+        def over_http(url):
+            return {q: ids for q, (ids, _, _) in
+                    greedy_tokens(torch, url, None, reqs, phase="sft").items()}
+
+        def stop(server):
+            server.exit()
+            for s, run in servers:
+                if s is server:
+                    run.join(timeout=120)
+            servers[:] = [(s, r) for s, r in servers if s is not server]
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+
+        # Each server's peak device memory: the process's peak while it
+        # runs, less what the process held before it started.
+        held = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+        stats["held_gb"] = held / 1e9
+        stats["server_peak_gb"] = {}
+
+        def peak_reset():
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+
+        def peak_read(name):
+            stats["server_peak_gb"][name] = (
+                (torch.cuda.max_memory_allocated(dev) - held) / 1e9 if dev.type == "cuda"
+                else 0.0)
+
+        kernels.reset_launches()
+        peak_reset()
+        server, stats["server_start_s"] = start_server(0, save_dir)
+        from_path = over_http(server.address)
+        stop(server)
+        peak_read("model_path")
+        peak_reset()
+        server, _ = start_server(1, hf_dir)
+        status, _, upd = http_call(server.address, "/update_weights_from_disk",
+                                   {"model_path": save_dir, "allow_interrupt": True})
+        if status != 200 or not upd.get("success") or upd["source"] != "hf":
+            raise AssertionError(f"sft: weight update from the save: {status} {upd}")
+        from_update = over_http(server.address)
+        stop(server)
+        peak_read("update")
+        server_counts = dict(kernels.launches)
+
+        direct = greedy_tokens(torch, cast_tree(trained, None, device=dev), saved_cfg, reqs,
+                               dev, sizes, eos_token_id=eos, phase="sft")
+        del trained
+        if from_path != direct or from_update != direct:
+            raise AssertionError(
+                f"sft: greedy tokens differ from the engine's on the saved params: from "
+                f"model_path {sum(from_path[q] == direct[q] for q in direct)}/{len(direct)}, "
+                f"through the update {sum(from_update[q] == direct[q] for q in direct)}/"
+                f"{len(direct)} equal")
+
+        worker_counts = {k: int(sum(s.get(f"launches/{k}", 0) for s in steps))
+                         for k in server_counts}
+        if dev.type == "cuda":
+            for k in ("flash_attn_fwd_bf16", "flash_attn_bwd_dq_bf16",
+                      "flash_attn_bwd_dkv_bf16"):
+                if worker_counts[k] <= 0:
+                    raise AssertionError(f"sft: kernel {k} was not launched in the model worker")
+            for k in ("flash_attn_fwd_bf16", "paged_decode_bf16"):
+                if server_counts[k] <= 0:
+                    raise AssertionError(f"sft: kernel {k} was not launched by the servers")
+        n_resp = [s["sft/n_tokens"] for s in steps]
+        e2e = [h[0] for h in summary["history"]]
+        stats.update(
+            step_e2e_s=e2e, mfc_sec=[s["perf/sec"] for s in steps], step_tokens=step_tokens,
+            response_tokens=n_resp,
+            train_tok_per_s=[n / s["perf/sec"] for n, s in zip(step_tokens, steps)],
+            loss=[s["sft/loss"] for s in steps], eval_s=by_handle["evaluate"]["seconds"],
+            load_s=upd["load_s"],
+            worker_peak_gb=max(s["perf/mem_peak_bytes_in_use"] for s in steps) / 1e9,
+            server_launches=server_counts, worker_launches=worker_counts,
+            launches={k: worker_counts[k] + server_counts[k] for k in worker_counts},
+            greedy_tokens=sum(map(len, direct.values())))
+        stats["phase_s"] = time.perf_counter() - t_phase
+        log(f"  {sizes['steps']} SFT steps through main_sft in {stats['run_s']:.1f} s (worker "
+            f"start, HF load, steps, save, evaluate, exit): step e2e "
+            f"{[round(x, 3) for x in e2e]} s, MFC perf/sec "
+            f"{[round(x, 3) for x in stats['mfc_sec']]} s, tokens {step_tokens} (loss tokens "
+            f"{[int(x) for x in n_resp]}), train tokens/s "
+            f"{[round(x, 1) for x in stats['train_tok_per_s']]}, loss "
+            f"{[round(x, 4) for x in stats['loss']]}; worker peak device memory "
+            f"{stats['worker_peak_gb']:.2f} GB; {card}")
+        log(f"  HF save of step {sizes['steps']}: {stats['save_s']:.2f} s for "
+            f"{stats['save_bytes']} bytes ({stats['save_bytes'] / stats['save_s'] / 1e9:.2f} "
+            f"GB/s, the master's wait on the broadcast); evaluate broadcast "
+            f"{stats['eval_s']:.3f} s; eval_loss initial {evals['initial']['eval_loss']:.5f}, "
+            f"saved {evals['saved']['eval_loss']:.5f} over {evals['saved']['eval_n_tokens']:.0f} "
+            f"response tokens ({evals['initial']['seconds']:.1f} / "
+            f"{evals['saved']['seconds']:.1f} s with the load)")
+        log(f"  servers: started on the save in {stats['server_start_s']:.1f} s; the update "
+            f"from the save load_s {stats['load_s']:.3f} (source hf); {len(reqs)} greedy "
+            f"requests over HTTP equal the engine's on the saved params both ways "
+            f"({stats['greedy_tokens']} tokens); peak device memory of each server (GB, "
+            f"beyond the {stats['held_gb']:.2f} GB this process held before) "
+            f"{ {k: round(v, 2) for k, v in stats['server_peak_gb'].items()} }; launches in "
+            f"the model worker {worker_counts}, "
+            f"in the servers {server_counts}; phase wall {stats['phase_s']:.1f} s; {card}")
+        return stats
+    finally:
+        for server, run in servers:
+            server.exit()
+            run.join(timeout=120)
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def cast_tree(tree, dtype, device=None):
     if isinstance(tree, dict):
-        return {k: cast_tree(v, dtype) for k, v in tree.items()}
-    return tree.to(dtype)
+        return {k: cast_tree(v, dtype, device) for k, v in tree.items()}
+    return tree.to(device=device, dtype=dtype)
 
 
 def kernel_entry_name(mangled: str) -> str:
@@ -3556,8 +3944,9 @@ def main() -> int:
     if "workers" in phases:
         log("phase workers")
         t0 = time.perf_counter()
-        # Cut in depth: the async_ppo phase runs the same trainer, dump
-        # and server load at all 28 layers.
+        # Cut in depth: the sft phase runs the same engine through the
+        # worker system at all 28 layers, the async_ppo phase the same dump
+        # and server load.
         report["phases"]["workers"] = workers_phase(
             torch, np.random.default_rng([args.seed, 5]), dev,
             dataclasses.replace(cfg, n_layers=WORKERS_LAYERS), args.seed, card)
@@ -3571,8 +3960,8 @@ def main() -> int:
     if "async_ppo" in phases:
         log("phase async_ppo")
         t0 = time.perf_counter()
-        # Cut in depth: the weight_plane phase runs the same loop at all 28
-        # layers (over the plane).
+        # Cut in depth: the weight_plane phase runs the same loop, over
+        # the plane, at PLANE_LOOP_LAYERS.
         report["phases"]["async_ppo"] = async_ppo_phase(
             torch, np.random.default_rng([args.seed, 7]), dev,
             dataclasses.replace(cfg, n_layers=ASYNC_LAYERS), args.seed, card)
@@ -3587,7 +3976,7 @@ def main() -> int:
         log("phase disagg")
         t0 = time.perf_counter()
         torch.cuda.empty_cache()
-        # Cut in depth since PR 10 (DISAGG_LAYERS): the run's time limit.
+        # Cut in depth (DISAGG_LAYERS): the run's time limit.
         report["phases"]["disagg"] = disagg_phase(
             torch, np.random.default_rng([args.seed, 8]), dev,
             dataclasses.replace(cfg, n_layers=DISAGG_LAYERS), args.seed, card)
@@ -3603,14 +3992,15 @@ def main() -> int:
         t0 = time.perf_counter()
         torch.cuda.empty_cache()
         wp = report["phases"]["weight_plane"] = weight_plane_phase(
-            torch, np.random.default_rng([args.seed, 9]), dev, cfg, args.seed, card)
+            torch, np.random.default_rng([args.seed, 9]), dev,
+            dataclasses.replace(cfg, n_layers=PLANE_FLEET_LAYERS), args.seed, card)
         # The plane is a main path of its own: its launches add.
         for k, n in wp["launches"].items():
             if n:
                 main_counts[k] = main_counts.get(k, 0) + n
         loop = wp["loop"]
         disk = report["phases"].get("async_ppo")
-        log(f"  the loop over the plane (28 layers): step e2e "
+        log(f"  the loop over the plane ({PLANE_LOOP_LAYERS} layers): step e2e "
             f"{[round(x, 3) for x in loop['step_e2e_s']]} s, fanouts "
             f"{[round(x, 3) for x in loop['last_weight_sync_s']]} s, dumps "
             f"{[round(x, 2) for x in loop['dump_s']]} s"
@@ -3620,6 +4010,19 @@ def main() -> int:
             + f"; {card}")
         torch.cuda.empty_cache()
         phase_done("weight_plane", t0)
+
+    if "sft" in phases:
+        log("phase sft")
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        report["phases"]["sft"] = sft_phase(torch, np.random.default_rng([args.seed, 10]), dev,
+                                            cfg, args.seed, card)
+        # SFT is a main path of its own: its launches add.
+        for k, n in report["phases"]["sft"]["launches"].items():
+            if n:
+                main_counts[k] = main_counts.get(k, 0) + n
+        torch.cuda.empty_cache()
+        phase_done("sft", t0)
 
     kernels_line = []
     for name, row in kernel_rows.items():

@@ -83,7 +83,7 @@ def test_help_config_lists_the_reference_keys(capsys):
     "recover_mode=auto", "auto_eval=true", "allocation_mode=d2", "agent_type=tool-use",
     "gen_weight_shards=0/1", "gen_elastic_fleet=true", "gen_autoscale=true",
     "gen_tensor_parallel=2", "actor.prefetch_depth=2", "ppo.generation_size=8",
-    "exp_ctrl.save_freq_steps=1",
+    "exp_ctrl.ckpt_freq_steps=1",
 ])
 def test_unported_options_raise(override):
     cfg = cli_args.AsyncPPOMATHExpConfig()

@@ -67,6 +67,10 @@ def test_port_sources_import_no_jax():
     "areal_tpu_torch.system.generation_server, areal_tpu_torch.system.gserver_manager",
     "areal_tpu_torch.engine.weight_client, areal_tpu_torch.system.weight_plane, "
     "areal_tpu_torch.base.chunking, areal_tpu_torch.system.weight_transfer",
+    "areal_tpu_torch.training.main_sft, areal_tpu_torch.experiments.sft_exp, "
+    "areal_tpu_torch.datasets.prompt_answer, areal_tpu_torch.base.timeutil, "
+    "areal_tpu_torch.models.hf.gemma, areal_tpu_torch.models.hf.gpt2, "
+    "areal_tpu_torch.models.hf.mistral, areal_tpu_torch.models.hf.qwen3",
 ])
 def test_importing_the_port_loads_no_jax(modules):
     code = (

@@ -15,6 +15,7 @@ Every wait is bounded (``WAIT_S``) and every socket is closed in
 
 import threading
 import time
+import types
 import uuid
 
 import numpy as np
@@ -104,6 +105,35 @@ def test_trajectories_cross_packages_with_acks(shared_names, direction):
     finally:
         if pusher is not None:
             pusher.close()
+        dataset.close()
+
+
+def test_pull_thread_starts_after_the_dataset_is_built(shared_names, monkeypatch):
+    """The pull thread may take a trajectory as soon as it starts, so every
+    field it updates exists before then (a trajectory pulled before
+    ``n_pulled`` was set killed the thread, and the trainer waited for
+    data that never came)."""
+    fields = ("n_pulled", "_queue", "_held", "_seen", "_wal", "counters")
+    seen = []
+
+    class Probe:
+        def __init__(self, target, daemon):
+            self.target = target
+
+        def start(self):
+            ds = self.target.__self__
+            seen.append({k: hasattr(ds, k) for k in fields})
+
+        def join(self, timeout=None):
+            pass
+
+    monkeypatch.setattr(tsd, "threading", types.SimpleNamespace(
+        Thread=Probe, Event=threading.Event, Lock=threading.Lock))
+    exp, trial = shared_names
+    dataset = tsd.PullerStreamDataset(exp, trial, puller_index=0)
+    try:
+        assert seen == [dict.fromkeys(fields, True)]
+    finally:
         dataset.close()
 
 

@@ -14,7 +14,9 @@ reference on the same inputs:
 - the control socket: a reference ``WorkerControl`` commands a port
   worker's ``WorkerServer``;
 - refusals: the master and model worker refuse the options the port
-  lacks, a model worker on "cuda" without a card raises, and
+  lacks (the save and evaluate frequencies and a worker's datasets, no
+  longer refused, configure as the reference's), a model worker on
+  "cuda" without a card raises, and
   ``LocalController.run(timeout)`` raises ``TimeoutError`` past its
   deadline, and ``RuntimeError`` with the traceback of a worker that
   raised.
@@ -227,11 +229,52 @@ def test_reference_worker_control_commands_a_port_worker(tmp_path):
 
 
 @pytest.mark.parametrize("option", [
-    dict(datasets=[object()]), dict(train_n_hosts=2)])
-def test_model_worker_refuses_unported_options(option):
-    cfg = tsys.ModelWorkerConfig(experiment_name="x", trial_name="t", device="cpu", **option)
-    with pytest.raises(NotImplementedError):
-        ModelWorker()._configure(cfg)
+    dict(datasets="prompt_answer"), dict(train_n_hosts=2)])
+def test_model_worker_refuses_unported_options(option, tmp_path):
+    """train_n_hosts > 1 is refused. A worker with datasets (refused
+    before the SFT slice) loads its DP rank's share and reports that local
+    size, as the reference's worker does on the same config."""
+    if "datasets" not in option:
+        cfg = tsys.ModelWorkerConfig(experiment_name="x", trial_name="t", device="cpu",
+                                     **option)
+        with pytest.raises(NotImplementedError):
+            ModelWorker()._configure(cfg)
+        return
+    from areal_tpu.api import config as rcfg
+    from areal_tpu.api import system_api as rsys
+    from areal_tpu.system.model_worker import ModelWorker as RefModelWorker
+    from areal_tpu_torch.api import config as tcfg
+    from tests import fixtures
+
+    rows = fixtures.make_sft_rows(11, seed=5)
+    fixtures.train_tiny_tokenizer([r["prompt"] + " " + r["answer"] for r in rows],
+                                  tmp_path).save_pretrained(str(tmp_path / "tok"))
+    data = fixtures.write_jsonl(rows, tmp_path / "sft.jsonl")
+    saved = ref_nr._default.repo, name_resolve._default.repo
+    ref_nr.reconfigure("nfs", record_root=str(tmp_path / "nr"))
+    name_resolve.reconfigure("nfs", record_root=str(tmp_path / "nr"))
+    exp = f"mw-{uuid.uuid4().hex[:6]}"
+    kw = dict(experiment_name=exp, trial_name="t0", tokenizer_path=str(tmp_path / "tok"),
+              dataset_dp_rank=1, dataset_dp_size=2, train_batch_size=4)
+    args = dict(dataset_path=data, max_length=12)
+    workers = []
+    try:
+        for i, (cls, sysapi, cfgapi, extra) in enumerate((
+                (ModelWorker, tsys, tcfg, dict(device="cpu")),
+                (RefModelWorker, rsys, rcfg, {}))):
+            w = cls()
+            workers.append(w)
+            w.configure(sysapi.ModelWorkerConfig(
+                worker_index=i, datasets=[cfgapi.DatasetAbstraction(option["datasets"], args)],
+                **kw, **extra), experiment_name=exp, trial_name="t0",
+                worker_name=f"model_worker/{i}")
+        got, want = (w._handle_spec(None) for w in workers)
+        assert got == want == {"dataset_size": 5, "models": []}
+        assert workers[0].dataloader.batch_size == workers[1].dataloader.batch_size == 2
+    finally:
+        for w in workers:
+            w._exit_hook()
+        ref_nr._default.repo, name_resolve._default.repo = saved
 
 
 def test_model_worker_on_cuda_without_a_card_raises(monkeypatch):
@@ -240,14 +283,56 @@ def test_model_worker_on_cuda_without_a_card_raises(monkeypatch):
         ModelWorker()._configure(tsys.ModelWorkerConfig(experiment_name="x", trial_name="t"))
 
 
+class _Clock:
+    def __init__(self):
+        self.now = 1000.0
+
+    def monotonic(self):
+        return self.now
+
+
 @pytest.mark.parametrize("ctl", [dict(save_freq_steps=1), dict(ckpt_freq_epochs=1),
                                  dict(eval_freq_secs=60), dict(recover_mode="auto")])
-def test_master_refuses_save_ckpt_eval_and_recover(ctl):
+def test_master_refuses_save_ckpt_eval_and_recover(ctl, tmp_path, monkeypatch):
+    """Checkpoints and recovery are refused. A save or evaluate frequency
+    (refused before the SFT slice) configures, and the master's control
+    hits at the same steps as the reference's on a scripted run (steps,
+    epoch boundaries and a patched clock)."""
+    from areal_tpu.base import timeutil as rtime
+    from areal_tpu_torch.base import timeutil as ttime
+
     mode = ctl.pop("recover_mode", "disabled")
     cfg = tsys.MasterWorkerConfig(experiment_name="x", trial_name="t", recover_mode=mode,
                                   exp_ctrl=tsys.ExperimentSaveEvalControl(**ctl))
-    with pytest.raises(NotImplementedError):
-        MasterWorker()._configure(cfg)
+    if mode != "disabled" or "ckpt_freq_epochs" in ctl:
+        with pytest.raises(NotImplementedError):
+            MasterWorker()._configure(cfg)
+        return
+    clock = _Clock()
+    monkeypatch.setattr(ttime, "time", clock)
+    monkeypatch.setattr(rtime, "time", clock)
+    saved = name_resolve._default.repo
+    name_resolve.reconfigure("nfs", record_root=str(tmp_path / "nr"))
+    master = MasterWorker()
+    try:
+        cfg.n_model_workers = 0
+        master.configure(cfg, experiment_name="x", trial_name="t", worker_name="master")
+        what = "save" if "save_freq_steps" in ctl else "eval"
+        port_ctl = getattr(master, f"{what}_ctl")
+        ref_ctl = rtime.FrequencyControl(
+            frequency_step=ctl.get("save_freq_steps"), frequency_sec=ctl.get("eval_freq_secs"))
+        hits = []
+        for i in range(12):
+            clock.now += 7.0 * (i % 4)
+            epochs = int(i % 5 == 4)
+            hits.append((port_ctl.check(steps=1, epochs=epochs),
+                         ref_ctl.check(steps=1, epochs=epochs)))
+        assert [a for a, _ in hits] == [b for _, b in hits]
+        assert sum(a for a, _ in hits) == (12 if what == "save" else 2)
+    finally:
+        master._exit_hook()
+        name_resolve._default.repo.reset()
+        name_resolve._default.repo = saved
 
 
 def test_controller_run_raises_past_its_deadline(tmp_path):

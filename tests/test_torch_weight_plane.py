@@ -788,3 +788,37 @@ def test_mixed_fleet_fans_out_across_packages(world, tree, manager):
     outs = [_greedy(s.address, PROMPTS) for s in servers]
     for a, b in zip(*outs):
         assert a["output_ids"] == b["output_ids"] and a["version_start"] == b["version_start"] == 1
+
+
+def test_last_fanout_serves_from_the_managers_own_source(tmp_path):
+    """At COMPLETE the trainer-side source closes as its model worker
+    exits, so the manager's last fanout takes its own source over the
+    dump dir even while the registered one still answers a probe."""
+    from areal_tpu_torch.api.system_api import GserverManagerConfig
+    from areal_tpu_torch.base import name_resolve
+    from areal_tpu_torch.system.gserver_manager import GserverManager
+
+    saved = name_resolve._default.repo
+    name_resolve.reconfigure("nfs", record_root=str(tmp_path / "nr"))
+    exp = f"last-{uuid.uuid4().hex[:6]}"
+    d = str(tmp_path / "dump")
+    os.makedirs(d)
+    src = wp.WeightPlaneSource(d, CHUNK).start().register(exp, "t0", "actor")
+    mgr = GserverManager()
+    mgr.cfg = GserverManagerConfig(experiment_name=exp, trial_name="t0", weight_plane=True,
+                                   weight_chunk_bytes=CHUNK)
+    mgr._own_source, mgr._trainer_source_gone = None, False
+    mgr.check_new_params = lambda: d
+    mgr.flush_requests_and_update_weights = lambda path: origins.append(
+        mgr._weight_plane_origin(path))
+    origins = []
+    try:
+        assert mgr._weight_plane_origin(d) == src.address
+        mgr._last_fanout()
+        assert origins == [mgr._own_source.address] and origins[0] != src.address
+    finally:
+        src.close()
+        if mgr._own_source is not None:
+            mgr._own_source.close()
+        name_resolve._default.repo = saved
+
