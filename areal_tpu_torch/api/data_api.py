@@ -435,8 +435,8 @@ def load_shuffle_split_dataset(
 class PackedDataLoader:
     """Minimal epoch-based loader over a map-style dataset of
     `SequenceSample`s: deterministic per-epoch shuffling, `SequenceSample.
-    gather` collation, and an index cursor (`state_dict`). Restoring a
-    cursor comes with recover, which is not ported."""
+    gather` collation, and an index cursor (`state_dict` /
+    `load_state_dict`, with `restart_epoch` for a recovery)."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True, seed: int = 1):
         self.dataset = dataset
@@ -488,6 +488,16 @@ class PackedDataLoader:
             self._order = None
         return batch, epoch_last
 
+    def restart_epoch(self):
+        """Rewind to the start of the current epoch (same permutation).
+
+        Used on crash recovery: the epoch replays from the beginning and the
+        master's ignore-list skips samples consumed before the checkpoint —
+        restoring the mid-epoch cursor instead would make those skips land
+        on the next epoch's legitimate deliveries.
+        """
+        self._cursor = 0
+
     def state_dict(self) -> Dict[str, Any]:
         return {
             "epoch": self.epoch,
@@ -495,6 +505,17 @@ class PackedDataLoader:
             "seed": self.seed,
             "size": len(self.dataset),
         }
+
+    def load_state_dict(self, state: Dict[str, Any]):
+        self.epoch = int(state["epoch"])
+        self._cursor = int(state["cursor"])
+        self.seed = int(state["seed"])
+        n = len(self.dataset)
+        if int(state.get("size", n)) != n:
+            # Checkpoint taken against a different dataset size: the stored
+            # cursor indexes a different permutation — restart the epoch.
+            self._cursor = 0
+        self._regen_order(n)
 
 
 def sample_to_json(s: "SequenceSample") -> Dict[str, Any]:

@@ -211,6 +211,12 @@ class ModelBackend(abc.ABC):
     def initialize(self, model: Model, spec: FinetuneSpec) -> Model:
         ...
 
+    def save(self, model: Model, save_dir: str):
+        pass
+
+    def load(self, model: Model, load_dir: str):
+        pass
+
 
 MODEL_REGISTRY = Registry("model")
 INTERFACE_REGISTRY = Registry("interface")

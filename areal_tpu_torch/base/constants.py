@@ -2,7 +2,8 @@
 what it calls from ``areal_tpu/base/constants.py``: the experiment and
 trial names and the log, recover, save and param-realloc paths, under the
 reference's ``AREAL_FILEROOT`` layout; the model-scope registry is not
-ported)."""
+ported). ``RECOVER_ROOT`` overrides the recover root as the reference's
+module-level name does."""
 
 from __future__ import annotations
 
@@ -15,6 +16,10 @@ from areal_tpu_torch.base import env_registry
 
 _experiment_name: Optional[str] = None
 _trial_name: Optional[str] = None
+
+# Explicit override of the recover root (tests and harnesses set it);
+# None = <fileroot>/recover.
+RECOVER_ROOT: Optional[str] = None
 
 
 def get_fileroot() -> str:
@@ -42,9 +47,10 @@ def trial_name() -> str:
     return _trial_name
 
 
-def _path(kind: str, experiment: Optional[str], trial: Optional[str]) -> str:
-    p = os.path.join(get_fileroot(), kind, experiment or experiment_name(),
-                     trial or trial_name())
+def _path(kind: str, experiment: Optional[str], trial: Optional[str],
+          root: Optional[str] = None) -> str:
+    p = os.path.join(root or os.path.join(get_fileroot(), kind),
+                     experiment or experiment_name(), trial or trial_name())
     os.makedirs(p, exist_ok=True)
     return p
 
@@ -54,7 +60,7 @@ def get_log_path(experiment: Optional[str] = None, trial: Optional[str] = None) 
 
 
 def get_recover_path(experiment: Optional[str] = None, trial: Optional[str] = None) -> str:
-    return _path("recover", experiment, trial)
+    return _path("recover", experiment, trial, RECOVER_ROOT)
 
 
 def get_save_path(experiment: Optional[str] = None, trial: Optional[str] = None) -> str:

@@ -57,6 +57,14 @@ _KNOBS: List[Knob] = [
          "Filesystem root for logs, recover data and param-realloc dumps "
          "(base/constants.py); unset = <tempdir>/areal_tpu/$USER. Read at "
          "call time."),
+    Knob("AREAL_CKPT_BACKEND", "str", "pickle",
+         "Checkpoint storage backend when the API caller passes none: "
+         "'pickle' (engine/checkpoint.py); 'orbax' is not ported and raises."),
+    Knob("AREAL_CKPT_ASYNC", "bool", False,
+         "Route pickle-backend engine checkpoints through the background "
+         "writer (engine/checkpoint.py): the step loop pays only the "
+         "snapshot while the host copy, pickling, fsync and rename run on "
+         "the writer thread."),
     Knob("AREAL_WAL", "bool", True,
          "Arm the rollout write-ahead log and exactly-once ledger "
          "(system/wal.py, system/stream_dataset.py): accepted trajectories "

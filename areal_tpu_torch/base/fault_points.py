@@ -1,7 +1,7 @@
 """The named chaos-injection points the port fires (the port's copy of
 the entries of ``areal_tpu/base/fault_points.py`` that its generation
-server, serving engine, worker system, rollout worker, gserver manager
-and weight plane fire; names and meanings are the reference's, so one ``AREAL_FAULTS``
+server, serving engine, worker system, rollout worker, gserver manager,
+weight plane and engine checkpoint fire; names and meanings are the reference's, so one ``AREAL_FAULTS``
 spec arms reference and port processes alike).
 
 Names under ``test.`` are reserved for the injector's own tests and are
@@ -80,6 +80,11 @@ _POINTS: List[FaultPoint] = [
     FaultPoint("buffer.consume", ("areal_tpu_torch/system/buffer.py",),
                "The trainer dies after a batch is handed to training, before "
                "its consumption is durable."),
+    FaultPoint("train.checkpoint", ("areal_tpu_torch/engine/checkpoint.py",),
+               "The trainer dies at the engine-checkpoint commit point, after "
+               "artifacts landed but around the manifest rename: recovery "
+               "must resume from the previous complete checkpoint, never a "
+               "torn one."),
 ]
 
 REGISTRY: Dict[str, FaultPoint] = {p.name: p for p in _POINTS}

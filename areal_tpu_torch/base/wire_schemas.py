@@ -1,5 +1,6 @@
-"""Wire schema tags of the KV and weight planes (the port's copy of the
-entries of ``areal_tpu/base/wire_schemas.py`` it speaks). The strings are the
+"""Wire schema tags of the KV and weight planes and of the recovery
+records (the port's copy of the entries of
+``areal_tpu/base/wire_schemas.py`` it speaks). The strings are the
 reference's byte for byte: a blob or manifest of either package is read
 by the other."""
 
@@ -18,3 +19,14 @@ WEIGHT_CHUNKS_V1 = "areal-weight-chunks/v1"
 
 # Trainer dump layout sidecar (system/weight_transfer.py).
 WEIGHT_LAYOUT_V1 = "areal-weight-layout/v1"
+
+# Trainer checkpoint manifest: the commit record written LAST (atomic
+# rename) after every engine-state artifact landed, carrying the
+# version, LR-schedule position, RNG state, and dataset cursors a
+# resume needs (engine/checkpoint.py).
+TRAIN_CKPT_V1 = "areal-train-ckpt/v1"
+
+# Master recovery record: RecoverInfo pickle wrapper, including the
+# consumed-sequence ledger persisted atomically with each checkpoint
+# barrier (base/recover.py).
+RECOVER_INFO_V1 = "areal-recover-info/v1"

@@ -4,7 +4,8 @@ copy of ``areal_tpu/engine/factories.py``): ``make_model
 an HF checkpoint directory), and the backends wrap them into engines:
 ``jax_train`` (a ``TorchTrainEngine`` with AdamW) and ``jax_inference``
 (gradient-free). The registry names are the reference's, so one
-experiment config reads the same in both packages.
+experiment config reads the same in both packages. A backend's ``save``
+/ ``load`` write and read the engine's recover checkpoint.
 
 The tokenizer is the named one, else the HF checkpoint's own, as in the
 reference. Differences from the reference: the device comes from the
@@ -111,6 +112,17 @@ class JaxTrainBackend(ModelBackend):
         del model._raw  # the engine holds the params on its device now
         model.ft_spec = spec
         return model
+
+    def save(self, model: Model, save_dir: str):
+        """A recover checkpoint of the engine (engine/checkpoint.py)."""
+        from areal_tpu_torch.engine.checkpoint import save_engine_state
+
+        save_engine_state(model.module, save_dir)
+
+    def load(self, model: Model, load_dir: str):
+        from areal_tpu_torch.engine.checkpoint import load_engine_state
+
+        load_engine_state(model.module, load_dir)
 
 
 @dataclasses.dataclass

@@ -8,14 +8,21 @@ value it wants, which is how the train engine honours ``version_steps``
 as the schedule position while Adam's bias correction keeps counting
 actual updates. The moments are kept in each parameter's own dtype, as
 optax keeps them (``mu_dtype=None``).
+
+``AdamW.optax_state`` gives the state in the layout optax's chain keeps
+it, and ``load_optax_state`` takes that layout back, so a checkpoint of
+either package restores the other's optimizer. The optax state classes
+are stood in for by NamedTuples of the same fields (``OPTAX_STATE_NAMES``
+maps each to optax's module and name for the checkpoint pickle).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, List
+from typing import Any, Callable, List, NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -72,6 +79,58 @@ def tree_leaves(tree) -> List[torch.Tensor]:
     return [tree]
 
 
+def as_tensor(x) -> torch.Tensor:
+    """A tensor over a numpy leaf (a copy if the array is read-only)."""
+    if isinstance(x, torch.Tensor):
+        return x
+    x = np.asarray(x)
+    return torch.from_numpy(x if x.flags.writeable else x.copy())
+
+
+def tree_unflatten(template, leaves: List[Any]):
+    """A nested dict shaped as ``template`` holding ``leaves`` in
+    ``tree_leaves`` order."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        return next(it)
+
+    out = build(template)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the template holds")
+    return out
+
+
+class EmptyState(NamedTuple):
+    """optax's ``EmptyState`` (identity, clip_by_global_norm, add_decayed_weights)."""
+
+
+class ScaleByAdamState(NamedTuple):
+    count: Any  # int32 0-d array: the number of updates
+    mu: Any  # nested dict shaped as the params
+    nu: Any
+
+
+class MaskedState(NamedTuple):
+    inner_state: Any
+
+
+class ScaleByScheduleState(NamedTuple):
+    count: Any
+
+
+# The module and name each stand-in is pickled under: optax's, taken from
+# a pickle optax 0.2.6 wrote (tests/test_torch_checkpoint.py holds them).
+OPTAX_STATE_NAMES = {
+    EmptyState: ("optax._src.base", "EmptyState"),
+    ScaleByAdamState: ("optax._src.transform", "ScaleByAdamState"),
+    MaskedState: ("optax.transforms._masking", "MaskedState"),
+    ScaleByScheduleState: ("optax._src.transform", "ScaleByScheduleState"),
+}
+
+
 def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
     """sqrt(sum of squares) over all leaves, float32, on the device."""
     return torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
@@ -115,3 +174,39 @@ class AdamW:
             if cfg.weight_decay and p.dim() > 1:
                 update = update + cfg.weight_decay * p
             p.add_((update * (-lr)).to(p.dtype))
+
+    def optax_state(self, params) -> tuple:
+        """The state as the reference's optimizer keeps it: the state of
+        ``chain(clip_by_global_norm or identity, adamw(..., mask))``, that
+        is ``(EmptyState(), (ScaleByAdamState(count, mu, nu), MaskedState(
+        EmptyState()), ScaleByScheduleState(count)))``, with ``mu`` and
+        ``nu`` shaped as ``params`` (this optimizer's own tensors, not
+        copies) and each count an int32 0-d array. Without weight decay
+        the reference builds no mask, and the middle state is
+        ``EmptyState()``."""
+        count = np.asarray(self.count, dtype=np.int32)
+        decay = MaskedState(EmptyState()) if self.cfg.weight_decay else EmptyState()
+        adam = ScaleByAdamState(count, tree_unflatten(params, self.mu),
+                                tree_unflatten(params, self.nu))
+        return (EmptyState(), (adam, decay, ScaleByScheduleState(count.copy())))
+
+    @torch.no_grad()
+    def load_optax_state(self, state) -> None:
+        """Take back a state in ``optax_state``'s layout (numpy or torch
+        leaves), copying the moments into this optimizer's tensors."""
+        try:
+            adam = state[1][0]
+            count, mu, nu = adam[0], adam[1], adam[2]
+        except (IndexError, TypeError, KeyError) as e:
+            raise ValueError(f"not an AdamW state in optax's layout: {e!r}")
+        mu, nu = tree_leaves(mu), tree_leaves(nu)
+        if len(mu) != len(self.mu) or len(nu) != len(self.nu):
+            raise ValueError(f"optimizer state mismatch: {len(mu)} moments for "
+                             f"{len(self.mu)} parameters")
+        for dst, src in zip(self.mu + self.nu, mu + nu):
+            src = as_tensor(src)
+            if tuple(src.shape) != tuple(dst.shape):
+                raise ValueError(f"optimizer state mismatch: {tuple(src.shape)} "
+                                 f"for {tuple(dst.shape)}")
+            dst.copy_(src.to(device=dst.device, dtype=dst.dtype))
+        self.count = int(np.asarray(count))

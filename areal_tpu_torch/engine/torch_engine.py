@@ -20,6 +20,9 @@ per-sequence scalars broadcast across their span).
 The engine owns its parameter tensors and updates them in place. Not
 ported: meshes, the overlapped input pipeline, ``warm``, ``offload``,
 ``generate``, the MoE terms of the loss and the cached stats fetch.
+The state a checkpoint holds (``engine/checkpoint.py``) comes from
+``get_params``, ``get_opt_state`` (optax's layout), ``rng_state`` and
+``version``, as the reference's.
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ from areal_tpu_torch import resolve_device
 from areal_tpu_torch.api.data_api import MicroBatchSpec, SequenceSample
 from areal_tpu_torch.api.model_api import PackedLossFn, TrainEngine
 from areal_tpu_torch.engine.optimizer import (
-    AdamW, OptimizerConfig, global_norm, make_lr_schedule, tree_leaves,
+    AdamW, OptimizerConfig, as_tensor, global_norm, make_lr_schedule, tree_leaves,
 )
 from areal_tpu_torch.models.config import TransformerConfig
 from areal_tpu_torch.models.packing import PackedBatch, pack_sequences
@@ -44,7 +47,7 @@ from areal_tpu_torch.ops.loss import fused_next_token_logprobs
 def _to_device_tree(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device_tree(v, device) for k, v in tree.items()}
-    return tree.detach().to(device).requires_grad_(True)
+    return as_tensor(tree).detach().to(device).requires_grad_(True)
 
 
 class TorchTrainEngine(TrainEngine):
@@ -76,6 +79,13 @@ class TorchTrainEngine(TrainEngine):
         # LR-schedule position when callers do not pass version_steps (one
         # optimizer step per train_batch).
         self._lr_steps = 0
+        # The reference's counters (rng_state): generate calls (the port's
+        # engine has no generate, so it stays 0) and train_batch calls.
+        self._gen_calls = 0
+        self._train_calls = 0
+        # As the reference's engine: set to 0 here and by a checkpoint
+        # load, never advanced (Model.version counts the trained steps).
+        self.version = 0
         if optimizer_config is not None:
             self.optimizer = AdamW(optimizer_config, tree_leaves(self.params))
             self._lr_schedule = make_lr_schedule(optimizer_config, total_train_steps)
@@ -198,6 +208,7 @@ class TorchTrainEngine(TrainEngine):
             raise ValueError(f"unknown token_normalize_scope {token_normalize_scope!r}")
         lr_pos = self._lr_steps if version_steps is None else int(version_steps)
         self._lr_steps += 1
+        self._train_calls += 1
         lr = float(self._lr_schedule(lr_pos))
         mbs, _, _ = input_.split(mb_spec)
         global_denom = max(float(sum(loss_weight_fn(mb) for mb in mbs)), 1.0)
@@ -299,5 +310,34 @@ class TorchTrainEngine(TrainEngine):
         return self.params
 
     def set_params(self, params):
-        """Replace the weights; optimizer state stays."""
+        """Replace the weights (torch or numpy leaves); optimizer state
+        stays."""
         self.params = _to_device_tree(params, self.device)
+
+    def get_opt_state(self):
+        """The optimizer state in optax's layout (``AdamW.optax_state``:
+        the moments are the optimizer's own tensors), or None without an
+        optimizer."""
+        if self.optimizer is None:
+            return None
+        return self.optimizer.optax_state(self.params)
+
+    def set_opt_state(self, state):
+        """Take back a state in ``get_opt_state``'s layout."""
+        if self.optimizer is None:
+            raise RuntimeError("engine built without optimizer")
+        self.optimizer.load_optax_state(state)
+
+    def rng_state(self) -> dict:
+        """The call counters a restored engine continues from (the
+        reference's keys)."""
+        return {
+            "gen_calls": int(self._gen_calls),
+            "train_calls": int(self._train_calls),
+            "lr_steps": int(self._lr_steps),
+        }
+
+    def load_rng_state(self, state: dict):
+        self._gen_calls = int(state.get("gen_calls", 0))
+        self._train_calls = int(state.get("train_calls", 0))
+        self._lr_steps = int(state.get("lr_steps", self._lr_steps))

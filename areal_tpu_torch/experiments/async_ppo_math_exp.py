@@ -38,7 +38,6 @@ def refuse_unported(cfg: AsyncPPOMATHExpConfig):
     """Raise on every option set away from what the port runs."""
     models = {"actor": cfg.actor, "ref": cfg.ref}
     refused = {
-        "recover_mode": cfg.recover_mode != "disabled",
         "auto_eval": cfg.auto_eval,
         "allocation_mode": cfg.allocation_mode != "d1",
         "n_model_workers": cfg.n_model_workers != 1,
@@ -53,11 +52,6 @@ def refuse_unported(cfg: AsyncPPOMATHExpConfig):
         "gen_elastic_fleet": cfg.gen_elastic_fleet,
         "gen_autoscale": cfg.gen_autoscale,
     }
-    # Saves and evaluations run (PPOActorInterface.save writes the HF
-    # format); checkpoints come with ROADMAP Queue A item 3.2.
-    for f in dataclasses.fields(cfg.exp_ctrl):
-        if f.name.startswith("ckpt_"):
-            refused[f"exp_ctrl.{f.name}"] = getattr(cfg.exp_ctrl, f.name) is not None
     for role, m in models.items():
         if m is None:
             continue

@@ -1,8 +1,9 @@
 """SFT experiment (the port's copy of ``areal_tpu/experiments/sft_exp.py``):
 one model worker loads the prompt/answer dataset and runs the
 ``trainDefault`` MFC (the "sft" interface) over ``packed_input_ids`` and
-``prompt_mask`` every step; the master broadcasts "save" and "evaluate"
-at the ``exp_ctrl`` frequencies.
+``prompt_mask`` every step; the master broadcasts "save", "ckpt" and
+"evaluate" at the ``exp_ctrl`` frequencies, and ``recover_mode`` "auto"
+or "resume" resumes from the last recover checkpoint.
 
 The port trains on one device a worker. Options whose feature the port
 lacks raise in ``refuse_unported`` before any worker starts, each naming
@@ -10,8 +11,6 @@ the ROADMAP Queue A item that brings it.
 """
 
 from __future__ import annotations
-
-import dataclasses
 
 from areal_tpu_torch.api.cli_args import SFTExpConfig
 from areal_tpu_torch.api.config import ModelInterfaceAbstraction, ModelShardID
@@ -21,7 +20,6 @@ from areal_tpu_torch.api.system_api import ExperimentConfig, ModelShardSpec
 from areal_tpu_torch.experiments import common as C
 from areal_tpu_torch.experiments import register_experiment
 
-_CKPT = "ROADMAP Queue A item 3.2, checkpoint and recover"
 _MESH = "ROADMAP Queue A item 7, multi-device"
 _KNOBS = "ROADMAP Queue A item 3.4, the engine's last knobs"
 
@@ -30,7 +28,6 @@ def refuse_unported(cfg: SFTExpConfig):
     """Raise on every option set away from what the port runs."""
     m = cfg.model
     refused = {
-        "recover_mode": (cfg.recover_mode != "disabled", _CKPT),
         "auto_eval": (cfg.auto_eval, "ROADMAP Queue A item 8, evaluation"),
         "allocation_mode": (cfg.allocation_mode != "d1", _MESH),
         "n_model_workers": (cfg.n_model_workers != 1, _MESH),
@@ -41,9 +38,6 @@ def refuse_unported(cfg: SFTExpConfig):
         "model.prefetch_depth": (m.prefetch_depth != 0, _KNOBS),
         "model.stats_fetch_interval": (m.stats_fetch_interval != 1, _KNOBS),
     }
-    for f in dataclasses.fields(cfg.exp_ctrl):
-        if f.name.startswith("ckpt_"):
-            refused[f"exp_ctrl.{f.name}"] = (getattr(cfg.exp_ctrl, f.name) is not None, _CKPT)
     for k in ("moe_dispatch", "moe_capacity_factor", "moe_aux_loss_coef"):
         refused[f"model.{k}"] = (getattr(m, k) is not None, "ROADMAP Queue A item 6.2, MoE")
     bad = [f"{k} ({why})" for k, (hit, why) in refused.items() if hit]

@@ -4,11 +4,11 @@ port's copy of ``areal_tpu/system/buffer.py``).
 The master stores metadata-only `SequenceSample`s here; each MFC's
 coroutine awaits a batch whose input keys are all ready and that the MFC
 has not consumed yet. Oldest-first selection, per-sample reuse counting
-(a sample is garbage-collected once every MFC consumed it). Not ported
-yet: the reference's per-task staleness windows (no sample on the
-trainer path carries a task tag; they come with the rollout slice's
-agents) and the recover state (``ignore_ids``, the epoch's consumed ids,
-the ledger's seeding; with recover).
+(a sample is garbage-collected once every MFC consumed it), and the
+recover state: ``ignore_ids`` (ids consumed before a crash, skipped once
+at admission), the ids consumed this epoch, and the sequence ledger's
+snapshot and seeding. Not ported yet: the reference's per-task staleness
+windows (ROADMAP Queue A item 4.2).
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import asyncio
 import dataclasses
 import itertools
 import time
-from typing import Dict, List, Set, Tuple
+from typing import Dict, List, Optional, Set, Tuple
 
 from areal_tpu_torch.api.data_api import SequenceSample
 from areal_tpu_torch.api.dfg import MFCDef
@@ -57,13 +57,20 @@ class AsyncIOSequenceBuffer:
         self._counter = itertools.count()
         self._cond = asyncio.Condition()
         # Dedup is against RESIDENT ids only: multi-epoch training re-puts
-        # the same dataset row ids each epoch, which is legal.
+        # the same dataset row ids each epoch, which is legal. Exactly-once
+        # across a crash is handled by `ignore_ids` (seeded from recover
+        # info): each listed id is skipped once — its pre-crash consumption
+        # — then becomes valid again for later epochs.
+        self.ignore_ids: Set[str] = set()
+        # ids fully consumed since the last epoch boundary (recover dump).
+        self.consumed_this_epoch: Set[str] = set()
         # resident duplicates skipped on put (epoch carryover); surfaced
         # in logs so silent data-accounting drift stays visible.
         self.n_dropped_duplicates = 0
         # Exactly-once over rollout sequence ids (wal_seq metadata from
-        # the stream dataset): seqs are globally unique, so membership is
-        # PERMANENT.
+        # the stream dataset): seqs are globally unique, so unlike
+        # ignore_ids membership is PERMANENT. Seeded from RecoverInfo at
+        # recovery; persisted back at every checkpoint barrier.
         self.seq_ledger = SeqLedger()
         # seq -> resident sample ids not yet fully consumed; a seq is
         # marked in the ledger only once its last id is GC'd.
@@ -108,6 +115,7 @@ class AsyncIOSequenceBuffer:
             # consumption (class contract above), but the skip is counted
             # (`n_dropped_duplicates`) so accounting bugs stay visible.
             new_ids = set()
+            ignored_seen = set()
             resident_dups = set()
             ledgered = set()
             for s in samples:
@@ -125,6 +133,13 @@ class AsyncIOSequenceBuffer:
                         # at admission — this is exactly-once working,
                         # counted so recovery accounting stays visible.
                         ledgered.add(sample_id)
+                        continue
+                    if (
+                        sample_id in self.ignore_ids
+                        and sample_id not in ignored_seen
+                    ):
+                        # first occurrence consumes the ignore entry
+                        ignored_seen.add(sample_id)
                         continue
                     if sample_id in self._slots:
                         resident_dups.add(sample_id)
@@ -161,7 +176,13 @@ class AsyncIOSequenceBuffer:
                 for sid in range(s.bs):
                     sub = s._select_indices([sid]) if s.bs > 1 else s
                     sample_id = sub.ids[0]
-                    if sample_id in ledgered or sample_id in resident_dups:
+                    if sample_id in ledgered:
+                        continue
+                    if sample_id in self.ignore_ids:
+                        # consumed before a crash; skip exactly once
+                        self.ignore_ids.discard(sample_id)
+                        continue
+                    if sample_id in resident_dups:
                         continue
                     seq = seqs[sid] if seqs else None
                     if seq is not None:
@@ -252,6 +273,7 @@ class AsyncIOSequenceBuffer:
                     for slot in chosen:
                         if len(slot.consumed_by) == self._n_rpcs:
                             del self._slots[slot.sample_id]
+                            self.consumed_this_epoch.add(slot.sample_id)
                             self._mark_consumed(slot.sample_id)
                     ids = [s.sample_id for s in chosen]
                     # Restrict to the rpc's input keys: candidates may have
@@ -287,6 +309,21 @@ class AsyncIOSequenceBuffer:
                 del self._seq_pending[seq]
                 self.seq_ledger.mark(seq)
 
+    def consumed_seqs(self) -> Dict:
+        """Ledger snapshot for the recover record (checkpoint barrier)."""
+        return self.seq_ledger.to_dict()
+
+    def seed_consumed_seqs(self, snapshot: Optional[Dict]):
+        """Recovery: re-arm the ledger from the last durable snapshot so
+        WAL replay and pusher redelivery filter against the same cut the
+        engine state was taken at."""
+        self.seq_ledger = SeqLedger.from_dict(snapshot)
+
     async def poll_ready_count(self, rpc: MFCDef) -> int:
         async with self._cond:
             return len(self._candidates(rpc))
+
+    def on_epoch_boundary(self):
+        """Epoch rolled over: prior consumptions are no longer 'this epoch'
+        for recovery accounting."""
+        self.consumed_this_epoch.clear()

@@ -15,12 +15,22 @@ reference restarts a dead serving-plane worker (server, manager, rollout
 worker) in place and detects hung ones by their heartbeats; the port
 does neither, so any dead or raising worker ends the run. The
 multi-host ``ClusterController`` is not ported.
+
+A run that fails (the master raised, a worker died, the deadline) asks
+every live worker to leave with SIGTERM, which a port worker takes as
+its ``exit()``: its poll loop ends and its exit hook runs (the model
+worker's drains its pending checkpoint writes). Workers still alive
+after ``FAILED_EXIT_WAIT_S`` are killed. So a relaunch in the same
+process (``training/utils.run_experiment``) starts after the last
+attempt's workers are gone. The reference waits 30 s for workers that
+nothing told to leave, then terminates them.
 """
 
 from __future__ import annotations
 
 import multiprocessing as mp
 import os
+import signal
 import threading
 import time
 import traceback
@@ -36,6 +46,9 @@ logger = logging.getLogger("controller")
 # (generation_server.LAST_FANOUT_WAIT_S) while the manager fans the last
 # version out, which over the weight plane is a whole transfer.
 EXIT_WAIT_S = 150.0
+# How long the workers of a failed run get to leave after SIGTERM (the
+# model worker's exit hook waits up to 60 s for checkpoint writes).
+FAILED_EXIT_WAIT_S = 90.0
 
 def _run_worker_proc(
     worker_type: str,
@@ -53,6 +66,8 @@ def _run_worker_proc(
 
         cls = load_worker(worker_type)
         w = cls()
+        # SIGTERM from the controller (a failed run) is a request to leave.
+        signal.signal(signal.SIGTERM, lambda *_: w.exit())
         w.configure(
             config,
             experiment_name=config.experiment_name,
@@ -203,6 +218,7 @@ class LocalController:
         from areal_tpu_torch.system.master_worker import MasterWorker
 
         master = MasterWorker()
+        failed = True
         try:
             master.configure(
                 self.exp_cfg.master,
@@ -211,6 +227,7 @@ class LocalController:
                 worker_name="master",
             )
             master.run()
+            failed = False
         except KeyboardInterrupt:
             # Distinguish the two interrupt sources by WHO fired: only
             # the watchdog's interrupt means a worker died (traceback or
@@ -234,15 +251,30 @@ class LocalController:
             raise
         finally:
             stop_watchdog.set()
-            if not user_interrupt and not self._deadline_fired:
-                # Surface worker failures the watchdog hadn't polled yet
-                # (died in its 0.5s window as the master finished). Only
-                # a genuine Ctrl-C suppresses this — teardown noise from
-                # interrupted workers must not override the user's stop.
-                self.check_worker_errors()
-            self.join(timeout=EXIT_WAIT_S)
+            try:
+                if not user_interrupt and not self._deadline_fired:
+                    # Surface worker failures the watchdog hadn't polled yet
+                    # (died in its 0.5s window as the master finished). Only
+                    # a genuine Ctrl-C suppresses this — teardown noise from
+                    # interrupted workers must not override the user's stop.
+                    self.check_worker_errors()
+            except BaseException:
+                failed = True
+                raise
+            finally:
+                if failed:
+                    self.stop_workers(timeout=FAILED_EXIT_WAIT_S)
+                else:
+                    self.join(timeout=EXIT_WAIT_S)
         return {"global_step": master.step_info.global_step,
                 "perf_summary": dict(master.perf_summary)}
+
+    def stop_workers(self, timeout: float = FAILED_EXIT_WAIT_S):
+        """Ask every live worker to leave (SIGTERM), then join them."""
+        for p in self._procs:
+            if p.is_alive():
+                p.terminate()
+        self.join(timeout=timeout)
 
     def join(self, timeout: float = 30):
         deadline = time.monotonic() + timeout

@@ -95,7 +95,9 @@ from areal_tpu_torch.models.config import TransformerConfig
 from areal_tpu_torch.models.transformer import init_params
 from areal_tpu_torch.system.weight_plane import (
     serve_store_chunk, serve_store_manifest, write_response)
-from areal_tpu_torch.system.worker_base import PollResult, Worker
+from areal_tpu_torch.system.worker_base import (  # noqa: F401 (exit_record_path)
+    PollResult, Worker, exit_record_path, write_exit_record,
+)
 
 logger = logging.getLogger("generation_server")
 
@@ -1564,16 +1566,3 @@ class GenerationServer(Worker):
         }
         write_exit_record(self.cfg.experiment_name, self.cfg.trial_name,
                           self.worker_name, record)
-
-
-def exit_record_path(experiment_name: str, trial_name: str, worker_name: str) -> str:
-    return os.path.join(constants.get_log_path(experiment_name, trial_name), "exit_records",
-                        worker_name.replace("/", "_") + ".json")
-
-
-def write_exit_record(experiment_name: str, trial_name: str, worker_name: str, record: Dict):
-    path = exit_record_path(experiment_name, trial_name, worker_name)
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    with open(path + ".tmp", "w") as f:
-        json.dump(record, f)
-    os.replace(path + ".tmp", path)

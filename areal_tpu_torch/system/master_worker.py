@@ -1,30 +1,40 @@
 """Master worker: drives one DFG traversal per train step (the port's
 copy of ``areal_tpu/system/master_worker.py``): configure the stream,
 buffer and executor, then per poll run a step, log its perf summary and
-publish the experiment status, broadcast "save" and "evaluate" to the
-model workers at the ``exp_ctrl`` frequencies (``base/timeutil.py``);
-tell the model workers to exit at the end. As in the reference, a
-worker's reply to a broadcast is not read: one that answers with an
-error does not stop the run.
+publish the experiment status, broadcast "save", "ckpt" and "evaluate"
+to the model workers at the ``exp_ctrl`` frequencies
+(``base/timeutil.py``), each "ckpt" followed by the recover record
+(``base/recover.py``); tell the model workers to exit at the end. As in
+the reference, a worker's reply to a broadcast is not read: one that
+answers with an error does not stop the run.
 
-Not ported yet: the checkpoint broadcast and the recover record (a
-config that asks for a checkpoint frequency or for recovery is refused
-at configure), the tensorboard and wandb sinks and the merged RL-trace
+With ``recover_mode`` "auto" or "resume" the master loads the recover
+record at configure (a missing one is a fresh start), takes back its
+step counters, frequency controls, the ids consumed this epoch and the
+sequence ledger, and sends "restore" to the data hosts and model
+workers. As in the reference, it resumes at ``last_step_info.next()``:
+the first step after a resume counts one more than the steps trained.
+The reference sends "restore" to a worker once for each of its roles
+(data host, model worker); the port sends it once a worker (the
+handler is idempotent).
+
+Not ported yet: the tensorboard and wandb sinks and the merged RL-trace
 summary.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import time
 from typing import Dict, List, Optional
 
 from areal_tpu_torch.api.dfg import build_graph
 from areal_tpu_torch.api.system_api import MasterWorkerConfig
-from areal_tpu_torch.base import constants, logging, name_resolve, names, timeutil, tracing
+from areal_tpu_torch.base import (
+    constants, logging, name_resolve, names, recover, timeutil, tracing,
+)
 from areal_tpu_torch.base import metrics_registry as mreg
 from areal_tpu_torch.base.fault_injection import faults
-from areal_tpu_torch.base.recover import StepInfo
+from areal_tpu_torch.base.recover import RecoverInfo, StepInfo
 from areal_tpu_torch.system import request_reply_stream as rrs
 from areal_tpu_torch.system.buffer import AsyncIOSequenceBuffer
 from areal_tpu_torch.system.function_executor import FunctionExecutor
@@ -36,14 +46,6 @@ logger = logging.getLogger("master_worker")
 
 class MasterWorker(Worker):
     def _configure(self, config: MasterWorkerConfig):
-        ctl = config.exp_ctrl
-        asked = [f.name for f in dataclasses.fields(ctl)
-                 if f.name.startswith("ckpt_") and getattr(ctl, f.name) is not None]
-        if asked or config.recover_mode != "disabled":
-            raise NotImplementedError(
-                f"the port's master has no checkpoint or recover yet (asked: "
-                f"{asked or ['recover_mode=' + config.recover_mode]}; "
-                f"ROADMAP Queue A item 3.2)")
         self.cfg = config
         constants.set_experiment_trial_names(
             config.experiment_name, config.trial_name
@@ -67,10 +69,16 @@ class MasterWorker(Worker):
             trial_name=config.trial_name,
         )
 
+        ctl = config.exp_ctrl
         self.save_ctl = timeutil.FrequencyControl(
             frequency_epoch=ctl.save_freq_epochs,
             frequency_step=ctl.save_freq_steps,
             frequency_sec=ctl.save_freq_secs,
+        )
+        self.ckpt_ctl = timeutil.FrequencyControl(
+            frequency_epoch=ctl.ckpt_freq_epochs,
+            frequency_step=ctl.ckpt_freq_steps,
+            frequency_sec=ctl.ckpt_freq_secs,
         )
         self.eval_ctl = timeutil.FrequencyControl(
             frequency_epoch=ctl.eval_freq_epochs,
@@ -127,6 +135,9 @@ class MasterWorker(Worker):
             f"dataset size {self._dataset_size}"
         )
 
+        if config.recover_mode in ("auto", "resume"):
+            self._maybe_recover()
+
         name_resolve.add(
             names.experiment_status(config.experiment_name, config.trial_name),
             "RUNNING",
@@ -135,8 +146,43 @@ class MasterWorker(Worker):
 
     # ------------------------------------------------------------------
 
+    def _maybe_recover(self):
+        try:
+            info = recover.load(self.cfg.experiment_name, self.cfg.trial_name)
+        except FileNotFoundError:
+            logger.info("no recover info found; fresh start")
+            return
+        self.step_info = info.last_step_info.next()
+        self.save_ctl.load_state_dict(info.save_ctl_info)
+        self.ckpt_ctl.load_state_dict(info.ckpt_ctl_info)
+        self.eval_ctl.load_state_dict(info.eval_ctl_info)
+        self.buffer.ignore_ids |= set(info.hash_vals_to_ignore)
+        # Re-arm the exactly-once ledger from the same durable cut the
+        # engine state was taken at (getattr: a pre-ledger record
+        # unpickles without the field).
+        self.buffer.seed_consumed_seqs(getattr(info, "consumed_seqs", None))
+        workers = list(dict.fromkeys(self.cfg.data_hosts + self._all_model_workers()))
+        req = self.stream.request(workers, "restore", [None] * len(workers))
+        self.stream.gather(req, timeout=600)
+        logger.info(f"recovered at step {self.step_info.global_step}")
+
     def _all_model_workers(self) -> List[str]:
         return [f"model_worker/{i}" for i in range(self.cfg.n_model_workers)]
+
+    def _recover_save(self):
+        info = RecoverInfo(
+            recover_start=self.step_info,
+            last_step_info=self.step_info,
+            save_ctl_info=self.save_ctl.state_dict(),
+            ckpt_ctl_info=self.ckpt_ctl.state_dict(),
+            eval_ctl_info=self.eval_ctl.state_dict(),
+            hash_vals_to_ignore=sorted(self.buffer.consumed_this_epoch),
+            # The consumed-seq watermark commits with the step counters
+            # (one fsynced rename in recover.dump); model workers compact
+            # their WALs against this record at the NEXT ckpt barrier.
+            consumed_seqs=self.buffer.consumed_seqs(),
+        )
+        recover.dump(info, self.cfg.experiment_name, self.cfg.trial_name)
 
     def _broadcast(self, handle: str, timeout: float = 3600):
         workers = self._all_model_workers()
@@ -183,6 +229,7 @@ class MasterWorker(Worker):
         if epoch_boundary:
             self.step_info.epoch += 1
             self.step_info.epoch_step = 0
+            self.buffer.on_epoch_boundary()
 
         e2e = time.monotonic() - t0
         logger.info(
@@ -195,6 +242,9 @@ class MasterWorker(Worker):
         epochs_inc = self.step_info.epoch - epoch_before
         if self.save_ctl.check(steps=1, epochs=epochs_inc):
             self._broadcast("save")
+        if self.ckpt_ctl.check(steps=1, epochs=epochs_inc):
+            self._broadcast("ckpt")
+            self._recover_save()
         if self.eval_ctl.check(steps=1, epochs=epochs_inc):
             self._broadcast("evaluate")
 

@@ -14,8 +14,20 @@ hosts. Request handlers:
 - "save": each model in the HF format under
   ``<save path>/<role>/step<version>/dp<worker index>``
 - "evaluate": each interface's ``evaluate``
+- "ckpt": each model's engine state (``engine/checkpoint.py``) under
+  ``<recover path>/<role>/dp<worker index>``, the dataloader's cursor
+  (``dataloader_<worker index>.json``), then the stream dataset's WAL
+  compacted against the previous recover record
+- "restore": each model's engine state back, the curriculum indices,
+  the dataloader's cursor and a restart of its epoch
 - "clear_data_cache": per-step sample GC
 - "exit": leave the poll loop
+
+At exit the worker drains its pending checkpoint writes, then leaves an
+exit record (``<log path>/exit_records/<worker>.json``, a port
+addition): its kernel launches, peak device memory, each checkpoint's
+step-loop stall, the async writer's last write seconds and pending
+count after the drain, and the restore's seconds.
 
 Besides the reference's stats, each MFC's reply carries the launches of
 every CUDA kernel of the port during that MFC (``launches/<kernel>``,
@@ -26,10 +38,9 @@ As in the reference, "evaluate" hands each interface no eval loader
 (``iface.evaluate(model, None)``): the SFT interface raises ``TypeError``
 on it and the reply carries the error, which the master drops.
 
-Not ported yet, each refused with ``NotImplementedError``: the "ckpt"
-and "restore" handlers, the "offload" hook, the "generate" MFC, the
-param-realloc target branch (weights loaded from another replica) and
-the multi-host train group. With
+Not ported yet, each refused with ``NotImplementedError``: the "offload"
+hook, the "generate" MFC, the param-realloc target branch (weights
+loaded from another replica) and the multi-host train group. With
 ``weight_plane`` the dump rank serves its dumps as the weight plane's
 origin (system/weight_plane.py). Per-prompt ``scores`` in an MFC's output merge into the
 shared eval-score file (``system/eval_scores.py``), as in the reference.
@@ -37,9 +48,10 @@ shared eval-score file (``system/eval_scores.py``), as in the reference.
 
 from __future__ import annotations
 
+import json
 import os
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 from areal_tpu_torch import kernels, resolve_device
 from areal_tpu_torch.api import data_api
@@ -62,6 +74,7 @@ from areal_tpu_torch.base import (
     name_resolve,
     names,
     network,
+    recover,
     seeding,
     stats_tracker,
     tracing,
@@ -70,15 +83,13 @@ from areal_tpu_torch.system import eval_scores
 from areal_tpu_torch.system import request_reply_stream as rrs
 from areal_tpu_torch.system.data_manager import DataManager
 from areal_tpu_torch.system.redistributor import RedistribStep
-from areal_tpu_torch.system.worker_base import PollResult, Worker
+from areal_tpu_torch.system.worker_base import PollResult, Worker, write_exit_record
 
 logger = logging.getLogger("model_worker")
 
 # Handlers and hooks of the reference that the port does not serve yet,
 # with the ROADMAP item that brings each.
 _NOT_PORTED = {
-    "ckpt": "Queue A item 3.2 (engine-state checkpoint)",
-    "restore": "Queue A item 3.2 (engine-state checkpoint)",
     "offload": "Queue A item 3.3 (offload)",
     "generate": "Queue A item 3.3 (TrainEngine.generate)",
 }
@@ -96,6 +107,8 @@ class ModelWorker(Worker):
                 "model worker option not ported yet: train_n_hosts > 1 (ROADMAP Queue A item 7)")
         self.cfg = config
         self._wp_sources: Dict[str, Any] = {}
+        self._ckpt_log: List[Dict[str, Any]] = []
+        self._restore_s: Optional[float] = None
         self.device = resolve_device(config.device)
         constants.set_experiment_trial_names(
             config.experiment_name, config.trial_name
@@ -147,6 +160,7 @@ class ModelWorker(Worker):
         # Models.
         self.models: Dict[str, Model] = {}
         self.interfaces: Dict[str, Any] = {}
+        self.backends: Dict[str, Any] = {}
         dataset_size = len(self._dataset) * config.dataset_dp_size if self._dataset is not None else 0
         self._host_rank: Dict[str, int] = {}
         for shard in config.shards:
@@ -158,8 +172,10 @@ class ModelWorker(Worker):
                 train_batch_size=config.train_batch_size,
             )
             model = make_model(shard.model, name=mn, device=str(self.device))
-            model = make_backend(shard.backend).initialize(model, ft_spec)
+            backend = make_backend(shard.backend)
+            model = backend.initialize(model, ft_spec)
             self.models[str(mn)] = model
+            self.backends[str(mn)] = backend
             self.interfaces[str(mn)] = make_interface(shard.interface)
         logger.info(
             f"{config.worker_name} configured on {self.device}: "
@@ -346,6 +362,91 @@ class ModelWorker(Worker):
             )
             self.interfaces[mn].save(model, save_dir)
 
+    def _ckpt_dir(self, mn: str) -> str:
+        return os.path.join(
+            constants.get_recover_path(self.cfg.experiment_name, self.cfg.trial_name),
+            ModelName.parse(mn).role,
+            f"dp{self.cfg.worker_index}",
+        )
+
+    def _dataloader_state_path(self) -> str:
+        return os.path.join(
+            constants.get_recover_path(self.cfg.experiment_name, self.cfg.trial_name),
+            f"dataloader_{self.cfg.worker_index}.json",
+        )
+
+    def _handle_ckpt(self, req):
+        from areal_tpu_torch.engine.checkpoint import ckpt_stats
+
+        for mn, model in self.models.items():
+            d = self._ckpt_dir(mn)
+            self.backends[mn].save(model, d)
+            self._ckpt_log.append(
+                {"dir": d, "stall_ms": ckpt_stats["areal:train_ckpt_stall_ms"]})
+        if self.dataloader is not None:
+            state_path = self._dataloader_state_path()
+            # Atomic like every other recovery artifact: a kill mid-write
+            # leaves the previous cursor, not a torn file.
+            tmp = state_path + f".tmp.{os.getpid()}"
+            with open(tmp, "w") as f:
+                json.dump(self.dataloader.state_dict(), f)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, state_path)
+        self._compact_stream_wal()
+        return {"ok": True}
+
+    def _compact_stream_wal(self):
+        """Checkpoint-barrier WAL truncation, one barrier behind: drop
+        journaled rollouts whose seqs the PREVIOUS durable recover record
+        already marked consumed (the master writes this barrier's record
+        after this handler returns; truncation may lag the durable
+        ledger, never lead it)."""
+        dataset = self._dataset
+        if dataset is None or not hasattr(dataset, "compact_wal"):
+            return
+        try:
+            info = recover.load(self.cfg.experiment_name, self.cfg.trial_name)
+        except (FileNotFoundError, ValueError):
+            return
+        from areal_tpu_torch.system.wal import SeqLedger
+
+        snapshot = getattr(info, "consumed_seqs", None)
+        if not snapshot:
+            return
+        try:
+            dropped = dataset.compact_wal(SeqLedger.from_dict(snapshot))
+            if dropped:
+                logger.info("WAL compaction dropped %d consumed record(s)", dropped)
+        except Exception:
+            logger.exception("WAL compaction failed (journal kept as-is)")
+
+    def _handle_restore(self, req):
+        from areal_tpu_torch.engine.checkpoint import has_engine_state
+
+        t0 = time.monotonic()
+        for mn, model in self.models.items():
+            d = self._ckpt_dir(mn)
+            if has_engine_state(d):
+                self.backends[mn].load(model, d)
+        if self.dataloader is not None:
+            # Curriculum state first: the dataloader snapshot records the
+            # FILTERED dataset size, so indices must be restored before
+            # load_state_dict's size check.
+            eval_scores.restore_indices(
+                self._dataset,
+                self.cfg.experiment_name,
+                self.cfg.trial_name,
+                tag=f"data{self.cfg.worker_index}",
+            )
+            state_path = self._dataloader_state_path()
+            if os.path.exists(state_path):
+                with open(state_path) as f:
+                    self.dataloader.load_state_dict(json.load(f))
+                self.dataloader.restart_epoch()
+        self._restore_s = time.monotonic() - t0
+        return {"ok": True}
+
     def _evaluate_model(self, model_name: Optional[str] = None):
         stats = {}
         for mn, model in self.models.items():
@@ -408,6 +509,21 @@ class ModelWorker(Worker):
         self._wp_sources[role] = src
         logger.info(f"weight-plane source for {role} at {src.address} over {dump_dir}")
 
+    def _write_exit_record(self):
+        import torch
+
+        from areal_tpu_torch.engine.checkpoint import writer_stats
+
+        write_exit_record(self.cfg.experiment_name, self.cfg.trial_name, self.worker_name, {
+            "worker": self.worker_name,
+            "launches": dict(kernels.launches),
+            "peak_memory_bytes": (torch.cuda.max_memory_allocated(self.device)
+                                  if self.device.type == "cuda" else 0),
+            "ckpt": self._ckpt_log,
+            "ckpt_writer": writer_stats(),
+            "restore_s": self._restore_s,
+        })
+
     # ------------------------------------------------------------------
 
     def _poll(self) -> Optional[PollResult]:
@@ -428,8 +544,10 @@ class ModelWorker(Worker):
                 resp = {"ok": True}
             elif h == "evaluate":
                 resp = self._evaluate_model()
-            elif h in ("ckpt", "restore"):
-                raise _not_ported(h)
+            elif h == "ckpt":
+                resp = self._handle_ckpt(req)
+            elif h == "restore":
+                resp = self._handle_restore(req)
             elif h == "clear_data_cache":
                 self.data_manager.clear(req.data)
                 resp = {"ok": True}
@@ -446,6 +564,18 @@ class ModelWorker(Worker):
         return PollResult(batch_count=1)
 
     def _exit_hook(self):
+        try:
+            # A clean exit must not abandon an in-flight async checkpoint
+            # write (the daemon writer dies with the process).
+            from areal_tpu_torch.engine.checkpoint import wait_pending_writes
+
+            wait_pending_writes(timeout=60)
+        except Exception:
+            logger.exception("pending checkpoint writes not drained on exit")
+        try:
+            self._write_exit_record()
+        except Exception:
+            logger.warning("exit record not written", exc_info=True)
         try:
             for src in self._wp_sources.values():
                 src.close()

@@ -9,6 +9,8 @@ an append-only WAL before its pusher is acked, and a restart replays the
 journal — so trajectories that were in flight when the trainer died
 survive the kill. A per-seq membership set drops redelivered duplicates
 at admission (acking them immediately: they are already durable here).
+At each checkpoint barrier the model worker compacts the journal
+(``compact_wal``) against the ledger of the previous recover record.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from typing import List, Optional
 from areal_tpu_torch.api import data_api
 from areal_tpu_torch.base import constants, env_registry, logging, tracing
 from areal_tpu_torch.system.push_pull_stream import NameResolvingZmqPuller
-from areal_tpu_torch.system.wal import RolloutWAL
+from areal_tpu_torch.system.wal import RolloutWAL, SeqLedger
 
 logger = logging.getLogger("stream_dataset")
 
@@ -194,6 +196,15 @@ class PullerStreamDataset:
         if not samples:
             return None
         return data_api.SequenceSample.gather(samples)
+
+    def compact_wal(self, consumed: SeqLedger) -> int:
+        """Checkpoint-barrier truncation: drop journaled records whose
+        seqs the durable ledger marked consumed (no future resume needs
+        them). Returns the number dropped."""
+        if self._wal is None:
+            return 0
+        with self._wal_lock:
+            return self._wal.compact(lambda rec: rec.get("seq") not in consumed)
 
     def __len__(self):
         # Unknown a priori; reference returns the configured dataset size.

@@ -9,7 +9,9 @@ commands a port worker), and the worker mirrors its status there.
 ``LocalController`` runs workers without one, as the reference's does.
 The client side (``WorkerControl``) is not ported: no worker or
 controller of either package constructs one. ``AsyncWorker`` polls a
-coroutine on one event loop (the rollout worker).
+coroutine on one event loop (the rollout worker). A worker may leave an
+exit record (``write_exit_record``, a port addition): what it did on its
+device, for the launcher to read after the run.
 """
 
 from __future__ import annotations
@@ -25,10 +27,23 @@ from typing import Any, Dict, Optional
 
 import zmq
 
-from areal_tpu_torch.base import health, logging, name_resolve, names, network, tracing
+from areal_tpu_torch.base import constants, health, logging, name_resolve, names, network, tracing
 from areal_tpu_torch.base.fault_injection import faults
 
 logger = logging.getLogger("worker")
+
+
+def exit_record_path(experiment_name: str, trial_name: str, worker_name: str) -> str:
+    return os.path.join(constants.get_log_path(experiment_name, trial_name), "exit_records",
+                        worker_name.replace("/", "_") + ".json")
+
+
+def write_exit_record(experiment_name: str, trial_name: str, worker_name: str, record: Dict):
+    path = exit_record_path(experiment_name, trial_name, worker_name)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path + ".tmp", "w") as f:
+        json.dump(record, f)
+    os.replace(path + ".tmp", path)
 
 
 class WorkerServerStatus(str, enum.Enum):

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--out report.json] [--profile-serving]
         [--phases build,parity,serve_bf16,serve_int8,interrupt,http,grad,train,workers,
-                  async_ppo,disagg,weight_plane,sft]
+                  async_ppo,disagg,weight_plane,sft,recover]
 
 Phases (every one must pass; the script exits nonzero on the first that
 fails, and on a machine without CUDA):
@@ -19,7 +19,9 @@ fails, and on a machine without CUDA):
                  GAE entries by the device time of their kernels beside
                  the whole call, the backward with CUDA events).
 3. serve_bf16  - a ServingEngine at the full width of
-                 DeepSeek-R1-Distill-Qwen-1.5B (seeded random weights)
+                 DeepSeek-R1-Distill-Qwen-1.5B and 14 of its 28 layers
+                 (seeded random weights; cut since the recover phase
+                 joined, for the run's time limit, as phases 4-6 and 8)
                  serves a mix of requests with a bf16 KV pool; launch
                  counts of every kernel on that path must be > 0.
                  --profile-serving adds the profiled windows.
@@ -27,7 +29,7 @@ fails, and on a machine without CUDA):
 5. interrupt   - update_params mid-generation returns partial results
                  with interrupted=True and the new version goes live.
 6. http        - the port's GenerationServer in process, at the full
-                 width and depth, with the qid prefix cache and
+                 width and 14 layers, with the qid prefix cache and
                  token-budget admission, driven over HTTP: a mixed wave
                  from 18 client threads (checked as serve_bf16's), six
                  continuations that must hit the prefix cache, the same
@@ -38,7 +40,7 @@ fails, and on a machine without CUDA):
 7. grad        - at full width and 2 layers, the gradients of the SFT loss
                  through the kernels against the plain attention on the
                  card, leaf by leaf.
-8. train       - a TorchTrainEngine at the full width and depth of
+8. train       - a TorchTrainEngine at the full width and 14 layers of
                  R1-Distill-Qwen-1.5B (float32 params, bf16 compute): PPO
                  actor inference, one train_step (GAE, advantage
                  normalization, 4 minibatch updates), then 3 SFT steps;
@@ -49,7 +51,7 @@ fails, and on a machine without CUDA):
                  worker loads the actor from an HF directory of seeded
                  random weights at the full width and 7 of the 28
                  layers (the sft phase trains the same engine through the
-                 worker system at all 28; float32
+                 worker system at 7; float32
                  params, bf16 compute) and pulls 2 steps of the train
                  phase's PPO batch, pushed from this process as a
                  rollout worker would; the master runs 2 actor_train
@@ -121,8 +123,10 @@ fails, and on a machine without CUDA):
                  (forward, both backward kernels, packed_gae_f32) > 0.
 13. sft        - supervised fine-tuning through the port's entry point,
                  areal_tpu_torch.training.main_sft.main(argv) with the
-                 reference's override keys, at the full width and all 28
-                 layers (float32 params, bf16 compute, remat): a model
+                 reference's override keys, at the full width and 7 of
+                 the 28 layers (for the run's time limit since the
+                 recover phase joined; float32 params, bf16 compute,
+                 remat): a model
                  worker loads an HF directory of seeded random weights and
                  64 prompt/answer rows (prompts of 256-1024 and answers of
                  128-512 tokens under a tiny tokenizer), trains 3 steps of
@@ -137,6 +141,34 @@ fails, and on a machine without CUDA):
                  params. The forward and both backward kernels in the
                  worker, and the forward and paged_decode_bf16 in the
                  servers, must launch.
+14. recover    - checkpoint and recovery through main_sft at the full
+                 width and 7 of the 28 layers (float32 params, bf16
+                 compute, remat, a constant LR, no warmup), with
+                 recover_mode=auto, recover_retries=1,
+                 exp_ctrl.ckpt_freq_steps=2 and AREAL_CKPT_ASYNC=1 in the
+                 worker: the first incarnation trains steps 1-3 with an
+                 async engine-state checkpoint at step 2, and its master
+                 fails at the top of step 4 (master.step armed to raise
+                 in this process); the launcher's loop relaunches, the
+                 master resumes from the step-2 recover record and the
+                 worker restores the step-2 engine state and dataloader
+                 cursor. Gates: (a) exactly one relaunch; (b) the record
+                 reads global step 2 at the relaunch (its manifest
+                 areal-train-ckpt/v1) and 5 at the end (the reference's
+                 resume counts last_step_info.next(), so the two steps of
+                 the second incarnation are numbered 4 and 5); (c) the
+                 second incarnation's first step equals the first's step
+                 3 in every sft/* stat; (d) the forward and both backward
+                 kernels launch in each incarnation; (e) each worker
+                 leaves with no pending checkpoint write and the final
+                 checkpoint committed. It prints the checkpoint's bytes,
+                 the trainer's stall (the "ckpt" broadcast and the
+                 worker's areal:train_ckpt_stall_ms), the writer's seconds
+                 and GB/s, the restore's seconds, the time to recover
+                 (the failure to the repeated step's stats) and the
+                 worker's peak device memory; then, in this process on an
+                 engine of the same depth, the stall of a synchronous
+                 save and of a snapshot into pinned host memory.
 
 Before the last line it prints the card's name and power limit (as
 nvidia-smi reports them) and one {"kernels": [...]} JSON line; the last
@@ -194,8 +226,14 @@ GAE_PLAN_SHAPES = ((64, 4096), (4096, 4096), (66, 8192), (66, 16384), (132, 1638
 # SFT-loss gradients through the kernels against the plain attention, bf16
 # compute end to end: per leaf, against the leaf's largest reference value.
 LEAF_TOL = 5e-2
+# Depths of the serving phases (serve_bf16, serve_int8, interrupt, http)
+# and of the train phase, cut from the model's 28 layers since the recover
+# phase joined the default run (the run's time limit; widths and gates
+# unchanged).
+SERVE_LAYERS = 14
+TRAIN_LAYERS = 14
 PHASES = ("build", "parity", "serve_bf16", "serve_int8", "interrupt", "http", "grad", "train",
-          "workers", "async_ppo", "disagg", "weight_plane", "sft")
+          "workers", "async_ppo", "disagg", "weight_plane", "sft", "recover")
 # The train phase at real size; a rehearsal on the CPU passes smaller ones.
 TRAIN_SIZES = dict(n_prompts=8, group=4, prompt=(128, 512), response=(256, 3072),
                    row_len=4096, max_tokens_per_mb=16384, n_minibatches=4,
@@ -2182,8 +2220,7 @@ ASYNC_SIZES = dict(n_prompts=64, prompt=(256, 1024), train_batch_size=8, group=4
                    row_len=4096, max_tokens_per_mb=16384, n_minibatches=4, words=400)
 ASYNC_TIMEOUT_S = 900.0
 # The async_ppo phase's depth (the weight_plane phase runs the loop at 7
-# layers too, the sft phase the trainer at 28): cut to keep the default run
-# inside its time limit.
+# layers too): cut to keep the default run inside its time limit.
 ASYNC_LAYERS = 7
 
 
@@ -3458,6 +3495,9 @@ SFT_SIZES = dict(n_rows=64, prompt=(256, 1024), answer=(128, 512), max_length=20
                  max_tokens_per_mb=16384, lr=1e-4, slots=16, max_seq_len=4096, page=128,
                  chunk=1024, n_greedy=8, greedy_lens=(300, 1200), greedy_new=32)
 SFT_TIMEOUT_S = 600.0
+# Cut in depth since the recover phase joined the default run (the run's
+# time limit): the HF save and the loads move 3.2 GB, not 7.1.
+SFT_LAYERS = 7
 
 
 def sft_rows(rng, n, sizes, words):
@@ -3785,6 +3825,282 @@ def sft_phase(torch, rng, dev, cfg, seed, card, sizes=SFT_SIZES):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+RECOVER_SIZES = dict(n_rows=96, prompt=(256, 1024), answer=(128, 512), max_length=2048,
+                     train_batch_size=16, steps=5, ckpt_steps=2, fail_at=4, words=400,
+                     row_len=4096, max_tokens_per_mb=16384, lr=1e-4)
+RECOVER_TIMEOUT_S = 600.0
+# Cut in depth for the run's time limit: two worker starts, two 9.5 GB
+# checkpoints and a restore at 7 layers.
+RECOVER_LAYERS = 7
+RECOVER_KERNELS = ("flash_attn_fwd_bf16", "flash_attn_bwd_dq_bf16", "flash_attn_bwd_dkv_bf16")
+
+
+def snapshot_stalls(torch, dev, cfg, params, save_dir):
+    """On an engine of the recover phase's depth (float32 params and
+    AdamW moments on the card): the step-loop stall of a synchronous
+    save_engine_state, and what a snapshot into pinned host memory would
+    cost the loop (allocating the pinned buffers, then the copy the next
+    in-place step must wait for), beside the device clone the async
+    writer takes."""
+    from areal_tpu_torch.engine import checkpoint
+    from areal_tpu_torch.engine.optimizer import OptimizerConfig, tree_leaves
+    from areal_tpu_torch.engine.torch_engine import TorchTrainEngine
+
+    eng = TorchTrainEngine(cfg, cast_tree(params, torch.float32), optimizer_config=OptimizerConfig(),
+                           device=dev)
+    state = tree_leaves(eng.params) + eng.optimizer.mu + eng.optimizer.nu
+    nbytes = sum(x.numel() * x.element_size() for x in state)
+    out = dict(state_bytes=nbytes)
+    saved = os.environ.pop("AREAL_CKPT_ASYNC", None)
+    try:
+        sync(torch, dev)
+        t = time.perf_counter()
+        checkpoint.save_engine_state(eng, save_dir)
+        out["sync_stall_ms"] = checkpoint.ckpt_stats["areal:train_ckpt_stall_ms"]
+        out["sync_wall_s"] = time.perf_counter() - t
+    finally:
+        if saved is not None:
+            os.environ["AREAL_CKPT_ASYNC"] = saved
+    sync(torch, dev)
+    t = time.perf_counter()
+    clone = [x.detach().clone() for x in state]
+    sync(torch, dev)
+    out["clone_ms"] = (time.perf_counter() - t) * 1e3
+    del clone
+    t = time.perf_counter()
+    host = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True) for x in state]
+    out["pin_alloc_ms"] = (time.perf_counter() - t) * 1e3
+    side = torch.cuda.Stream(device=dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    t = time.perf_counter()
+    with torch.cuda.stream(side):
+        for h, x in zip(host, state):
+            h.copy_(x, non_blocking=True)
+    side.synchronize()
+    out["pin_copy_ms"] = (time.perf_counter() - t) * 1e3
+    del host, state, eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def recover_phase(torch, rng, dev, cfg, seed, card, sizes=RECOVER_SIZES):
+    """Checkpoint and recovery through the port's entry point,
+    areal_tpu_torch.training.main_sft.main(argv), with the reference's
+    override keys: the master of the first incarnation fails at the top
+    of step ``fail_at`` (after step ``fail_at - 1``'s stats, before any
+    checkpoint of that step), the launcher's loop relaunches with
+    recover_mode=auto, and the second incarnation resumes from the
+    checkpoint of step ``ckpt_steps``. See the module docstring for the
+    gates."""
+    import shutil
+    import tempfile
+
+    from areal_tpu_torch.base import recover
+    from areal_tpu_torch.base.fault_injection import faults
+    from areal_tpu_torch.engine import checkpoint
+    from areal_tpu_torch.models.hf import save_hf_model
+    from areal_tpu_torch.models.transformer import init_params
+    from areal_tpu_torch.system import master_worker
+    from areal_tpu_torch.system.function_executor import FunctionExecutor
+    from areal_tpu_torch.system.worker_base import exit_record_path
+    from areal_tpu_torch.training import main_sft
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_recover_")
+    exp, trial = os.path.basename(tmp), "recover"
+    fileroot = os.path.join(tmp, "fileroot")
+    env = {"AREAL_FILEROOT": fileroot}
+    worker_env = dict(env, AREAL_CKPT_ASYNC="1")
+    saved_env = {k: os.environ.get(k) for k in env}
+    stats = dict(card=card)
+    Master = master_worker.MasterWorker
+    inner = dict(configure=Master._configure, broadcast=Master._broadcast,
+                 recover=Master._maybe_recover, step=FunctionExecutor.execute_step_sync)
+    t_phase = time.perf_counter()
+    try:
+        t0 = time.perf_counter()
+        hf_dir = os.path.join(tmp, "hf")
+        words = tiny_tokenizer(rng, hf_dir, sizes["words"])
+        # Kept (bf16) for the in-process engine of the stall measurements.
+        params = init_params(cfg, seed=seed, device=dev, dtype=torch.bfloat16)
+        save_hf_model(hf_dir, cfg, params, "qwen2")
+        data = os.path.join(tmp, "sft.jsonl")
+        with open(data, "w") as f:
+            f.writelines(json.dumps(r) + "\n" for r in sft_rows(rng, sizes["n_rows"], sizes,
+                                                                 words))
+        stats["setup_s"] = time.perf_counter() - t0
+        argv = [
+            f"experiment_name={exp}", f"trial_name={trial}", f"seed={seed}",
+            f"name_resolve_root={os.path.join(tmp, 'name_resolve')}",
+            f"model.path={hf_dir}", f"tokenizer_path={hf_dir}",
+            f"dataset.path={data}", f"dataset.max_length={sizes['max_length']}",
+            f"train_batch_size={sizes['train_batch_size']}",
+            f"exp_ctrl.benchmark_steps={sizes['steps']}",
+            f"exp_ctrl.ckpt_freq_steps={sizes['ckpt_steps']}",
+            "recover_mode=auto", "recover_retries=1",
+            f"model.optimizer.lr={sizes['lr']}", "model.optimizer.lr_scheduler_type=constant",
+            "model.optimizer.warmup_steps_proportion=0.0",
+            f"model.row_len_multiple={sizes['row_len']}", f"model.max_row_len={sizes['row_len']}",
+            f"mb_spec_max_tokens={sizes['max_tokens_per_mb']}", f"device={dev.type}",
+        ]
+        log(f"  main_sft {' '.join(argv)} (worker env {worker_env})")
+        os.environ.update(env)
+        ckpt_dir = os.path.join(fileroot, "recover", exp, trial, "default", "dp0")
+        record = exit_record_path(exp, trial, "model_worker/0")
+        attempts, steps, broadcasts, restores, t_fail = [], [], [], [], []
+
+        # The master runs in this process: what each incarnation finds on
+        # disk at its start, its "ckpt" broadcasts, its restore and steps.
+        def configure(self, config):
+            a = dict(mode=config.recover_mode, t=time.perf_counter())
+            if attempts:
+                a["record_step"] = recover.load(exp, trial).last_step_info.global_step
+                a["manifest"] = checkpoint.load_manifest(ckpt_dir)
+                with open(record) as f:
+                    a["worker"] = json.load(f)
+            attempts.append(a)
+            return inner["configure"](self, config)
+
+        def broadcast(self, handle, timeout=3600):
+            t = time.perf_counter()
+            out = inner["broadcast"](self, handle, timeout)
+            broadcasts.append(dict(attempt=len(attempts), step=self.step_info.global_step,
+                                   handle=handle, seconds=time.perf_counter() - t))
+            return out
+
+        def maybe_recover(self):  # the relaunch's wait on "restore"
+            t = time.perf_counter()
+            inner["recover"](self)
+            restores.append(time.perf_counter() - t)
+
+        def step(self):
+            out = inner["step"](self)
+            steps.append(dict(attempt=len(attempts), t=time.perf_counter(),
+                              stats=out["trainDefault"]))
+            return out
+
+        Master._configure, Master._broadcast, Master._maybe_recover = (
+            configure, broadcast, maybe_recover)
+        FunctionExecutor.execute_step_sync = step
+        faults.reset()
+        faults.arm("master.step", "raise", at_hit=sizes["fail_at"],
+                   on_trigger=lambda: t_fail.append(time.perf_counter()))
+        t0 = time.perf_counter()
+        try:
+            result = main_sft.main(argv, worker_env=worker_env, timeout=RECOVER_TIMEOUT_S)
+        finally:
+            faults.reset()
+            Master._configure, Master._broadcast, Master._maybe_recover = (
+                inner["configure"], inner["broadcast"], inner["recover"])
+            FunctionExecutor.execute_step_sync = inner["step"]
+        stats["run_s"] = time.perf_counter() - t0
+        with open(record) as f:
+            final_worker = json.load(f)
+        final_record = recover.load(exp, trial).last_step_info.global_step
+        final_manifest = checkpoint.load_manifest(ckpt_dir)
+        ckpt_bytes = os.path.getsize(os.path.join(ckpt_dir, "engine_state.pkl"))
+        litter = [f for f in os.listdir(ckpt_dir) if ".tmp." in f]
+
+        # (a) one relaunch; (b) the record and manifest it resumed from, and
+        # the record at the end.
+        if len(attempts) != 2 or result["global_step"] != sizes["steps"]:
+            raise AssertionError(f"recover: {len(attempts)} incarnations, global step "
+                                 f"{result['global_step']}")
+        a2 = attempts[1]
+        want_vs = sizes["ckpt_steps"]
+        if (a2["record_step"] != sizes["ckpt_steps"] or a2["manifest"] is None
+                or a2["manifest"]["schema"] != "areal-train-ckpt/v1"
+                or a2["manifest"]["version_steps"] != want_vs or final_record != sizes["steps"]):
+            raise AssertionError(f"recover: the relaunch found record step "
+                                 f"{a2['record_step']}, manifest {a2['manifest']}; the "
+                                 f"record ends at {final_record}")
+        # Incarnation 1 trains steps 1 .. fail_at - 1; incarnation 2 resumes
+        # at global step ckpt_steps + 1 and trains to `steps`, its first
+        # step on step ckpt_steps + 1's batch.
+        by = {i: [s for s in steps if s["attempt"] == i] for i in (1, 2)}
+        n1, n2 = sizes["fail_at"] - 1, sizes["steps"] - sizes["ckpt_steps"] - 1
+        if len(by[1]) != n1 or len(by[2]) != n2 or n1 != sizes["ckpt_steps"] + 1:
+            raise AssertionError(f"recover: steps {len(by[1])} then {len(by[2])}, want {n1} "
+                                 f"then {n2}")
+        # (c) the repeated step.
+        sft = lambda st: {k: v for k, v in st.items() if k.startswith("sft/")}  # noqa: E731
+        before, after = sft(by[1][n1 - 1]["stats"]), sft(by[2][0]["stats"])
+        diff = {k: abs(after[k] - before[k]) / max(abs(before[k]), 1e-30) for k in before}
+        stats["repeat_rel_diff"] = diff
+        if after != before:
+            raise AssertionError(f"recover: step {n1} after the restore differs: {before} "
+                                 f"against {after}")
+        # (d) the kernels in each incarnation.
+        launches = {i: {k: int(sum(s["stats"].get(f"launches/{k}", 0) for s in by[i]))
+                        for k in RECOVER_KERNELS} for i in (1, 2)}
+        if dev.type == "cuda":
+            bad = [(i, k) for i in (1, 2) for k in RECOVER_KERNELS if launches[i][k] <= 0]
+            if bad:
+                raise AssertionError(f"recover: kernels not launched {bad}")
+        # (e) no pending write at either exit; the final checkpoint committed.
+        w1, w2 = a2["worker"], final_worker
+        if (any((w["ckpt_writer"] or {}).get("pending") != 0 for w in (w1, w2)) or litter
+                or final_manifest["rng"]["train_calls"] != want_vs + n2):
+            raise AssertionError(f"recover: writers {w1['ckpt_writer']} {w2['ckpt_writer']}, "
+                                 f"litter {litter}, final manifest {final_manifest}")
+
+        ckpts = [b for b in broadcasts if b["handle"] == "ckpt"]
+        stats.update(
+            ckpt_bytes=ckpt_bytes, ckpt_broadcast_s=[b["seconds"] for b in ckpts],
+            ckpt_steps=[(b["attempt"], b["step"]) for b in ckpts],
+            worker_stall_ms=[c["stall_ms"] for w in (w1, w2) for c in w["ckpt"]],
+            write_s=[w1["ckpt_writer"]["last_write_s"], w2["ckpt_writer"]["last_write_s"]],
+            write_host_s=[w1["ckpt_writer"]["last_host_s"], w2["ckpt_writer"]["last_host_s"]],
+            step_s={i: [s["stats"]["perf/sec"] for s in by[i]] for i in (1, 2)},
+            restore_s=restores[-1], worker_restore_s=w2["restore_s"],
+            time_to_recover_s=by[2][0]["t"] - t_fail[0],
+            relaunch_to_restored_s=a2["t"] - t_fail[0],
+            worker_peak_gb=[w1["peak_memory_bytes"] / 1e9, w2["peak_memory_bytes"] / 1e9],
+            step_e2e_s=[h[0] for h in result["perf_summary"]["history"]],
+            launches_by_incarnation=launches,
+            launches={k: launches[1][k] + launches[2][k] for k in RECOVER_KERNELS})
+        stats["write_gb_s"] = [ckpt_bytes / s / 1e9 for s in stats["write_s"]]
+        log(f"  main_sft with one failure in {stats['run_s']:.1f} s: incarnation 1 steps 1-{n1} "
+            f"(checkpoint at step {sizes['ckpt_steps']}), failed at the top of step "
+            f"{sizes['fail_at']}; the relaunch found the recover record at step "
+            f"{a2['record_step']} and the manifest {a2['manifest']['schema']} (version_steps "
+            f"{a2['manifest']['version_steps']}); incarnation 2 trained {n2} steps, step "
+            f"{n1} again bit-equal in every sft/* stat; the record ends at {final_record}")
+        log(f"  checkpoint {ckpt_bytes} bytes; trainer stall: the ckpt broadcast "
+            f"{[round(x, 4) for x in stats['ckpt_broadcast_s']]} s, the worker's "
+            f"areal:train_ckpt_stall_ms {[round(x, 2) for x in stats['worker_stall_ms']]}; "
+            f"the writer {[round(x, 2) for x in stats['write_s']]} s "
+            f"({[round(x, 3) for x in stats['write_gb_s']]} GB/s; the host copy "
+            f"{[round(x, 2) for x in stats['write_host_s']]} s of it, then pickle and fsync); "
+            f"MFC seconds by incarnation {({i: [round(x, 3) for x in v] for i, v in stats['step_s'].items()})} "
+            f"(step {sizes['ckpt_steps'] + 1} of the first runs while the step-"
+            f"{sizes['ckpt_steps']} write is in flight); "
+            f"restore {stats['restore_s']:.2f} s (the master's wait; the worker's load "
+            f"{stats['worker_restore_s']:.2f} s); time to recover {stats['time_to_recover_s']:.1f} "
+            f"s (the failure to step {n1}'s stats again; {stats['relaunch_to_restored_s']:.1f} s "
+            f"of it to the relaunched master's start); worker peak device memory "
+            f"{[round(x, 2) for x in stats['worker_peak_gb']]} GB with the snapshot; launches "
+            f"{launches}; step e2e {[round(x, 3) for x in stats['step_e2e_s']]} s; {card}")
+        shutil.rmtree(fileroot, ignore_errors=True)
+        if dev.type == "cuda":
+            stats["in_process"] = ip = snapshot_stalls(torch, dev, cfg, params,
+                                                        os.path.join(tmp, "sync"))
+            log(f"  in this process, {ip['state_bytes']} bytes of params and moments: a "
+                f"synchronous save stalls the step loop {ip['sync_stall_ms']:.1f} ms; the async "
+                f"writer's device clone takes {ip['clone_ms']:.2f} ms; a snapshot into pinned "
+                f"host memory would take {ip['pin_alloc_ms']:.1f} ms to allocate and "
+                f"{ip['pin_copy_ms']:.1f} ms to copy; {card}")
+        del params
+        stats["phase_s"] = time.perf_counter() - t_phase
+        return stats
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def cast_tree(tree, dtype, device=None):
     if isinstance(tree, dict):
         return {k: cast_tree(v, dtype, device) for k, v in tree.items()}
@@ -3874,15 +4190,17 @@ def main() -> int:
         phase_done("parity", t0)
 
     cfg = r1_distill_qwen_1_5b_config()
+    serve_cfg = dataclasses.replace(cfg, n_layers=SERVE_LAYERS)
     serving = [p for p in phases if p in ("serve_bf16", "serve_int8", "interrupt")]
     main_counts = {}
     if serving:
         from areal_tpu_torch.models.transformer import count_params, init_params
 
         t0 = time.perf_counter()
-        params = init_params(cfg, seed=args.seed, device=dev, dtype=torch.bfloat16)
+        params = init_params(serve_cfg, seed=args.seed, device=dev, dtype=torch.bfloat16)
         torch.cuda.synchronize()
-        log(f"serving model: R1-Distill-Qwen-1.5B widths, {count_params(params) / 1e9:.3f} B "
+        log(f"serving model: R1-Distill-Qwen-1.5B widths, {SERVE_LAYERS} layers, "
+            f"{count_params(params) / 1e9:.3f} B "
             f"params (bf16, seeded random) in {time.perf_counter() - t0:.1f} s")
         for ph, kvd, need in (("serve_bf16", None, ("flash_attn_fwd_bf16", "paged_decode_bf16")),
                               ("serve_int8", "int8", ("flash_attn_fwd_bf16", "paged_decode_int8"))):
@@ -3890,7 +4208,7 @@ def main() -> int:
                 continue
             log(f"phase {ph}")
             t0 = time.perf_counter()
-            report["phases"][ph] = serve_phase(torch, rng, dev, cfg, params, kvd,
+            report["phases"][ph] = serve_phase(torch, rng, dev, serve_cfg, params, kvd,
                                                profiled=args.profile_serving)
             counts = report["phases"][ph]["launches"]
             for k in need:
@@ -3902,7 +4220,7 @@ def main() -> int:
         if "interrupt" in phases:
             log("phase interrupt")
             t0 = time.perf_counter()
-            report["phases"]["interrupt"] = interrupt_phase(torch, rng, dev, cfg, params)
+            report["phases"]["interrupt"] = interrupt_phase(torch, rng, dev, serve_cfg, params)
             phase_done("interrupt", t0)
         # The serving engines and pools are gone; free their weights too
         # before the server and the training phases.
@@ -3915,7 +4233,7 @@ def main() -> int:
         # Its own generator: the later phases' batches stay those of a
         # run without it.
         report["phases"]["http"] = http_phase(torch, np.random.default_rng([args.seed, 4]),
-                                              dev, cfg, args.seed, card)
+                                              dev, serve_cfg, args.seed, card)
         counts = report["phases"]["http"]["launches"]
         for k in ("flash_attn_fwd_bf16", "paged_decode_bf16"):
             main_counts.setdefault(k, counts[k])
@@ -3932,7 +4250,8 @@ def main() -> int:
     if "train" in phases:
         log("phase train")
         t0 = time.perf_counter()
-        report["phases"]["train"] = train_phase(torch, rng, dev, cfg, args.seed)
+        report["phases"]["train"] = train_phase(
+            torch, rng, dev, dataclasses.replace(cfg, n_layers=TRAIN_LAYERS), args.seed)
         counts = report["phases"]["train"]["launches"]
         for k in ("flash_attn_bwd_dq_bf16", "flash_attn_bwd_dkv_bf16", "gae_scan_f32",
                   "packed_gae_f32"):
@@ -3945,7 +4264,7 @@ def main() -> int:
         log("phase workers")
         t0 = time.perf_counter()
         # Cut in depth: the sft phase runs the same engine through the
-        # worker system at all 28 layers, the async_ppo phase the same dump
+        # worker system at SFT_LAYERS, the async_ppo phase the same dump
         # and server load.
         report["phases"]["workers"] = workers_phase(
             torch, np.random.default_rng([args.seed, 5]), dev,
@@ -4016,13 +4335,28 @@ def main() -> int:
         t0 = time.perf_counter()
         torch.cuda.empty_cache()
         report["phases"]["sft"] = sft_phase(torch, np.random.default_rng([args.seed, 10]), dev,
-                                            cfg, args.seed, card)
+                                            dataclasses.replace(cfg, n_layers=SFT_LAYERS),
+                                            args.seed, card)
         # SFT is a main path of its own: its launches add.
         for k, n in report["phases"]["sft"]["launches"].items():
             if n:
                 main_counts[k] = main_counts.get(k, 0) + n
         torch.cuda.empty_cache()
         phase_done("sft", t0)
+
+    if "recover" in phases:
+        log("phase recover")
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        report["phases"]["recover"] = recover_phase(
+            torch, np.random.default_rng([args.seed, 11]), dev,
+            dataclasses.replace(cfg, n_layers=RECOVER_LAYERS), args.seed, card)
+        # Recovery is a main path of its own: its launches add.
+        for k, n in report["phases"]["recover"]["launches"].items():
+            if n:
+                main_counts[k] = main_counts.get(k, 0) + n
+        torch.cuda.empty_cache()
+        phase_done("recover", t0)
 
     kernels_line = []
     for name, row in kernel_rows.items():

@@ -80,10 +80,10 @@ def test_help_config_lists_the_reference_keys(capsys):
 
 
 @pytest.mark.parametrize("override", [
-    "recover_mode=auto", "auto_eval=true", "allocation_mode=d2", "agent_type=tool-use",
+    "train_n_hosts=2", "auto_eval=true", "allocation_mode=d2", "agent_type=tool-use",
     "gen_weight_shards=0/1", "gen_elastic_fleet=true", "gen_autoscale=true",
     "gen_tensor_parallel=2", "actor.prefetch_depth=2", "ppo.generation_size=8",
-    "exp_ctrl.ckpt_freq_steps=1",
+    "gen_speculative_draft_len=2",
 ])
 def test_unported_options_raise(override):
     cfg = cli_args.AsyncPPOMATHExpConfig()

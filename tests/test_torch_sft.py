@@ -31,8 +31,9 @@ experiment, the HF save and evaluate, and serving what was saved.
   has no HF family to save with (``ValueError``); both packages' workers
   reply with the same exception type.
 - The launcher: ``python -m areal_tpu_torch.training.main_sft`` exits 0
-  on the CPU, and checkpoints, recovery and the multi-host launch raise
-  ``NotImplementedError`` naming their ROADMAP item.
+  on the CPU, and options the port lacks (a device mesh, the input
+  pipeline, the multi-host launch) raise ``NotImplementedError`` naming
+  their ROADMAP item.
 """
 
 import dataclasses
@@ -576,7 +577,7 @@ def test_main_sft_runs_on_the_cpu_in_a_subprocess(sft_runs, tmp_path):
 
 
 @pytest.mark.parametrize("override,item", [
-    ("exp_ctrl.ckpt_freq_steps=1", "item 3.2"), ("recover_mode=auto", "item 3.2"),
+    ("allocation_mode=d2", "item 7"), ("model.prefetch_depth=2", "item 3.4"),
     ("n_hosts=2", "item 7")])
 def test_main_sft_refuses_what_is_not_ported(override, item):
     with pytest.raises(NotImplementedError, match=item):

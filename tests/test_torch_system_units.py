@@ -294,33 +294,62 @@ class _Clock:
 @pytest.mark.parametrize("ctl", [dict(save_freq_steps=1), dict(ckpt_freq_epochs=1),
                                  dict(eval_freq_secs=60), dict(recover_mode="auto")])
 def test_master_refuses_save_ckpt_eval_and_recover(ctl, tmp_path, monkeypatch):
-    """Checkpoints and recovery are refused. A save or evaluate frequency
-    (refused before the SFT slice) configures, and the master's control
-    hits at the same steps as the reference's on a scripted run (steps,
-    epoch boundaries and a patched clock)."""
+    """Save, checkpoint and evaluate frequencies and recovery configure
+    (each was refused before its slice). The master's save, ckpt or eval
+    control hits at the same steps as the reference's on a scripted run
+    (steps, epoch boundaries and a patched clock); under recover_mode
+    "auto" the master resumes from a recover record at the step, control
+    states, ignore-list and ledger the reference's master reads from the
+    same record."""
+    from areal_tpu.base import constants as rconst
+    from areal_tpu.base import recover as rrec
     from areal_tpu.base import timeutil as rtime
+    from areal_tpu.system.master_worker import MasterWorker as RefMaster
+    from areal_tpu_torch.base import constants as tconst
     from areal_tpu_torch.base import timeutil as ttime
 
     mode = ctl.pop("recover_mode", "disabled")
     cfg = tsys.MasterWorkerConfig(experiment_name="x", trial_name="t", recover_mode=mode,
                                   exp_ctrl=tsys.ExperimentSaveEvalControl(**ctl))
-    if mode != "disabled" or "ckpt_freq_epochs" in ctl:
-        with pytest.raises(NotImplementedError):
-            MasterWorker()._configure(cfg)
-        return
     clock = _Clock()
     monkeypatch.setattr(ttime, "time", clock)
     monkeypatch.setattr(rtime, "time", clock)
-    saved = name_resolve._default.repo
+    saved = name_resolve._default.repo, ref_nr._default.repo
     name_resolve.reconfigure("nfs", record_root=str(tmp_path / "nr"))
+    ref_nr.reconfigure("nfs", record_root=str(tmp_path / "nr"))
     master = MasterWorker()
+    ref = None
     try:
         cfg.n_model_workers = 0
+        if mode != "disabled":
+            for mod in (tconst, rconst):
+                monkeypatch.setattr(mod, "RECOVER_ROOT", str(tmp_path / "recover"))
+            rrec.dump(rrec.RecoverInfo(
+                last_step_info=rrec.StepInfo(epoch=1, epoch_step=2, global_step=7),
+                save_ctl_info=dict(steps=0, epochs=0, total_steps=7, first=False),
+                ckpt_ctl_info=dict(steps=1, epochs=0, total_steps=7, first=False),
+                eval_ctl_info=dict(steps=3, epochs=1, total_steps=7, first=False),
+                hash_vals_to_ignore=["a", "b"], consumed_seqs={"water": {"p0": 4}}), "x", "t")
+            from areal_tpu.api import system_api as rsys
+
+            ref = RefMaster()
+            ref.configure(rsys.MasterWorkerConfig(
+                experiment_name="x", trial_name="t", recover_mode=mode, n_model_workers=0),
+                experiment_name="x", trial_name="t", worker_name="master")
         master.configure(cfg, experiment_name="x", trial_name="t", worker_name="master")
-        what = "save" if "save_freq_steps" in ctl else "eval"
+        if ref is not None:
+            assert dataclasses.asdict(master.step_info) == dataclasses.asdict(ref.step_info)
+            assert master.step_info.global_step == 8
+            for c in ("save_ctl", "ckpt_ctl", "eval_ctl"):
+                assert getattr(master, c).state_dict() == getattr(ref, c).state_dict()
+            assert master.buffer.ignore_ids == ref.buffer.ignore_ids == {"a", "b"}
+            assert master.buffer.consumed_seqs() == ref.buffer.consumed_seqs()
+            return
+        what = next(w for w in ("save", "ckpt", "eval") if any(k.startswith(w) for k in ctl))
         port_ctl = getattr(master, f"{what}_ctl")
         ref_ctl = rtime.FrequencyControl(
-            frequency_step=ctl.get("save_freq_steps"), frequency_sec=ctl.get("eval_freq_secs"))
+            frequency_step=ctl.get("save_freq_steps"), frequency_sec=ctl.get("eval_freq_secs"),
+            frequency_epoch=ctl.get("ckpt_freq_epochs"))
         hits = []
         for i in range(12):
             clock.now += 7.0 * (i % 4)
@@ -328,11 +357,13 @@ def test_master_refuses_save_ckpt_eval_and_recover(ctl, tmp_path, monkeypatch):
             hits.append((port_ctl.check(steps=1, epochs=epochs),
                          ref_ctl.check(steps=1, epochs=epochs)))
         assert [a for a, _ in hits] == [b for _, b in hits]
-        assert sum(a for a, _ in hits) == (12 if what == "save" else 2)
+        assert sum(a for a, _ in hits) == {"save": 12, "eval": 2, "ckpt": 2}[what]
     finally:
         master._exit_hook()
+        if ref is not None:
+            ref._exit_hook()
         name_resolve._default.repo.reset()
-        name_resolve._default.repo = saved
+        name_resolve._default.repo, ref_nr._default.repo = saved
 
 
 def test_controller_run_raises_past_its_deadline(tmp_path):
