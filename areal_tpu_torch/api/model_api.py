@@ -10,8 +10,8 @@ config (``api/config.py``) by the reference's names
 (``engine/factories.py`` registers ``tpu_transformer``, ``jax_train``
 and ``jax_inference``). The generation types (``GenerationHyperparameters``,
 ``APIGenerateOutput``, ``BundledGenerationOutputs``) are what the rollout
-side passes between its partial-rollout client and its agents.
-In-framework generation is not ported.
+side passes between its partial-rollout client and its agents; an
+engine's ``generate`` is the in-framework generation of sync PPO.
 """
 
 from __future__ import annotations
@@ -168,6 +168,17 @@ class TrainEngine(abc.ABC):
         post_hook: Optional[Callable] = None,
     ) -> Optional[SequenceSample]:
         """Gradient-free forward over micro-batches, gathered to host."""
+
+    @abc.abstractmethod
+    def generate(
+        self,
+        input_: SequenceSample,
+        mb_spec: MicroBatchSpec,
+        tokenizer: Any,
+        gconfig: "GenerationHyperparameters",
+    ) -> List[Dict[str, Any]]:
+        """In-framework generation (the sync PPO path): one dict of
+        ``output_ids``, ``output_logprobs`` and ``no_eos`` a sequence."""
 
 
 @dataclasses.dataclass

@@ -34,13 +34,18 @@ def transformer_forward_flops(cfg, seqlens: Sequence[int]) -> int:
     return cfg.n_layers * (attn_proj + attn_quad + mlp) + head
 
 
-def mfc_flops(cfg, interface_type: str, input_seqlens: Sequence[int]) -> int:
+def mfc_flops(cfg, interface_type: str, input_seqlens: Sequence[int],
+              output_seqlens: Optional[Sequence[int]] = None) -> int:
     """Analytic FLOPs of one model function call: train_step 3x forward,
-    inference 1x (the port's model worker runs no generate MFC yet)."""
+    inference 1x, generate one forward over the full (prompt + generated)
+    sequences, which counts each decode step's matmuls once and the
+    attention context quadratically."""
     if interface_type == "train_step":
         return 3 * transformer_forward_flops(cfg, input_seqlens)
     if interface_type == "inference":
         return transformer_forward_flops(cfg, input_seqlens)
+    if interface_type == "generate":
+        return transformer_forward_flops(cfg, output_seqlens or input_seqlens)
     return 0
 
 

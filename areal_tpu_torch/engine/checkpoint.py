@@ -400,6 +400,12 @@ def load_engine_state(engine, load_dir: str):
     if os.path.isdir(os.path.join(os.path.abspath(load_dir), _ORBAX_DIR)):
         raise _orbax_refused()
     state = load_state_file(load_dir)
+    if hasattr(engine, "drop_offloaded_state") and state["opt_state"] is not None:
+        # About to overwrite both params and optimizer state: discard any
+        # offloaded host copies instead of restoring them first. A
+        # params-only state keeps the offloaded moments (set_params
+        # brings them back).
+        engine.drop_offloaded_state()
     engine.set_params(state["params"])
     _, opt = _engine_state(engine)
     if state["opt_state"] is not None and opt is not None:

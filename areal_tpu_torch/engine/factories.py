@@ -2,10 +2,13 @@
 copy of ``areal_tpu/engine/factories.py``): ``make_model
 ("tpu_transformer")`` builds a config and params (random from a seed, or
 an HF checkpoint directory), and the backends wrap them into engines:
-``jax_train`` (a ``TorchTrainEngine`` with AdamW) and ``jax_inference``
-(gradient-free). The registry names are the reference's, so one
-experiment config reads the same in both packages. A backend's ``save``
-/ ``load`` write and read the engine's recover checkpoint.
+``jax_train`` (a ``TorchTrainEngine`` with AdamW), ``jax_inference``
+(gradient-free) and ``mock_train`` / ``mock_inference`` (``MockEngine``,
+shape-correct outputs with no device work: sync PPO's reward shard runs
+on it, its interface grading on the host). The registry names are the
+reference's, so one experiment config reads the same in both packages.
+A backend's ``save`` / ``load`` write and read the engine's recover
+checkpoint.
 
 The tokenizer is the named one, else the HF checkpoint's own, as in the
 reference. Differences from the reference: the device comes from the
@@ -21,12 +24,16 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, List, Optional
 
-from areal_tpu_torch.api.data_api import load_hf_tokenizer
+import numpy as np
+
+from areal_tpu_torch.api.data_api import SequenceSample, load_hf_tokenizer
 from areal_tpu_torch.api.model_api import (
     FinetuneSpec,
+    GenerationHyperparameters,
     Model,
     ModelBackend,
     ModelName,
+    TrainEngine,
     register_backend,
     register_model,
 )
@@ -138,3 +145,80 @@ class JaxInferenceBackend(JaxTrainBackend):
 
 register_backend("jax_train", JaxTrainBackend)
 register_backend("jax_inference", JaxInferenceBackend)
+
+
+class MockEngine(TrainEngine):
+    """Compute-free engine for control-plane work and sync PPO's reward
+    shard (the reference's ``MockEngine``): deterministic, shape-correct
+    outputs with no device work."""
+
+    def __init__(self, seed: int = 0, vocab_size: int = 128):
+        self.seed = seed
+        self.vocab_size = vocab_size
+        self.version = 0
+        self.n_train_calls = 0
+
+    def train_batch(self, input_, mb_spec, loss_fn, loss_weight_fn,
+                    token_normalize_scope="global", version_steps=0,
+                    loss_name="loss"):
+        self.n_train_calls += 1
+        self.version += 1
+        return {
+            f"{loss_name}/loss": 1.0 / self.n_train_calls,
+            f"{loss_name}/n_tokens": float(input_.total_seqlen()),
+        }
+
+    def forward(self, input_, mb_spec, output_key="logprobs", post_hook=None):
+        key = input_._main_key()
+        seqlens = input_.seqlens[key]
+        total = sum(sum(sl) for sl in seqlens)
+        rng = np.random.RandomState(self.seed + total)
+        data = rng.uniform(-1, 0, size=(total,)).astype(np.float32)
+        return SequenceSample(
+            ids=list(input_.ids),
+            keys={output_key},
+            data={output_key: data},
+            seqlens={output_key: [list(sl) for sl in seqlens]},
+        )
+
+    def generate(self, input_, mb_spec, tokenizer, gconfig: GenerationHyperparameters):
+        key = "packed_prompts" if "packed_prompts" in input_.keys else input_._main_key()
+        plens = [sum(sl) for sl in input_.seqlens[key]]
+        outs = []
+        rng = np.random.RandomState(self.seed + sum(plens))
+        for _ in plens:
+            for _ in range(gconfig.n):
+                glen = int(rng.randint(1, max(2, gconfig.max_new_tokens)))
+                outs.append(dict(
+                    output_ids=rng.randint(0, self.vocab_size, size=glen).tolist(),
+                    output_logprobs=(-rng.uniform(0, 1, size=glen)).astype(np.float32),
+                    no_eos=bool(rng.rand() < 0.2),
+                ))
+        return outs
+
+    def get_params(self):
+        return {}
+
+    def set_params(self, params):
+        pass
+
+
+@dataclasses.dataclass
+class MockTrainBackend(ModelBackend):
+    """Wraps a model into a ``MockEngine``. The model's weights, which
+    ``make_model`` loaded on the host (sync PPO's reward shard is built
+    from the actor's checkpoint for its tokenizer), are dropped here; the
+    reference's backend leaves them on the model."""
+
+    seed: int = 0
+    vocab_size: int = 128
+
+    def initialize(self, model: Model, spec: FinetuneSpec) -> Model:
+        model.module = MockEngine(seed=self.seed, vocab_size=self.vocab_size)
+        model.__dict__.pop("_raw", None)
+        model.ft_spec = spec
+        return model
+
+
+register_backend("mock_train", MockTrainBackend)
+register_backend("mock_inference", MockTrainBackend)

@@ -17,12 +17,17 @@ aux_dict)`` where ``model_out`` is the per-token next-token logprobs
 packed [R, T] tensors of every data key (token-aligned keys scattered,
 per-sequence scalars broadcast across their span).
 
-The engine owns its parameter tensors and updates them in place. Not
-ported: meshes, the overlapped input pipeline, ``warm``, ``offload``,
-``generate``, the MoE terms of the loss and the cached stats fetch.
-The state a checkpoint holds (``engine/checkpoint.py``) comes from
-``get_params``, ``get_opt_state`` (optax's layout), ``rng_state`` and
-``version``, as the reference's.
+The engine owns its parameter tensors and updates them in place.
+``generate`` runs the in-framework generator (``models/generation.py``)
+on the engine's params, seeded from the call counter as the reference
+seeds its key. ``offload`` copies the params and the AdamW moments to
+host memory (pinned for a CUDA engine) and frees the device copies; the
+next engine call restores them (``_ensure_loaded``), and while offloaded
+``get_params`` / ``get_opt_state`` answer from the host copies. Not
+ported: meshes, the overlapped input pipeline, ``warm``, the MoE terms of
+the loss and the cached stats fetch. The state a checkpoint holds
+(``engine/checkpoint.py``) comes from ``get_params``, ``get_opt_state``
+(optax's layout), ``rng_state`` and ``version``, as the reference's.
 """
 
 from __future__ import annotations
@@ -34,11 +39,12 @@ import torch
 
 from areal_tpu_torch import resolve_device
 from areal_tpu_torch.api.data_api import MicroBatchSpec, SequenceSample
-from areal_tpu_torch.api.model_api import PackedLossFn, TrainEngine
+from areal_tpu_torch.api.model_api import GenerationHyperparameters, PackedLossFn, TrainEngine
 from areal_tpu_torch.engine.optimizer import (
     AdamW, OptimizerConfig, as_tensor, global_norm, make_lr_schedule, tree_leaves,
 )
 from areal_tpu_torch.models.config import TransformerConfig
+from areal_tpu_torch.models.generation import generate_tokens
 from areal_tpu_torch.models.packing import PackedBatch, pack_sequences
 from areal_tpu_torch.models.transformer import forward as model_forward
 from areal_tpu_torch.ops.loss import fused_next_token_logprobs
@@ -48,6 +54,24 @@ def _to_device_tree(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device_tree(v, device) for k, v in tree.items()}
     return as_tensor(tree).detach().to(device).requires_grad_(True)
+
+
+def _host_copy(t: torch.Tensor) -> torch.Tensor:
+    """A host copy of ``t``: into pinned memory from a CUDA tensor (the
+    copy runs on the current stream; the caller synchronizes), a clone
+    from a CPU one."""
+    t = t.detach()
+    if t.device.type == "cpu":
+        return t.clone()
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t, non_blocking=True)
+    return out
+
+
+def _host_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _host_tree(v) for k, v in tree.items()}
+    return _host_copy(tree)
 
 
 class TorchTrainEngine(TrainEngine):
@@ -79,13 +103,17 @@ class TorchTrainEngine(TrainEngine):
         # LR-schedule position when callers do not pass version_steps (one
         # optimizer step per train_batch).
         self._lr_steps = 0
-        # The reference's counters (rng_state): generate calls (the port's
-        # engine has no generate, so it stays 0) and train_batch calls.
+        # The reference's counters (rng_state): generate calls (each
+        # seeds its sampler) and train_batch calls.
         self._gen_calls = 0
         self._train_calls = 0
         # As the reference's engine: set to 0 here and by a checkpoint
         # load, never advanced (Model.version counts the trained steps).
         self.version = 0
+        # offload(): the host copies of the params and of the AdamW
+        # moments (the optimizer's mu / nu lists hold them meanwhile).
+        self._offloaded = False
+        self._host_params = None
         if optimizer_config is not None:
             self.optimizer = AdamW(optimizer_config, tree_leaves(self.params))
             self._lr_schedule = make_lr_schedule(optimizer_config, total_train_steps)
@@ -204,6 +232,7 @@ class TorchTrainEngine(TrainEngine):
         """
         if self.optimizer is None:
             raise RuntimeError("engine built without optimizer")
+        self._ensure_loaded()
         if token_normalize_scope not in ("global", "dp"):
             raise ValueError(f"unknown token_normalize_scope {token_normalize_scope!r}")
         lr_pos = self._lr_steps if version_steps is None else int(version_steps)
@@ -278,6 +307,7 @@ class TorchTrainEngine(TrainEngine):
     ) -> SequenceSample:
         """Gradient-free forward; returns a SequenceSample keyed
         `output_key` with per-token arrays aligned to the main key."""
+        self._ensure_loaded()
         output = output or ("values" if self.model_cfg.is_critic else "logprobs")
         main_key = input_._main_key()
         per_mb_flat: List[np.ndarray] = []
@@ -301,26 +331,107 @@ class TorchTrainEngine(TrainEngine):
         return out
 
     # ------------------------------------------------------------------
+    # Generation
+    # ------------------------------------------------------------------
+
+    def generate(
+        self,
+        input_: SequenceSample,
+        mb_spec: MicroBatchSpec,
+        tokenizer: Any,
+        gconfig: GenerationHyperparameters,
+    ) -> List[Dict[str, Any]]:
+        """Generate for each prompt, replicated ``gconfig.n`` times, in one
+        batch (``mb_spec`` is not read, as in the reference). Returns the
+        raw per-sequence dicts; the PPO interface assembles them. The
+        sampler is seeded from the call counter, advanced before the call
+        (the reference's ``PRNGKey(_gen_calls)``)."""
+        main_key = input_._main_key()
+        flat = np.asarray(input_.data[main_key])
+        prompts: List[List[int]] = []
+        offset = 0
+        for sl in input_.seqlens[main_key]:
+            for l in sl:
+                prompts.append(flat[offset: offset + l].astype(np.int32).tolist())
+                offset += l
+        expanded = [p for p in prompts for _ in range(gconfig.n)]
+        self._gen_calls += 1
+        self._ensure_loaded()
+        generator = torch.Generator(device=self.device).manual_seed(self._gen_calls)
+        eos = getattr(tokenizer, "eos_token_id", None) if tokenizer is not None else None
+        return generate_tokens(self.params, self.model_cfg, expanded, gconfig, generator,
+                               eos_token_id=eos)
+
+    # ------------------------------------------------------------------
     # State
     # ------------------------------------------------------------------
 
+    def _moments_to(self, fn):
+        if self.optimizer is not None:
+            self.optimizer.mu = [fn(m) for m in self.optimizer.mu]
+            self.optimizer.nu = [fn(m) for m in self.optimizer.nu]
+
+    @torch.no_grad()
+    def offload(self):
+        """Copy the params and the AdamW moments to host memory (pinned
+        for a CUDA engine) and drop the device copies, freeing the card
+        for the models colocated on this worker; the next engine call
+        restores them (``_ensure_loaded``)."""
+        if self._offloaded:
+            return
+        self._host_params = _host_tree(self.params)
+        self._moments_to(_host_copy)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        self.params = None
+        self._offloaded = True
+
+    def _ensure_loaded(self):
+        if not self._offloaded:
+            return
+        self.params = _to_device_tree(self._host_params, self.device)
+        self._moments_to(lambda m: m.to(self.device))
+        self._host_params = None
+        self._offloaded = False
+
     def get_params(self):
         """The engine's own parameter tensors (updated in place by
-        train_batch)."""
+        train_batch); while offloaded, the host copies (every caller
+        copies to the host anyway, and a restore could crowd the model
+        the offload made room for)."""
+        if self._offloaded:
+            return self._host_params
         return self.params
+
+    def drop_offloaded_state(self):
+        """Discard the offloaded host copies without restoring them, for a
+        caller about to set both params and optimizer state (a checkpoint
+        load): the params stay unset until ``set_params``, and the moments
+        come back as zeros on the device for ``set_opt_state`` to fill."""
+        if not self._offloaded:
+            return
+        self._moments_to(lambda m: torch.zeros(m.shape, dtype=m.dtype, device=self.device))
+        self._host_params = None
+        self._offloaded = False
 
     def set_params(self, params):
         """Replace the weights (torch or numpy leaves); optimizer state
-        stays."""
+        stays. While offloaded, the moments come back to the device (a
+        param realloc swaps weights only) and the host params are
+        dropped."""
+        if self._offloaded:
+            self._moments_to(lambda m: m.to(self.device))
+            self._host_params = None
+            self._offloaded = False
         self.params = _to_device_tree(params, self.device)
 
     def get_opt_state(self):
         """The optimizer state in optax's layout (``AdamW.optax_state``:
-        the moments are the optimizer's own tensors), or None without an
-        optimizer."""
+        the moments are the optimizer's own tensors, the host copies while
+        offloaded), or None without an optimizer."""
         if self.optimizer is None:
             return None
-        return self.optimizer.optax_state(self.params)
+        return self.optimizer.optax_state(self.get_params())
 
     def set_opt_state(self, state):
         """Take back a state in ``get_opt_state``'s layout."""

@@ -1,8 +1,8 @@
 """Experiment definitions: option dataclasses -> worker configs + MFC graph
 (the port's copy of ``areal_tpu/experiments``). Each experiment is a
 pure function from its cli_args dataclass to an ``ExperimentConfig``,
-registered by the reference's name; the port registers "sft" and
-"async-ppo-math" (the sync PPO experiment is not ported).
+registered by the reference's name: "sft", "ppo-math" (sync PPO) and
+"async-ppo-math".
 """
 
 from areal_tpu_torch.api.registry import Registry
@@ -18,4 +18,8 @@ def make_experiment(name: str, cfg):
     return EXPERIMENT_REGISTRY.make(name, cfg)
 
 
-from areal_tpu_torch.experiments import async_ppo_math_exp, sft_exp  # noqa: E402,F401
+from areal_tpu_torch.experiments import (  # noqa: E402,F401
+    async_ppo_math_exp,
+    ppo_math_exp,
+    sft_exp,
+)

@@ -1,7 +1,8 @@
-"""Shared experiment-building helpers (the port's copy of what the async
-PPO experiment calls from ``areal_tpu/experiments/common.py``). One
+"""Shared experiment-building helpers (the port's copy of what the PPO
+and SFT experiments call from ``areal_tpu/experiments/common.py``). One
 model worker drives one device, so there is no mesh or allocation
-arithmetic: every shard is host 0 of 1."""
+arithmetic: every shard is host 0 of 1 (the experiments refuse other
+allocations before they build)."""
 
 from __future__ import annotations
 
@@ -41,7 +42,19 @@ def model_abstraction(m: ModelTrainEvalConfig, tokenizer_path: Optional[str],
     return ModelAbstraction("tpu_transformer", args=args)
 
 
+def resolve_n_workers(cfg: BaseExperimentConfig) -> int:
+    """The model worker count: ``train_n_hosts`` when above 1, else
+    ``n_model_workers`` (the reference also reads the data axis of the
+    allocation, which the port does not parse: anything but "d1" is
+    refused before the build)."""
+    if int(getattr(cfg, "train_n_hosts", 1) or 1) > 1:
+        return int(cfg.train_n_hosts)
+    return cfg.n_model_workers
+
+
 def backend_abstraction(m: ModelTrainEvalConfig, train: bool = True) -> ModelBackendAbstraction:
+    if m.backend.startswith("mock"):
+        return ModelBackendAbstraction(m.backend)
     name = "jax_train" if train else "jax_inference"
     args = dict(
         remat=m.remat,

@@ -32,7 +32,7 @@ def refuse_unported(cfg: SFTExpConfig):
         "allocation_mode": (cfg.allocation_mode != "d1", _MESH),
         "n_model_workers": (cfg.n_model_workers != 1, _MESH),
         "train_n_hosts": (cfg.train_n_hosts != 1, _MESH),
-        "model.backend": (m.backend != "jax_train", "the mock engine is not ported"),
+        "model.backend": (m.backend != "jax_train", "SFT on the mock engine is not ported"),
         "model.attn_impl": (m.attn_impl != "auto", _MESH),
         "model.mesh_spec": (m.mesh_spec is not None, _MESH),
         "model.prefetch_depth": (m.prefetch_depth != 0, _KNOBS),

@@ -1,11 +1,22 @@
 """PPO actor / critic algorithm interfaces (counterpart of
 ``areal_tpu/interfaces/ppo.py``).
 
-inference -> proximal logprob recompute; train_step -> rewards (KL
-penalty + clipped task score) -> GAE -> advantage normalization (global or
-per prompt group) -> minibatched decoupled-PPO updates through the engine.
-The in-framework ``generate`` (sync PPO) and best-of-k selection wait for
-``TrainEngine.generate``; rollouts come from the serving engine.
+generate -> rollout sample assembly (sync PPO: ``TrainEngine.generate``,
+with best-of-k selection under ``generation_size``; the async loop's
+rollouts come from the serving engine instead); inference -> proximal
+logprob recompute; train_step -> rewards (KL penalty + clipped task score)
+-> GAE -> advantage normalization (global or per prompt group) ->
+minibatched decoupled-PPO updates through the engine. Beside the
+reference's stats, the actor's train step records three readings of its
+first minibatch through the stats tracker only (``ppo_actor_first_mb/``
+``importance_weight``, ``approx_kl`` and ``abs_logprob_diff``, each a mean
+over its response tokens). At a sync step that minibatch runs on the
+weights that generated the batch, so they compare the generator's
+logprobs with the training forward's on the same tokens. The importance
+weight cannot show a wrong generator: over tokens sampled from the
+generator's distribution q its expectation is 1 whatever q is. The KL
+estimate (KL(q || p) in expectation) and the mean |difference| do not
+cancel so.
 
 Data-layout conventions (all token-aligned keys live in the shifted frame
 of next_token_logprobs: position t scores token t+1):
@@ -22,13 +33,18 @@ of next_token_logprobs: position t scores token t+1):
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from areal_tpu_torch.api.data_api import MicroBatchSpec, SequenceSample
-from areal_tpu_torch.api.model_api import Model, ModelInterface, register_interface
+from areal_tpu_torch.api.model_api import (
+    GenerationHyperparameters,
+    Model,
+    ModelInterface,
+    register_interface,
+)
 from areal_tpu_torch.base import stats_tracker
 from areal_tpu_torch.interfaces import functional as F
 from areal_tpu_torch.ops.gae import packed_gae
@@ -69,14 +85,116 @@ class PPOActorInterface(ModelInterface):
     mask_no_eos_with_zero: bool = False
     use_decoupled_loss: bool = False
     behav_imp_weight_cap: Optional[float] = None
+    temperature: float = 1.0
+    # Best-of-k: sample `generation_size` responses per prompt, verify
+    # them, and keep only the top `gconfig.n` (by score, longer first on
+    # ties) for training.
+    generation_size: Optional[int] = None
+    gconfig: GenerationHyperparameters = dataclasses.field(
+        default_factory=GenerationHyperparameters)
 
     def __post_init__(self):
+        if isinstance(self.gconfig, dict):
+            self.gconfig = GenerationHyperparameters(**self.gconfig)
         if self.adaptive_kl_ctl:
             self.kl_controller = F.AdaptiveKLController(
                 self.kl_ctl, self.adaptive_kl_target, self.adaptive_kl_horizon
             )
         else:
             self.kl_controller = F.FixedKLController(self.kl_ctl)
+
+    # ------------------------------------------------------------------
+    # Generate (sync PPO; the async loop's rollouts come from the servers)
+    # ------------------------------------------------------------------
+
+    def _best_of_k(
+        self, model: Model, input_: SequenceSample, outs: List[Dict], k: int
+    ) -> List[Dict]:
+        """Sample-then-select: verify all `generation_size` candidates of
+        each prompt and keep the k best, scores descending with longer
+        generations breaking ties. The answers ride in the sample's
+        metadata ('solutions')."""
+        from areal_tpu_torch.interfaces.reward import verify_all
+
+        g = self.generation_size
+        tasks = input_.metadata.get("tasks") or ["math"] * input_.bs
+        answers = input_.metadata.get("solutions") or input_.metadata.get("answers")
+        if answers is None:
+            raise ValueError(
+                "generation_size > gconfig.n needs 'solutions'/'answers' "
+                "metadata to score candidates")
+        jobs = [
+            (tasks[pi], model.tokenizer.decode(outs[pi * g + ci]["output_ids"]), answers[pi])
+            for pi in range(input_.bs)
+            for ci in range(g)
+        ]
+        oks = verify_all(jobs)
+        selected: List[Dict] = []
+        for pi in range(input_.bs):
+            cand = outs[pi * g: (pi + 1) * g]
+            scored = [(1.0 if oks[pi * g + ci] else 0.0, len(o["output_ids"]), ci)
+                      for ci, o in enumerate(cand)]
+            scored.sort(key=lambda t: (t[0], t[1]), reverse=True)
+            selected.extend(cand[ci] for _, _, ci in scored[:k])
+        return selected
+
+    def generate(
+        self, model: Model, input_: SequenceSample, mb_spec: MicroBatchSpec
+    ) -> SequenceSample:
+        engine = model.module
+        n = self.gconfig.n
+        if self.generation_size is not None and self.generation_size > n:
+            gcfg = dataclasses.replace(self.gconfig, n=self.generation_size)
+            outs = engine.generate(input_, mb_spec, model.tokenizer, gcfg)
+            outs = self._best_of_k(model, input_, outs, n)
+        else:
+            outs = engine.generate(input_, mb_spec, model.tokenizer, self.gconfig)
+        prompt_key = "packed_prompts" if "packed_prompts" in input_.keys else input_._main_key()
+        flat_prompts = np.asarray(input_.data[prompt_key])
+        plens = [sum(sl) for sl in input_.seqlens[prompt_key]]
+        offsets = np.concatenate([[0], np.cumsum(plens)])
+
+        seqs, pmask, blogp, no_eos = [], [], [], []
+        group_lens: List[List[int]] = []
+        for pi in range(input_.bs):
+            prompt = flat_prompts[offsets[pi]: offsets[pi + 1]].astype(np.int64)
+            lens = []
+            for gi in range(n):
+                o = outs[pi * n + gi]
+                full = np.concatenate([prompt, np.asarray(o["output_ids"], np.int64)])
+                lens.append(len(full))
+                seqs.append(full)
+                pm = np.zeros(len(full), np.int64)
+                pm[: len(prompt)] = 1
+                pmask.append(pm)
+                # Shifted frame: generated token i (absolute position
+                # len(prompt) + i) is scored at len(prompt) + i - 1.
+                lp = np.zeros(len(full), np.float32)
+                lp[len(prompt) - 1: len(full) - 1] = o["output_logprobs"]
+                blogp.append(lp)
+                no_eos.append(1.0 if o["no_eos"] else 0.0)
+            group_lens.append(lens)
+
+        return SequenceSample(
+            ids=list(input_.ids),
+            keys={"packed_input_ids", "prompt_mask", "packed_logprobs", "seq_no_eos_mask"},
+            data={
+                "packed_input_ids": np.concatenate(seqs),
+                "prompt_mask": np.concatenate(pmask),
+                "packed_logprobs": np.concatenate(blogp),
+                "seq_no_eos_mask": np.asarray(no_eos, np.float32),
+            },
+            seqlens={
+                "packed_input_ids": group_lens,
+                "prompt_mask": group_lens,
+                "packed_logprobs": group_lens,
+                "seq_no_eos_mask": [[1] * n for _ in range(input_.bs)],
+            },
+            metadata={
+                "version_start": [model.version] * input_.bs,
+                "version_end": [model.version] * input_.bs,
+            },
+        )
 
     # ------------------------------------------------------------------
     # Inference: recompute logprobs under the current (proximal) policy
@@ -211,6 +329,7 @@ class PPOActorInterface(ModelInterface):
             )
             # Approx KL(new || behavior) for monitoring.
             st["approx_kl"] = ((rows["packed_logprobs"] - lp) * mask).sum()
+            st["abs_logprob_diff"] = ((rows["packed_logprobs"] - lp).abs() * mask).sum()
             return loss_sum, st
 
         all_stats = []
@@ -222,6 +341,8 @@ class PPOActorInterface(ModelInterface):
                 version_steps=model.version, loss_name="ppo_actor",
             )
             all_stats.append(st)
+        # Kept out of the aggregate, which holds the reference's keys.
+        abs_diff = [st.pop("ppo_actor/abs_logprob_diff") for st in all_stats]
         model.inc_version()
 
         n_resp = float(np.sum(resp_flat))
@@ -251,6 +372,12 @@ class PPOActorInterface(ModelInterface):
             agg["ppo_actor/head_offpolicyness"] = float(model.version - 1 - np.min(vs))
             agg["ppo_actor/tail_offpolicyness"] = float(model.version - 1 - np.max(ve))
         stats_tracker.scalar(**agg)
+        first = all_stats[0]
+        stats_tracker.scalar(**{
+            "ppo_actor_first_mb/importance_weight": first["ppo_actor/importance_weight"],
+            "ppo_actor_first_mb/approx_kl": first["ppo_actor/approx_kl"],
+            "ppo_actor_first_mb/abs_logprob_diff": abs_diff[0],
+        })
         return agg
 
     def save(self, model: Model, save_dir: str):

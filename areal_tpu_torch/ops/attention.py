@@ -29,6 +29,12 @@ q ``[R, T, Hq, hd]``, k/v ``[R, T, Hkv, hd]``, segment ids and positions
   and a counting launch of each kernel are held to.
 - ``packed_attention``: the model's entry, the same function. There are
   no splash, ring, Ulysses or sharded variants in the port.
+- ``decode_attention``: the reference's one-token attention over a dense
+  ``[B, S, Hkv, hd]`` cache, as plain PyTorch, for CPU tensors only. The
+  in-framework generator (``models/generation.py``) keeps its cache in
+  the serving engine's page pool and decodes through the
+  ``paged_decode_bf16`` kernel (``engine/paged.paged_decode_attention``);
+  this dense version is what the tests hold that path against.
 """
 
 from __future__ import annotations
@@ -317,3 +323,31 @@ def flash_packed_attention(
 # The model's attention entry: on CUDA the flash kernel, on the CPU the
 # plain version (the dispatch lives in the kernel's wrapper).
 packed_attention = flash_packed_attention
+
+
+def decode_attention(
+    q: torch.Tensor,  # [B, Hq, hd], one new token per sequence
+    k_cache: torch.Tensor,  # [B, S, Hkv, hd]
+    v_cache: torch.Tensor,  # [B, S, Hkv, hd]
+    cache_lens: torch.Tensor,  # [B] valid lengths INCLUDING the new token
+    softmax_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Single-step decode attention against a padded dense KV cache: the
+    plain version, on CPU tensors only (a CUDA caller decodes through the
+    paged kernel)."""
+    if q.device.type != "cpu":
+        raise ValueError(
+            f"decode_attention is the plain dense version and runs on CPU tensors "
+            f"only (got {q.device}); decode on the card goes through "
+            f"engine/paged.paged_decode_attention")
+    B, Hq, hd = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    group = Hq // Hkv
+    scale = softmax_scale if softmax_scale is not None else hd ** -0.5
+    qg = q.reshape(B, Hkv, group, hd).float()
+    scores = torch.einsum("bhgd,bshd->bhgs", qg, k_cache.float()) * scale
+    mask = torch.arange(S)[None, :] < cache_lens[:, None]
+    scores = torch.where(mask[:, None, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", probs, v_cache.float())
+    return out.reshape(B, Hq, hd).to(q.dtype)

@@ -1,5 +1,7 @@
 """Per-row token sampling (counterpart of ``areal_tpu/ops/sampling.py``
 and of ``warp_logits`` / ``warp_sample`` in ``areal_tpu/engine/paged.py``).
+``sample_token`` keeps the reference's signature for the in-framework
+generator (``models/generation.py``), over ``warp_sample``.
 
 Every sampling parameter is a ``[B]`` tensor, so one call serves any mix
 of per-request temperature, top-k, top-p, greedy and EOS-forbid rows.
@@ -118,3 +120,39 @@ def warp_sample(logits, generator: torch.Generator, temps, top_ps, top_ks,
     tokens = torch.where(greedy_mask, argmax, sampled)
     logprobs = torch.gather(base_logp, -1, tokens[:, None])[:, 0]
     return tokens.int(), logprobs
+
+
+def sample_token(
+    logits: torch.Tensor,  # [B, V]
+    rng: torch.Generator,
+    greedy: bool = False,
+    temperature: float = 1.0,
+    top_k: int = -1,
+    top_p: float = 1.0,
+    forbid_token_ids=None,  # e.g. the stop tokens under min_new_tokens
+    forbid_mask: Optional[torch.Tensor] = None,  # [B] rows the forbid applies to
+):
+    """The reference's ``sample_token`` (``areal_tpu/ops/sampling.py``)
+    with one setting for every row, through ``warp_sample``: returns
+    (tokens [B] int32, logprobs [B]); the logprob is of the forbid-masked,
+    unwarped distribution, and sampling draws from the warped one. ``rng``
+    is a ``torch.Generator`` (the reference splits a JAX key), so sampled
+    tokens differ from the reference's; greedy rows take the argmax."""
+    B, V = logits.shape
+    dev = logits.device
+    eos_mask = torch.zeros((V,), dtype=torch.bool, device=dev)
+    ids = list(forbid_token_ids) if forbid_token_ids is not None else []
+    if ids:
+        eos_mask[torch.as_tensor(ids, dtype=torch.long, device=dev)] = True
+    if forbid_mask is None:
+        forbid_mask = torch.full((B,), bool(ids), dtype=torch.bool, device=dev)
+
+    def full(value, dtype):
+        return torch.full((B,), value, dtype=dtype, device=dev)
+
+    tier = "temperature" if greedy else select_tier(
+        np.asarray([top_p], np.float32), np.asarray([top_k], np.int32), vocab_size=V)
+    return warp_sample(
+        logits, rng, full(float(temperature), torch.float32),
+        full(float(top_p), torch.float32), full(int(top_k), torch.int32),
+        full(bool(greedy), torch.bool), forbid_mask, eos_mask, tier=tier)

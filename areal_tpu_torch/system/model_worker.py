@@ -8,9 +8,9 @@ hosts. Request handlers:
 - "spec": dataset size + readiness handshake
 - "fetch": next dataloader batch (or of pulled trajectories) ->
   DataManager, reply metadata
-- "mfc": execute pre-hooks (data_transfer pulls, param_realloc, ...),
-  assemble the input batch, run the interface method, store outputs,
-  reply meta + stats
+- "mfc": execute pre-hooks (data_transfer pulls, param_realloc,
+  offload, ...), assemble the input batch, run the interface method
+  (generate, inference or train_step), store outputs, reply meta + stats
 - "save": each model in the HF format under
   ``<save path>/<role>/step<version>/dp<worker index>``
 - "evaluate": each interface's ``evaluate``
@@ -25,9 +25,10 @@ hosts. Request handlers:
 
 At exit the worker drains its pending checkpoint writes, then leaves an
 exit record (``<log path>/exit_records/<worker>.json``, a port
-addition): its kernel launches, peak device memory, each checkpoint's
-step-loop stall, the async writer's last write seconds and pending
-count after the drain, and the restore's seconds.
+addition): its kernel launches, peak device memory, each shard's build
+seconds (model, backend and interface), each checkpoint's step-loop
+stall, the async writer's last write seconds and pending count after the
+drain, and the restore's seconds.
 
 Besides the reference's stats, each MFC's reply carries the launches of
 every CUDA kernel of the port during that MFC (``launches/<kernel>``,
@@ -38,9 +39,13 @@ As in the reference, "evaluate" hands each interface no eval loader
 (``iface.evaluate(model, None)``): the SFT interface raises ``TypeError``
 on it and the reply carries the error, which the master drops.
 
-Not ported yet, each refused with ``NotImplementedError``: the "offload"
-hook, the "generate" MFC, the param-realloc target branch (weights
-loaded from another replica) and the multi-host train group. With
+A param-realloc hook with a target waits (at most 300 s) for the
+source's ``step.txt`` to reach the MFC's step, then loads the source's
+dump into the target: the reference's ``engine_state.pkl`` when the
+directory holds one (the port's own dumps write none), else the raw dump;
+only the params move. The "offload" hook moves an engine's params and
+optimizer moments to host memory until its next call. The multi-host
+train group is refused with ``NotImplementedError``. With
 ``weight_plane`` the dump rank serves its dumps as the weight plane's
 origin (system/weight_plane.py). Per-prompt ``scores`` in an MFC's output merge into the
 shared eval-score file (``system/eval_scores.py``), as in the reference.
@@ -87,17 +92,8 @@ from areal_tpu_torch.system.worker_base import PollResult, Worker, write_exit_re
 
 logger = logging.getLogger("model_worker")
 
-# Handlers and hooks of the reference that the port does not serve yet,
-# with the ROADMAP item that brings each.
-_NOT_PORTED = {
-    "offload": "Queue A item 3.3 (offload)",
-    "generate": "Queue A item 3.3 (TrainEngine.generate)",
-}
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"model worker {what!r} is not ported yet (ROADMAP {_NOT_PORTED[what]})")
+# How long a param-realloc target waits for its source's dump.
+REALLOC_WAIT_S = 300
 
 
 class ModelWorker(Worker):
@@ -117,8 +113,7 @@ class ModelWorker(Worker):
         # Import factories/interfaces so registries are populated.
         import areal_tpu_torch.datasets  # noqa: F401
         import areal_tpu_torch.engine.factories  # noqa: F401
-        import areal_tpu_torch.interfaces.ppo  # noqa: F401
-        import areal_tpu_torch.interfaces.sft  # noqa: F401
+        import areal_tpu_torch.interfaces  # noqa: F401
 
         self.stream = rrs.make_worker_stream(
             config.experiment_name, config.trial_name, config.worker_name
@@ -163,7 +158,9 @@ class ModelWorker(Worker):
         self.backends: Dict[str, Any] = {}
         dataset_size = len(self._dataset) * config.dataset_dp_size if self._dataset is not None else 0
         self._host_rank: Dict[str, int] = {}
+        self._shard_init_s: Dict[str, float] = {}
         for shard in config.shards:
+            t0 = time.monotonic()
             mn = shard.id.model_name
             self._host_rank[str(mn)] = shard.id.host_rank
             ft_spec = FinetuneSpec(
@@ -177,6 +174,7 @@ class ModelWorker(Worker):
             self.models[str(mn)] = model
             self.backends[str(mn)] = backend
             self.interfaces[str(mn)] = make_interface(shard.interface)
+            self._shard_init_s[str(mn)] = time.monotonic() - t0
         logger.info(
             f"{config.worker_name} configured on {self.device}: "
             f"models={list(self.models)}, dataset_size={dataset_size}"
@@ -228,7 +226,13 @@ class ModelWorker(Worker):
         elif htype == "evaluate":
             self._evaluate_model(model_name)
         elif htype == "offload":
-            raise _not_ported(htype)
+            model = self.models.get(model_name)
+            if model is not None and hasattr(model.module, "offload"):
+                # Free the idle model's device memory; the engine
+                # restores lazily on its next call.
+                model.module.offload()
+            else:
+                logger.debug("offload hook: engine has no offload; no-op")
         elif htype == "param_realloc":
             return self._param_realloc(hook, step)
         else:
@@ -269,7 +273,8 @@ class ModelWorker(Worker):
             n_seqs=len(d["ids"]),
         ):
             if itype == "generate":
-                raise _not_ported("generate")
+                out = interface.generate(model, input_, mb_spec)
+                stats = {}
             elif itype == "inference":
                 out = interface.inference(model, input_, mb_spec)
                 stats = {}
@@ -309,7 +314,18 @@ class ModelWorker(Worker):
                     row_len_multiple=row_mult,
                     max_row_len=getattr(model.module, "max_row_len", None),
                 )
-            stats[metrics_registry.PERF_FLOPS] = float(monitor.mfc_flops(cfg, itype, in_lens))
+            out_lens = None
+            if out is not None and itype == "generate":
+                out_lens = [l for sl in out.seqlens[out._main_key()] for l in sl]
+            stats[metrics_registry.PERF_FLOPS] = float(
+                monitor.mfc_flops(cfg, itype, in_lens, out_lens))
+            if itype == "generate" and out_lens:
+                # Group sampling replicates each prompt gconfig.n times in
+                # the output: subtract each prompt once per replica.
+                group = (len(out_lens) // len(in_lens)
+                         if in_lens and len(out_lens) % len(in_lens) == 0 else 1)
+                stats[metrics_registry.PERF_GEN_TOKENS] = float(
+                    sum(out_lens) - group * sum(in_lens))
 
         output_meta = None
         if out is not None:
@@ -456,25 +472,69 @@ class ModelWorker(Worker):
         return stats
 
     def _param_realloc(self, hook: Dict, step: int = 0) -> Optional[float]:
-        """Disk-mediated weight hand-off: the source model's DP rank 0
-        writes the raw dump of its params, stamped with `model.version`
-        (the value `_publish_version` announces next; a generation server
-        verifies that the dump it loads holds the version it asked for),
-        with its chunk index at the plane's chunk size and, with
-        `weight_wire_dtype`, the int8 companion; with `weight_plane` it
-        serves the dump dir as the plane's origin; then it writes
-        `step.txt` with the global step and returns the dump's seconds.
-        Only the disk dump is written (no tmpfs mirror)."""
+        """Disk-mediated weight hand-off between model replicas. A source
+        hosted here (DP rank 0) dumps first (``_realloc_dump``, whose
+        seconds this returns); then a target hosted here loads the
+        source's dump (``_realloc_load``)."""
+        src, dst = hook.get("source"), hook.get("target")
+        dump_s = None
+        if src is not None and src in self.models and self._host_rank.get(src, 0) == 0:
+            dump_s = self._realloc_dump(src, step)
+        if dst is not None and dst in self.models:
+            self._realloc_load(src, dst, step)
+        return dump_s
+
+    def _realloc_load(self, src: Optional[str], dst: str, step: int):
+        """Load the source role's dump into the target once its
+        ``step.txt`` reaches ``step`` (at most ``REALLOC_WAIT_S``): the
+        reference's ``engine_state.pkl`` when the directory holds one, else
+        the raw dump. Only the params move; the target's optimizer state
+        stays."""
+        from areal_tpu_torch.engine.checkpoint import load_state_file
+        from areal_tpu_torch.system.weight_transfer import load_raw_params
+
+        role = ModelName.parse(src).role if src else ModelName.parse(dst).role
+        d = os.path.join(
+            constants.get_param_realloc_path(self.cfg.experiment_name, self.cfg.trial_name),
+            role,
+        )
+        stamp = os.path.join(d, "step.txt")
+        deadline = time.monotonic() + REALLOC_WAIT_S
+        while True:
+            try:
+                with open(stamp) as f:
+                    if int(f.read().strip() or -1) >= step:
+                        break
+            except (FileNotFoundError, ValueError):
+                pass
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"param_realloc: no fresh dump for {role} (step {step}) "
+                                   f"within {REALLOC_WAIT_S}s")
+            time.sleep(0.05)
+        if os.path.exists(os.path.join(d, "engine_state.pkl")):
+            params = load_state_file(d)["params"]
+        else:
+            got = load_raw_params(d)
+            if got is None:
+                raise FileNotFoundError(
+                    f"param_realloc: neither engine_state.pkl nor a complete raw dump in {d}")
+            params = got[0]
+        self.models[dst].module.set_params(params)
+        logger.info(f"param_realloc load {role} -> {dst} at step {step} from {d}")
+
+    def _realloc_dump(self, src: str, step: int) -> float:
+        """The source model's DP rank 0 writes the raw dump of its params,
+        stamped with `model.version` (the value `_publish_version`
+        announces next; a generation server verifies that the dump it
+        loads holds the version it asked for), with its chunk index at the
+        plane's chunk size and, with `weight_wire_dtype`, the int8
+        companion; with `weight_plane` it serves the dump dir as the
+        plane's origin; then it writes `step.txt` with the global step and
+        returns the dump's seconds. Only the disk dump is written (no
+        tmpfs mirror, no ``engine_state.pkl``)."""
         from areal_tpu_torch.system.weight_transfer import dump_raw_params
 
-        src, dst = hook.get("source"), hook.get("target")
-        if dst is not None:
-            raise NotImplementedError(
-                "param_realloc into a target replica is not ported yet (sync PPO's "
-                "generation replica, ROADMAP Queue A item 3.3)")
-        model = self.models.get(src) if src is not None else None
-        if model is None or self._host_rank.get(src, 0) != 0:
-            return None
+        model = self.models[src]
         role = ModelName.parse(src).role
         d = os.path.join(
             constants.get_param_realloc_path(self.cfg.experiment_name, self.cfg.trial_name),
@@ -519,6 +579,7 @@ class ModelWorker(Worker):
             "launches": dict(kernels.launches),
             "peak_memory_bytes": (torch.cuda.max_memory_allocated(self.device)
                                   if self.device.type == "cuda" else 0),
+            "shard_init_s": self._shard_init_s,
             "ckpt": self._ckpt_log,
             "ckpt_writer": writer_stats(),
             "restore_s": self._restore_s,

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--out report.json] [--profile-serving]
         [--phases build,parity,serve_bf16,serve_int8,interrupt,http,grad,train,workers,
-                  async_ppo,disagg,weight_plane,sft,recover]
+                  async_ppo,sync_ppo,disagg,weight_plane,sft,recover]
 
 Phases (every one must pass; the script exits nonzero on the first that
 fails, and on a machine without CUDA):
@@ -77,7 +77,36 @@ fails, and on a machine without CUDA):
                  paged_decode_bf16 in the server and of the forward, both
                  backward kernels and packed_gae_f32 in the model worker
                  must be > 0.
-11. disagg     - disaggregated serving at full width and 7 of the 28
+11. sync_ppo   - sync PPO through the port's entry point,
+                 areal_tpu_torch.training.main_sync_ppo.main(argv) with
+                 the reference's override keys, at the full width and 7
+                 of the 28 layers (SYNC_LAYERS; float32 params, bf16
+                 compute, remat): one model worker builds ppo-math with the
+                 actor, the reference, the reward (mock backend) and the
+                 critic (critic@0 for inference, critic@1 trained), all
+                 from one HF directory of seeded random weights under the
+                 tiny tokenizer, and runs 2 steps over 64 seeded math
+                 prompts (256-1024 tokens): 8 prompts x 4 answers of 256
+                 tokens generated in the actor's engine at temperature 1
+                 (flash prefill, paged_decode_bf16 decode steps), graded,
+                 the reference logprobs and the critic's values, then the
+                 critic's and the actor's PPO updates (4 minibatches, GAE).
+                 Gates: two steps with finite actor and critic stats;
+                 launches of the forward, both backward kernels,
+                 packed_gae_f32 and paged_decode_bf16 in the worker > 0;
+                 on step 1's first actor minibatch (the generator's
+                 logprobs against the training forward's on the same
+                 weights), their mean |difference| within SYNC_LP_TOL and
+                 the importance weight within 0.02 of 1. It prints each
+                 MFC's seconds, actor_gen's tokens/s, the step times, each
+                 shard's build seconds and the worker's peak device
+                 memory; then, in this process, how many of 16 greedy
+                 prompts the batch generator and a ServingEngine agree on
+                 (not gated), and the offload of a train engine of the
+                 same depth: bytes freed, its seconds, the lazy restore's
+                 seconds, and a forward after the restore bit-equal to
+                 one before (gated).
+12. disagg     - disaggregated serving at full width and 7 of the 28
                  layers (for the run's time limit): a prefill
                  server P (bf16 pool), decode servers D (bf16 pool, a KV
                  tier, a small prefix budget) and D8 (int8 pool), a
@@ -98,7 +127,7 @@ fails, and on a machine without CUDA):
                  burst makes the sizer re-role U and routing follows.
                  Launches of the forward, paged_decode_bf16 and
                  paged_decode_int8 in the fleet must be > 0.
-12. weight_plane - the weight-distribution plane at full width and 14
+13. weight_plane - the weight-distribution plane at full width and 7
                  of the 28 layers: (a) this process dumps version 1 of
                  perturbed float32 params with the int8 companion and
                  serves it from a WeightPlaneSource registered as a
@@ -117,11 +146,12 @@ fails, and on a machine without CUDA):
                  0 with gen_weight_plane=true, two servers at fanout
                  degree 1: versions 1 and 2 land on both through the
                  plane. Both depths were cut since the sft phase joined
-                 the default run.
+                 the default run, the fleet's again (14 to 7) when the
+                 sync_ppo phase did.
                  The forward and paged_decode_bf16 must launch on every
                  server after its last cutover, and the loop's four kernels
                  (forward, both backward kernels, packed_gae_f32) > 0.
-13. sft        - supervised fine-tuning through the port's entry point,
+14. sft        - supervised fine-tuning through the port's entry point,
                  areal_tpu_torch.training.main_sft.main(argv) with the
                  reference's override keys, at the full width and 7 of
                  the 28 layers (for the run's time limit since the
@@ -141,7 +171,7 @@ fails, and on a machine without CUDA):
                  params. The forward and both backward kernels in the
                  worker, and the forward and paged_decode_bf16 in the
                  servers, must launch.
-14. recover    - checkpoint and recovery through main_sft at the full
+15. recover    - checkpoint and recovery through main_sft at the full
                  width and 7 of the 28 layers (float32 params, bf16
                  compute, remat, a constant LR, no warmup), with
                  recover_mode=auto, recover_retries=1,
@@ -233,7 +263,7 @@ LEAF_TOL = 5e-2
 SERVE_LAYERS = 14
 TRAIN_LAYERS = 14
 PHASES = ("build", "parity", "serve_bf16", "serve_int8", "interrupt", "http", "grad", "train",
-          "workers", "async_ppo", "disagg", "weight_plane", "sft", "recover")
+          "workers", "async_ppo", "sync_ppo", "disagg", "weight_plane", "sft", "recover")
 # The train phase at real size; a rehearsal on the CPU passes smaller ones.
 TRAIN_SIZES = dict(n_prompts=8, group=4, prompt=(128, 512), response=(256, 3072),
                    row_len=4096, max_tokens_per_mb=16384, n_minibatches=4,
@@ -2530,7 +2560,261 @@ def async_ppo_phase(torch, rng, dev, cfg, seed, card, sizes=ASYNC_SIZES, disagg=
 
 
 # ----------------------------------------------------------------------
-# Phase 11: disaggregated serving and the KV plane
+# Phase 11: sync PPO end to end
+# ----------------------------------------------------------------------
+
+SYNC_SIZES = dict(n_prompts=64, prompt=(256, 1024), train_batch_size=8, group=4,
+                  max_new_tokens=256, steps=2, row_len=4096, max_tokens_per_mb=16384,
+                  n_minibatches=4, words=400, greedy_prompts=16, greedy_new=64,
+                  offload_seqs=4, offload_len=1024)
+SYNC_TIMEOUT_S = 900.0
+# The sync_ppo phase's depth: its four engines (actor, ref, two critics)
+# share the card, and the run's time limit.
+SYNC_LAYERS = 7
+# Step 1's first actor minibatch runs on the weights that generated the
+# batch, so the generator's (paged decode) and the training forward's
+# (flash) logprobs of its tokens differ only by bf16 rounding. Their mean
+# |difference| is the gate on the generator. The importance weight is
+# kept, but cannot show a wrong generator: over tokens sampled from the
+# generator's distribution its expectation is 1 whatever that
+# distribution is. On an H100 the sound path read 0.0072, and two planted
+# faults in the generator's decode read 0.116 (lengths one short) and
+# 0.253 (page table rolled by a row) with importance weights 0.996 and
+# 0.986.
+SYNC_LP_TOL = 0.03
+SYNC_IW_TOL = 0.02
+SYNC_KERNELS = ("flash_attn_fwd_bf16", "flash_attn_bwd_dq_bf16", "flash_attn_bwd_dkv_bf16",
+                "packed_gae_f32", "paged_decode_bf16")
+
+
+def offload_check(torch, rng, dev, cfg, params, sizes):
+    """Offload on a train engine of the phase's depth (float32 params and
+    AdamW moments): the device bytes it frees, its seconds, the lazy
+    restore's seconds, and a forward after the restore bit-equal to one
+    before. ``params`` is a one-element list the engine takes the tree out
+    of, so no other reference keeps its storage on the card."""
+    from areal_tpu_torch.api.data_api import MicroBatchSpec, SequenceSample
+    from areal_tpu_torch.engine.optimizer import OptimizerConfig
+    from areal_tpu_torch.engine.torch_engine import TorchTrainEngine
+
+    eng = TorchTrainEngine(cfg, params.pop(), optimizer_config=OptimizerConfig(lr=1e-5),
+                           row_len_multiple=sizes["offload_len"], device=dev)
+    n, T = sizes["offload_seqs"], sizes["offload_len"]
+    sample = SequenceSample.from_default(
+        ids=[f"o{i}" for i in range(n)], seqlens=[T] * n,
+        data={"packed_input_ids": rng.integers(0, cfg.vocab_size, n * T).astype(np.int32)})
+    before = eng.forward(sample, MicroBatchSpec()).data["logprobs"]
+    sync(torch, dev)
+    held = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    t0 = time.perf_counter()
+    eng.offload()
+    sync(torch, dev)
+    offload_s = time.perf_counter() - t0
+    freed = held - (torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0)
+    t0 = time.perf_counter()
+    eng._ensure_loaded()  # what the next engine call runs first
+    sync(torch, dev)
+    restore_s = time.perf_counter() - t0
+    after = eng.forward(sample, MicroBatchSpec()).data["logprobs"]
+    if not np.array_equal(before, after):
+        raise AssertionError(f"sync_ppo: the forward after the restore differs by "
+                             f"{float(np.abs(before - after).max())}")
+    del eng
+    return dict(freed_gb=freed / 1e9, offload_s=offload_s, restore_s=restore_s,
+                forward_bit_equal=True)
+
+
+def greedy_agreement(torch, dev, cfg, params, prompts, new_tokens, eos):
+    """Greedy tokens of the batch generator (models/generation.py) and of a
+    ServingEngine on the same params: the number of prompts whose outputs
+    are equal."""
+    from areal_tpu_torch.api.model_api import GenerationHyperparameters
+    from areal_tpu_torch.engine.serving import GenRequest, ServingEngine
+    from areal_tpu_torch.models.generation import generate_tokens
+
+    gen = generate_tokens(params, cfg, prompts,
+                          GenerationHyperparameters(greedy=True, max_new_tokens=new_tokens),
+                          torch.Generator(device=dev).manual_seed(0), eos_token_id=eos)
+    engine = ServingEngine(cfg=cfg, params=params, max_batch_size=len(prompts),
+                           max_seq_len=max(map(len, prompts)) + new_tokens + 128,
+                           decode_block_steps=16, eos_token_id=eos, page_size=128,
+                           prefill_max_batch=len(prompts), device=dev)
+    engine.start()
+    try:
+        res, _ = run_requests(engine, [GenRequest(qid=f"g{i}", input_ids=list(p),
+                                                  max_new_tokens=new_tokens, greedy=True)
+                                       for i, p in enumerate(prompts)])
+    finally:
+        engine.stop()
+    return sum(res[f"g{i}"].output_ids == g["output_ids"] for i, g in enumerate(gen))
+
+
+def sync_ppo_phase(torch, rng, dev, cfg, seed, card, sizes=SYNC_SIZES):
+    """Sync PPO through the port's entry point,
+    areal_tpu_torch.training.main_sync_ppo.main(argv), with the reference's
+    override keys: a spawned model worker builds ``ppo-math`` with the
+    actor, the reference and the critic (critic@0 for critic_inf, critic@1
+    trained) on one HF directory of seeded random weights and the reward on
+    the mock backend, generates in the actor's engine on the card (flash
+    prefill, paged_decode_bf16 decode steps, sampled at temperature 1),
+    grades the answers, computes the reference logprobs and the critic's
+    values, and trains the actor and the critic with GAE. Then, in this
+    process: greedy tokens of the batch generator against a ServingEngine
+    on the same params (reported), and offload on a train engine of the
+    phase's depth (freed bytes, seconds, a bit-equal forward after the
+    restore)."""
+    import shutil
+    import tempfile
+
+    from areal_tpu_torch.models.hf import load_hf_model, save_hf_model
+    from areal_tpu_torch.models.transformer import init_params
+    from areal_tpu_torch.system.worker_base import exit_record_path
+    from areal_tpu_torch.training import main_sync_ppo
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sync_")
+    exp, trial = os.path.basename(tmp), "sync"
+    fileroot = os.path.join(tmp, "fileroot")
+    env = {"AREAL_FILEROOT": fileroot}
+    saved_env = {k: os.environ.get(k) for k in env}
+    stats = dict(card=card)
+    try:
+        t0 = time.perf_counter()
+        hf_dir = os.path.join(tmp, "hf")
+        words = tiny_tokenizer(rng, hf_dir, sizes["words"])
+        params = init_params(cfg, seed=seed, device=dev, dtype=torch.bfloat16)
+        save_hf_model(hf_dir, cfg, params, "qwen2")
+        del params
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        data = os.path.join(tmp, "math.jsonl")
+        rows = math_prompt_rows(rng, sizes["n_prompts"], sizes["prompt"], words)
+        with open(data, "w") as f:
+            f.writelines(json.dumps(r) + "\n" for r in rows)
+        stats["setup_s"] = time.perf_counter() - t0
+        argv = [
+            f"experiment_name={exp}", f"trial_name={trial}", f"seed={seed}",
+            f"name_resolve_root={os.path.join(tmp, 'name_resolve')}",
+            f"actor.path={hf_dir}", f"critic.path={hf_dir}", "ppo.disable_value=false",
+            f"tokenizer_path={hf_dir}",
+            f"dataset.path={data}", f"dataset.max_length={sizes['prompt'][1]}",
+            f"train_batch_size={sizes['train_batch_size']}", f"group_size={sizes['group']}",
+            f"ppo.gconfig.max_new_tokens={sizes['max_new_tokens']}",
+            "ppo.gconfig.temperature=1.0",
+            f"ppo.ppo_n_minibatches={sizes['n_minibatches']}",
+            f"exp_ctrl.benchmark_steps={sizes['steps']}",
+            f"mb_spec_max_tokens={sizes['max_tokens_per_mb']}", f"device={dev.type}",
+        ]
+        for role in ("actor", "critic"):
+            argv += [f"{role}.optimizer.lr=5e-5", f"{role}.optimizer.warmup_steps_proportion=0.0",
+                     f"{role}.row_len_multiple={sizes['row_len']}",
+                     f"{role}.max_row_len={sizes['row_len']}"]
+        log(f"  main_sync_ppo {' '.join(argv)}")
+        os.environ.update(env)
+        t0 = time.perf_counter()
+        result = main_sync_ppo.main(argv, worker_env=env, timeout=SYNC_TIMEOUT_S)
+        stats["run_s"] = time.perf_counter() - t0
+        summary = result["perf_summary"]
+        steps = summary["mfc_stats"]
+        if result["global_step"] != sizes["steps"] or len(steps) != sizes["steps"]:
+            raise AssertionError(f"sync_ppo: {result['global_step']} steps, "
+                                 f"{len(steps)} reported")
+        mfcs = ("actor_gen", "rew_inf", "ref_inf", "critic_inf", "critic_train", "actor_train")
+        for i, s in enumerate(steps):
+            if sorted(s) != sorted(mfcs):
+                raise AssertionError(f"sync_ppo: step {i + 1} ran MFCs {sorted(s)}")
+            bad = [k for m in ("actor_train", "critic_train") for k, v in s[m].items()
+                   if not math.isfinite(v)]
+            if bad:
+                raise AssertionError(f"sync_ppo: non-finite stats at step {i + 1}: {bad}")
+        first = steps[0]["actor_train"]
+        iw = first["ppo_actor_first_mb/importance_weight"]
+        lp_diff = first["ppo_actor_first_mb/abs_logprob_diff"]
+        launches = {k: int(sum(s[m].get(f"launches/{k}", 0) for s in steps for m in mfcs))
+                    for k in SYNC_KERNELS + ("paged_decode_int8", "gae_scan_f32")}
+        if dev.type == "cuda":
+            for k in SYNC_KERNELS:
+                if launches[k] <= 0:
+                    raise AssertionError(f"sync_ppo: kernel {k} was not launched in the "
+                                         f"model worker")
+        with open(exit_record_path(exp, trial, "model_worker/0")) as f:
+            record = json.load(f)
+        gen = [s["actor_gen"] for s in steps]
+        stats.update(
+            global_step=result["global_step"],
+            step_e2e_s=[h[0] for h in summary["history"]],
+            mfc_sec={m: [s[m]["perf/sec"] for s in steps] for m in mfcs},
+            gen_tokens=[g["perf/gen_tokens"] for g in gen],
+            gen_tok_per_s=[g["perf/gen_tokens"] / g["perf/sec"] for g in gen],
+            importance_weight_step1_mb1=iw,
+            abs_logprob_diff_step1_mb1=lp_diff,
+            approx_kl_step1_mb1=first["ppo_actor_first_mb/approx_kl"],
+            importance_weight_steps=[s["actor_train"]["ppo_actor/importance_weight"]
+                                     for s in steps],
+            reward_mean=[s["actor_train"]["ppo_actor/reward_mean"] for s in steps],
+            critic_loss=[s["critic_train"]["ppo_critic/loss"] for s in steps],
+            shard_init_s=record["shard_init_s"],
+            peak_memory_gb=record["peak_memory_bytes"] / 1e9,
+            launches=launches)
+        log(f"  {stats['global_step']} sync PPO steps in {stats['run_s']:.1f} s (worker start, "
+            f"five shards built, steps, exit); master step e2e "
+            f"{[round(x, 3) for x in stats['step_e2e_s']]} s; {card}")
+        log(f"  MFC perf/sec by step: " + ", ".join(
+            f"{m} {[round(x, 3) for x in v]}" for m, v in stats["mfc_sec"].items()))
+        log(f"  actor_gen: {stats['gen_tokens']} generated tokens, "
+            f"{[round(x, 1) for x in stats['gen_tok_per_s']]} tokens/s; step 1's first "
+            f"minibatch, the generator's logprobs against the training forward's: mean "
+            f"|difference| {lp_diff:.6f} (limit {SYNC_LP_TOL}), KL estimate "
+            f"{stats['approx_kl_step1_mb1']:.6f}, importance weight {iw:.6f} (limit 1 +- "
+            f"{SYNC_IW_TOL}); importance weight of each step "
+            f"{[round(x, 6) for x in stats['importance_weight_steps']]}; reward mean "
+            f"{stats['reward_mean']}; critic loss {stats['critic_loss']}")
+        log(f"  shard build s (model, backend, interface; the reward shard loads the actor's "
+            f"HF weights and drops them) {record['shard_init_s']}; the worker's peak device "
+            f"memory {stats['peak_memory_gb']:.2f} GB; launches in the model worker {launches}")
+        if not lp_diff <= SYNC_LP_TOL:
+            raise AssertionError(
+                f"sync_ppo: step 1's first minibatch: the generator's logprobs differ from the "
+                f"training forward's on the same weights by {lp_diff:.6f} a token on average, "
+                f"past {SYNC_LP_TOL}")
+        if abs(iw - 1.0) > SYNC_IW_TOL:
+            raise AssertionError(f"sync_ppo: step 1's first minibatch reads importance weight "
+                                 f"{iw:.6f}, past 1 +- {SYNC_IW_TOL}")
+
+        # In this process, on the initial weights.
+        from areal_tpu_torch.api.data_api import load_hf_tokenizer
+
+        cfg_hf, params = load_hf_model(hf_dir)
+        params = cast_tree(params, torch.float32, dev)
+        eos = load_hf_tokenizer(hf_dir).eos_token_id
+        prompts = [rng.integers(0, cfg.vocab_size, _draw(rng, sizes["prompt"])).tolist()
+                   for _ in range(sizes["greedy_prompts"])]
+        stats["greedy_agree"] = greedy_agreement(torch, dev, cfg_hf,
+                                                 cast_tree(params, torch.bfloat16), prompts,
+                                                 sizes["greedy_new"], eos)
+        log(f"  greedy tokens, the batch generator against a ServingEngine on the same bf16 "
+            f"params: {stats['greedy_agree']} of {len(prompts)} prompts agree over "
+            f"{sizes['greedy_new']} tokens (reported, not gated)")
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        held = [params]
+        del params
+        stats["offload"] = offload_check(torch, rng, dev, cfg_hf, held, sizes)
+        log(f"  offload of a {cfg.n_layers}-layer train engine (float32 params and AdamW "
+            f"moments): {stats['offload']['freed_gb']:.3f} GB freed in "
+            f"{stats['offload']['offload_s']:.3f} s, lazy restore "
+            f"{stats['offload']['restore_s']:.3f} s, the forward after it bit-equal; {card}")
+        return stats
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ----------------------------------------------------------------------
+# Phase 12: disaggregated serving and the KV plane
 # ----------------------------------------------------------------------
 
 # P prefill (bf16 pool), D decode (bf16 pool, a tier and a prefix budget
@@ -3086,26 +3370,27 @@ def disagg_phase(torch, rng, dev, cfg, seed, card, sizes=DISAGG_SIZES):
 
 
 # ----------------------------------------------------------------------
-# Phase 12: the weight-distribution plane
+# Phase 13: the weight-distribution plane
 # ----------------------------------------------------------------------
 
 # The serving configuration behind the plane; the in-flight wave (two
-# client threads a server, 3072 greedy tokens a request), the greedy
-# checks, and the plane's 8 MiB chunks. The wave's requests are long
-# against the fanout (3072 tokens take ~2 min at 28 layers, where three
-# servers sharing the card decode ~25-30 tokens/s a request, against a ~1
-# min fanout; about half of both at 14 layers), so a server almost never
-# cuts over at a request boundary. At 256 tokens a server could swap in the
-# gap between two requests (an idle engine swaps at once) or in the block
-# that ends them, and its clients then saw no interrupted reply.
-PLANE_SIZES = dict(slots=16, max_seq_len=4096, page=128, chunk=1024, wave_threads=2,
-                   wave_prompt=(256, 1024), wave_new=3072, resume_new=16,
+# client threads a server, 7168 greedy tokens a request), the greedy
+# checks, and the plane's 8 MiB chunks. Gate (a) needs every server to cut
+# over while a request is in flight: an idle engine swaps at once, and a
+# swap in the block that ends a request interrupts nothing. The two
+# requests of a server start together and decode in lockstep, so they end
+# together. At 7 layers on an H100 a 3072-token request took 31.7-36.9
+# s against a cutover ~30.4 s after the wave's start, one server
+# interrupted at 2945 of its 3072 tokens; 7168 tokens a request (~2.3
+# times as long) keep the cutover well inside the first request.
+PLANE_SIZES = dict(slots=16, max_seq_len=8192, page=128, chunk=1024, wave_threads=2,
+                   wave_prompt=(256, 1024), wave_new=7168, resume_new=16,
                    greedy_lens=(300, 1200), greedy_new=32, chunk_bytes=8 << 20)
 PLANE_TIMEOUT_S = 600.0
 # The depths of the plane's fleet, (a) and (b), and of (c), the async loop
 # over the plane: cut from 28 since the sft phase joined the default run,
 # to keep it inside the run's limit.
-PLANE_FLEET_LAYERS = 14
+PLANE_FLEET_LAYERS = 7
 PLANE_LOOP_LAYERS = 7
 # (c) runs at max_head_offpolicyness 0: the rollouts of step 2 start only
 # once v1 has landed, so v1's fanout ends before the trainer can finish.
@@ -3271,6 +3556,7 @@ def weight_plane_phase(torch, rng, dev, cfg, seed, card, sizes=PLANE_SIZES,
         # (a) The wave in flight while version 1 fans out and cuts over.
         stop = threading.Event()
         interrupted = {u: [] for u in servers}
+        timing = {u: [] for u in servers}
         errors = []
         lo, hi = sizes["wave_prompt"]
         prompts = [[rng.integers(0, V, int(rng.integers(lo, hi + 1))).tolist() for _ in range(64)]
@@ -3282,6 +3568,7 @@ def weight_plane_phase(torch, rng, dev, cfg, seed, card, sizes=PLANE_SIZES,
                     if stop.is_set():
                         return
                     qid = f"w{k}-{i}"
+                    t_req = time.perf_counter()
                     st, _, r = http_call(u, "/generate", {
                         "qid": qid, "input_ids": prompt, "gconfig": {
                             "max_new_tokens": sizes["wave_new"],
@@ -3289,6 +3576,11 @@ def weight_plane_phase(torch, rng, dev, cfg, seed, card, sizes=PLANE_SIZES,
                     if st != 200:
                         raise RuntimeError(f"{st} {r}")
                     if r["interrupted"]:
+                        t_int = time.perf_counter()
+                        timing[u].append(dict(index=i, tokens=len(r["output_ids"]),
+                                              start_s=t_req - t_wave, reply_s=t_int - t_wave,
+                                              wave_s=(t_int - t_req) * sizes["wave_new"]
+                                              / max(len(r["output_ids"]), 1)))
                         # The rollout client's resubmission: the remainder
                         # as a continuation, now on the new version.
                         st, _, r2 = http_call(u, "/generate", {
@@ -3303,6 +3595,7 @@ def weight_plane_phase(torch, rng, dev, cfg, seed, card, sizes=PLANE_SIZES,
 
         threads = [threading.Thread(target=client, args=(u, j * len(servers) + n))
                    for j in range(sizes["wave_threads"]) for n, u in enumerate(servers)]
+        t_wave = time.perf_counter()
         for t in threads:
             t.start()
         time.sleep(2.0)  # the wave is running
@@ -3359,7 +3652,9 @@ def weight_plane_phase(torch, rng, dev, cfg, seed, card, sizes=PLANE_SIZES,
         stats["raw"] = dict(payload_bytes=total, n_chunks=row["n_chunks"], hops=hops,
                             origin_bytes=origin_out, from_origin=from_origin,
                             from_peers=from_peers, sync_s=row["sync_s"],
-                            interrupted={name_of[u]: len(v) for u, v in interrupted.items()})
+                            interrupted={name_of[u]: len(v) for u, v in interrupted.items()},
+                            wave={name_of[u]: v for u, v in timing.items()},
+                            published_s=t0 - t_wave)
         log(f"  fleet up {stats['fleet_up_s']:.1f} s; v1 raw fanout (chain origin -> S0 -> S1 -> "
             f"S2, {total / 1e9:.3f} GB, {row['n_chunks']} chunks) landed in "
             f"{stats['fanout_s']:.2f} s (manager sync_s {row['sync_s']:.2f}); per hop "
@@ -3367,6 +3662,13 @@ def weight_plane_phase(torch, rng, dev, cfg, seed, card, sizes=PLANE_SIZES,
             f"origin and {from_peers:.0f} from peers; in-flight requests interrupted and "
             f"finished on v1 {stats['raw']['interrupted']}; greedy tokens equal the engine's "
             f"on every server; {card}")
+        log(f"  the wave against the cutover (s from the wave's start; v1 published at "
+            f"{stats['raw']['published_s']:.2f}): " + "; ".join(
+                f"{name}: " + ", ".join(
+                    f"request {w['index']} sent at {w['start_s']:.2f}, interrupted at "
+                    f"{w['reply_s']:.2f} after {w['tokens']} of {sizes['wave_new']} tokens "
+                    f"(a whole request {w['wave_s']:.1f})" for w in v)
+                for name, v in sorted(stats["raw"]["wave"].items())))
         log(f"  manager /status weight_plane: {json.dumps(row)}")
 
         # (b) Version 2 on the int8 wire, to S0 from the origin and S1 from S0.
@@ -3485,7 +3787,7 @@ def weight_plane_phase(torch, rng, dev, cfg, seed, card, sizes=PLANE_SIZES,
 
 
 # ----------------------------------------------------------------------
-# Phase 13: supervised fine-tuning through main_sft, saved and served
+# Phase 14: supervised fine-tuning through main_sft, saved and served
 # ----------------------------------------------------------------------
 
 # The sft phase at real size; a rehearsal on the CPU passes smaller ones.
@@ -4290,6 +4592,20 @@ def main() -> int:
                 main_counts[k] = main_counts.get(k, 0) + n
         torch.cuda.empty_cache()
         phase_done("async_ppo", t0)
+
+    if "sync_ppo" in phases:
+        log("phase sync_ppo")
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        report["phases"]["sync_ppo"] = sync_ppo_phase(
+            torch, np.random.default_rng([args.seed, 12]), dev,
+            dataclasses.replace(cfg, n_layers=SYNC_LAYERS), args.seed, card)
+        # Sync PPO is a main path of its own: its launches add.
+        for k, n in report["phases"]["sync_ppo"]["launches"].items():
+            if n:
+                main_counts[k] = main_counts.get(k, 0) + n
+        torch.cuda.empty_cache()
+        phase_done("sync_ppo", t0)
 
     if "disagg" in phases:
         log("phase disagg")

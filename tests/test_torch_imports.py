@@ -71,6 +71,10 @@ def test_port_sources_import_no_jax():
     "areal_tpu_torch.datasets.prompt_answer, areal_tpu_torch.base.timeutil, "
     "areal_tpu_torch.models.hf.gemma, areal_tpu_torch.models.hf.gpt2, "
     "areal_tpu_torch.models.hf.mistral, areal_tpu_torch.models.hf.qwen3",
+    "areal_tpu_torch.training.main_sync_ppo, areal_tpu_torch.experiments.ppo_math_exp, "
+    "areal_tpu_torch.models.generation, areal_tpu_torch.interfaces, "
+    "areal_tpu_torch.interfaces.reward, areal_tpu_torch.interfaces.fused, "
+    "areal_tpu_torch.datasets.prompt",
 ])
 def test_importing_the_port_loads_no_jax(modules):
     code = (
