@@ -11,16 +11,20 @@ the module of its wrapper and runs only for tensors on the CPU.
 
 Entry points take ``device=`` and default to ``"cuda"``; without a card
 they raise rather than run on the CPU. Tests pass ``device="cpu"``.
+
+Importing the package imports no ``torch``: the reward executor's
+sandbox workers load ``functioncall.math_grader`` under a memory limit
+that torch and its CUDA libraries would not fit in.
 """
 
 from __future__ import annotations
 
-import torch
 
-
-def resolve_device(device="cuda") -> torch.device:
+def resolve_device(device="cuda") -> "torch.device":
     """The torch device an entry point runs on. A CUDA device without a
     card raises: the port never falls back to the CPU on its own."""
+    import torch
+
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -33,9 +37,11 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
-def torch_dtype(name: str) -> torch.dtype:
+def torch_dtype(name: str) -> "torch.dtype":
     """TransformerConfig dtype names ('float32', 'bfloat16', ...) as torch
     dtypes."""
+    import torch
+
     dt = getattr(torch, name, None)
     if not isinstance(dt, torch.dtype):
         raise ValueError(f"unknown dtype name {name!r}")

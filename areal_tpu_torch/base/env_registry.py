@@ -95,6 +95,30 @@ _KNOBS: List[Knob] = [
     Knob("AREAL_SYMPY_TIMEOUT_S", "float", 3.0,
          "Per-expression sympy equivalence-check timeout "
          "(functioncall/math_grader.py)."),
+    Knob("AREAL_PYEXEC_TIMEOUT", "float", 6.0,
+         "Sandboxed python-answer execution timeout seconds "
+         "(functioncall/python_answer.py)."),
+    Knob("AREAL_REXEC_WORKERS", "int", 2,
+         "Warm sandbox worker subprocesses per reward-executor service "
+         "(system/reward_executor.py). Workers are reused across jobs; a "
+         "job that times out or crashes costs one respawn, not the pool."),
+    Knob("AREAL_REXEC_QUEUE_MAX", "int", 64,
+         "Bounded pending-job queue per executor service; submits beyond "
+         "it shed 429 + Retry-After."),
+    Knob("AREAL_REXEC_MEM_MB", "int", 1024,
+         "RLIMIT_AS ceiling (MiB) applied inside each warm sandbox worker "
+         "at spawn."),
+    Knob("AREAL_REXEC_TIMEOUT_S", "float", 6.0,
+         "Default per-job wall timeout on the executor pool; an overrun "
+         "kills and respawns the one worker running the job."),
+    Knob("AREAL_REXEC_MAX_REUSE", "int", 0,
+         "Jobs served per warm worker before a preventive recycle; 0 = "
+         "unlimited reuse."),
+    Knob("AREAL_TASK_STALENESS_WINDOWS", "str", "math:2,agentic:8",
+         "Per-task admission windows of the trainer's buffer "
+         "(system/buffer.py): 'task:max_lag' entries; a sample tagged with "
+         "a listed task is dropped at admission once the train step minus "
+         "its version_end exceeds the window."),
     Knob("AREAL_TPU_MEMORY_KILL_THRESHOLD", "float", None,
          "Device-memory fraction above which a model worker raises after "
          "an MFC (base/monitor.py); unset = disabled."),

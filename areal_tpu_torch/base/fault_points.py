@@ -1,7 +1,7 @@
 """The named chaos-injection points the port fires (the port's copy of
 the entries of ``areal_tpu/base/fault_points.py`` that its generation
 server, serving engine, worker system, rollout worker, gserver manager,
-weight plane and engine checkpoint fire; names and meanings are the reference's, so one ``AREAL_FAULTS``
+weight plane, engine checkpoint and reward executor fire; names and meanings are the reference's, so one ``AREAL_FAULTS``
 spec arms reference and port processes alike).
 
 Names under ``test.`` are reserved for the injector's own tests and are
@@ -85,6 +85,15 @@ _POINTS: List[FaultPoint] = [
                "artifacts landed but around the manifest rename: recovery "
                "must resume from the previous complete checkpoint, never a "
                "torn one."),
+    FaultPoint("rexec.case", ("areal_tpu_torch/system/reward_executor.py",),
+               "One sandboxed reward job fails inside a warm executor worker "
+               "(guarded exec raises / worker OOM-kill): the case must come "
+               "back as a failed result, never take the pool or the caller "
+               "down."),
+    FaultPoint("rexec.die", ("areal_tpu_torch/system/reward_executor.py",),
+               "A whole reward-executor service dies mid-flight (container "
+               "kill): its heartbeat goes stale and clients must fail over "
+               "to a surviving executor with zero failed episodes."),
 ]
 
 REGISTRY: Dict[str, FaultPoint] = {p.name: p for p in _POINTS}

@@ -1,5 +1,5 @@
 """Cross-process metric names of the worker system (the port's copy of
-the ``perf/*`` and trainer-plane ``areal:*`` entries of
+the ``perf/*``, trainer-plane and reward-executor ``areal:*`` entries of
 ``areal_tpu/base/metrics_registry.py``). The names are the reference's
 byte for byte: MFC stats a port model worker ships are read by a master
 of either package under the same keys. Each name is bound to a module
@@ -21,12 +21,21 @@ _NAMES = (
     # rollout telemetry riding trajectory metadata (master side)
     "perf/rollout_e2e_p50_ms", "perf/rollout_e2e_p95_ms", "perf/reprefill_tokens",
     "perf/episode_turns", "perf/episode_tool_calls",
+    # per-task staleness of the consumed batch and the buffer's per-task
+    # admission drops (system/model_function_call.py)
+    "perf/task_staleness_math", "perf/task_staleness_agentic",
+    "perf/task_stale_dropped_math", "perf/task_stale_dropped_agentic",
     # device memory after every MFC (base/monitor.device_memory_stats)
     "perf/mem_bytes_in_use", "perf/mem_bytes_limit", "perf/mem_peak_bytes_in_use",
     "perf/mem_frac_in_use", "perf/mem_devices_reporting",
     # trainer-plane counters (push/pull stream, stream dataset, buffer)
     "areal:train_samples_lost_total", "areal:train_samples_duplicated_total",
     "areal:train_wal_replayed_total", "areal:train_wal_dup_dropped_total",
+    "areal:train_stale_dropped_total",
+    # pooled reward executor /metrics (system/reward_executor.py)
+    "areal:rexec_jobs_total", "areal:rexec_job_failures", "areal:rexec_timeouts",
+    "areal:rexec_shed_total", "areal:rexec_queue_depth", "areal:rexec_workers_alive",
+    "areal:rexec_worker_respawns", "areal:rexec_warm_hits",
 )
 
 REGISTRY = frozenset(_NAMES)

@@ -68,3 +68,15 @@ def weight_plane_source(experiment_name: str, trial_name: str, model_name: str) 
     (system/weight_plane.py): the trainer-side dump rank (or the gserver
     manager's fallback) registers its URL here."""
     return f"{trial_root(experiment_name, trial_name)}/weight_plane/{model_name}"
+
+
+def reward_executor_url(experiment_name: str, trial_name: str, executor_id: str) -> str:
+    """HTTP endpoint of one pooled reward-executor service
+    (system/reward_executor.py). Liveness rides the health registry
+    (member ``reward_executor/<id>``); this key is the URL record
+    clients resolve when no heartbeat lists the executor."""
+    return f"{trial_root(experiment_name, trial_name)}/reward_executor_url/{executor_id}"
+
+
+def reward_executor_url_root(experiment_name: str, trial_name: str) -> str:
+    return f"{trial_root(experiment_name, trial_name)}/reward_executor_url/"

@@ -1,7 +1,8 @@
 """RPC substrate pieces the port's servers and clients use (the port's
 copy of ``Deadline``, ``RetryPolicy`` with its declared policies,
-``shed_backoff``, ``retry_async`` / ``retry_sync`` (without the breaker)
-and the process-global ``stats`` of
+``shed_backoff``, ``RpcShed``, ``retry_async`` / ``retry_sync`` (without
+the breaker; a shed floors the backoff on the server's Retry-After) and
+the process-global ``stats`` of
 ``areal_tpu/base/rpc.py``).
 
 A deadline crosses the wire as REMAINING seconds in the
@@ -39,6 +40,17 @@ class RpcError(RuntimeError):
 
 class RpcDeadlineExceeded(RpcError):
     pass
+
+
+class RpcShed(RpcError):
+    """The peer shed the request (429). Deliberate backpressure, not a
+    failure: carries the server's Retry-After so the retry loop floors
+    its backoff on it."""
+
+    def __init__(self, peer: str, retry_after: float):
+        super().__init__(f"{peer} shed request (retry after {retry_after:.2f}s)")
+        self.peer = peer
+        self.retry_after = float(retry_after)
 
 
 class Deadline:
@@ -187,6 +199,13 @@ async def retry_async(fn: Callable[[float], Awaitable[T]], *, policy: RetryPolic
         stats.incr("attempts")
         try:
             return await fn(timeout)
+        except RpcShed as e:
+            last = e
+            if attempt >= policy.attempts:
+                break
+            stats.incr("retries")
+            await asyncio.sleep(policy.backoff(attempt, retry_after=e.retry_after,
+                                               deadline=deadline))
         except retryable as e:
             last = e
             if attempt >= policy.attempts:
@@ -209,6 +228,14 @@ def retry_sync(fn: Callable[[float], T], *, policy: RetryPolicy,
         stats.incr("attempts")
         try:
             return fn(timeout)
+        except RpcShed as e:
+            # Deliberate backpressure from a live peer: wait at least its
+            # Retry-After, then try again.
+            last = e
+            if attempt >= policy.attempts:
+                break
+            stats.incr("retries")
+            time.sleep(policy.backoff(attempt, retry_after=e.retry_after, deadline=deadline))
         except retryable as e:
             last = e
             if attempt >= policy.attempts:

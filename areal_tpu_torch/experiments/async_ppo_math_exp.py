@@ -5,7 +5,10 @@ stream-dataset trainer; the trainer's DFG is {ref_inf?} -> actor_train
 with a post-hook param-realloc dump that the manager fans out to the
 servers.
 
-The port builds the single-step math agent on one device a worker.
+The rollout agent is chosen by ``agent_type``: "math-single-step" (one
+group a prompt), "math-multi-turn" (a feedback loop) or "tool-use"
+(multi-turn tool calls through the pooled reward executor, with the
+"tool-use" env). The port builds the trainer on one device a worker.
 Options whose feature the port lacks raise in ``refuse_unported`` before
 any worker starts.
 """
@@ -43,7 +46,6 @@ def refuse_unported(cfg: AsyncPPOMATHExpConfig):
         "n_model_workers": cfg.n_model_workers != 1,
         "train_n_hosts": cfg.train_n_hosts != 1,
         "critic": cfg.critic is not None,
-        "agent_type": cfg.agent_type != "math-single-step",
         "ppo.generation_size": cfg.ppo.generation_size is not None,
         "gen_tensor_parallel": cfg.gen_tensor_parallel != 1,
         "gen_speculative_draft_len": cfg.gen_speculative_draft_len != 0,
@@ -97,6 +99,36 @@ def actor_interface_args(cfg: PPOMATHExpConfig) -> dict:
         behav_imp_weight_cap=p.behav_imp_weight_cap,
         token_normalize_scope=p.token_normalize_scope,
     )
+
+
+def _agent_abstraction(cfg: AsyncPPOMATHExpConfig) -> AgentAbstraction:
+    """The rollout agent from `agent_type`: "math-single-step" (the
+    default; one group a prompt), "math-multi-turn" (feedback loop) or
+    "tool-use" (multi-turn tool calls, agents/tool_use.py)."""
+    if cfg.agent_type == "tool-use":
+        return AgentAbstraction("tool-use", args=dict(
+            gconfig=dataclasses.asdict(cfg.ppo.gconfig.new(n=1)),
+            num_turns=cfg.agent_num_turns,
+            turn_level_discount=cfg.agent_turn_discount,
+            reward_scaling=cfg.ppo.reward_output_scaling,
+            reward_bias=cfg.ppo.reward_output_bias,
+            scripted_tool_turns=cfg.agent_scripted_tool_turns,
+        ))
+    if cfg.agent_type == "math-multi-turn":
+        return AgentAbstraction("math-multi-turn", args=dict(
+            gconfig=dataclasses.asdict(cfg.ppo.gconfig.new(n=1)),
+            num_turns=cfg.agent_num_turns,
+            turn_level_discount=cfg.agent_turn_discount,
+            reward_scaling=cfg.ppo.reward_output_scaling,
+            reward_bias=cfg.ppo.reward_output_bias,
+        ))
+    return AgentAbstraction("math-single-step", args=dict(
+        gconfig=dataclasses.asdict(cfg.ppo.gconfig.new(n=cfg.ppo.group_size)),
+        success_rate_lb=cfg.ppo.success_rate_lb,
+        success_rate_ub=cfg.ppo.success_rate_ub,
+        reward_scaling=cfg.ppo.reward_output_scaling,
+        reward_bias=cfg.ppo.reward_output_bias,
+    ))
 
 
 def build_async_ppo_math_experiment(cfg: AsyncPPOMATHExpConfig) -> ExperimentConfig:
@@ -216,13 +248,7 @@ def build_async_ppo_math_experiment(cfg: AsyncPPOMATHExpConfig) -> ExperimentCon
         decode_free_page_min_frac=cfg.gen_decode_free_page_min_frac,
         elastic_fleet=cfg.gen_elastic_fleet,
     )
-    agent = AgentAbstraction("math-single-step", args=dict(
-        gconfig=dataclasses.asdict(cfg.ppo.gconfig.new(n=cfg.ppo.group_size)),
-        success_rate_lb=cfg.ppo.success_rate_lb,
-        success_rate_ub=cfg.ppo.success_rate_ub,
-        reward_scaling=cfg.ppo.reward_output_scaling,
-        reward_bias=cfg.ppo.reward_output_bias,
-    ))
+    agent = _agent_abstraction(cfg)
     rollouts = [
         RolloutWorkerConfig(
             experiment_name=cfg.experiment_name,
@@ -232,7 +258,8 @@ def build_async_ppo_math_experiment(cfg: AsyncPPOMATHExpConfig) -> ExperimentCon
             n_pullers=n_workers,
             model_name=actor.role,
             agent=agent,
-            env=EnvServiceAbstraction("math-code-single-step"),
+            env=EnvServiceAbstraction(
+                "tool-use" if cfg.agent_type == "tool-use" else "math-code-single-step"),
             datasets=[C.dataset_abstraction(cfg.dataset)],
             tokenizer_path=cfg.tokenizer_path or cfg.actor.path,
             new_tokens_per_chunk=cfg.ppo.new_tokens_per_chunk,

@@ -4,10 +4,11 @@ port's copy of ``areal_tpu/functioncall/math_grader.py``).
 Final answers are extracted (\\boxed{...}, "the answer is ...", the last
 number), LaTeX-normalized and compared: numerically at 1e-4 relative
 tolerance with percentage equivalence, element-wise for tuples, sets,
-intervals and matrices, through equations and \\pm, and by sympy last,
-in a forked child with a hard timeout. The pooled remote executor of the
-reference is not ported: sympy always runs in the local child, which is
-the reference's own path when no executor fleet is registered."""
+intervals and matrices, through equations and \\pm, and by sympy last:
+on the pooled reward executor when one is registered and live
+(``functioncall/remote.py``), else in a forked child with a hard
+timeout. The module imports no ``torch``: the executor's sandbox
+workers import it under their memory limit."""
 
 from __future__ import annotations
 
@@ -283,10 +284,21 @@ def _sympy_equal_local(
 
 
 def _sympy_equal(a: str, b: str, timeout: float = SYMPY_TIMEOUT_S) -> bool:
-    """sympy equivalence in a local forked child per call (the
-    reference's path when no reward-executor pool is registered)."""
+    """sympy equivalence, routed through the warm reward-executor pool
+    when one is registered (functioncall/remote.py), so a hot grading
+    path skips the cold fork and import; falls back to the local
+    fork-per-call sandbox when no pool is registered, none is live, or
+    the pooled job itself errors (an executor outage must degrade to
+    slower grading, never to wrong grades)."""
     if len(a) > 400 or len(b) > 400:  # refuse adversarially long inputs
         return False
+    from areal_tpu_torch.functioncall import remote
+
+    pool = remote.get_executor_pool()
+    if pool is not None and pool.available():
+        res = pool.submit([{"kind": "sympy_equal", "a": a, "b": b}], timeout_s=timeout)[0]
+        if res.get("ok"):
+            return bool(res.get("equal"))
     return _sympy_equal_local(a, b, timeout)
 
 

@@ -4,12 +4,9 @@ decodes each generated response, grades it against its prompt's answer
 (the math grader, or the code verifier by task tag) and emits one reward a
 sequence (+5 / -5 by default) and one score a prompt (its share of
 correct answers). It runs on the host; no model forward is needed, so
-sync PPO's reward shard sits on the mock backend.
-
-Difference from the reference: grading always runs in a local thread
-pool. The remote verifier service (``functioncall/remote.py``, chosen
-there by ``FUNCTIONCALL_SERVICE_DOMAIN``) is not ported (ROADMAP Queue A
-item 4.2), and the port reads no such variable.
+sync PPO's reward shard sits on the mock backend. Grading runs in a
+local thread pool, or on the remote verifier service when
+``FUNCTIONCALL_SERVICE_DOMAIN`` names one (``functioncall/remote.py``).
 """
 
 from __future__ import annotations
@@ -17,7 +14,7 @@ from __future__ import annotations
 import dataclasses
 import json
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, List
+from typing import Any, Dict, List
 
 import numpy as np
 
@@ -40,7 +37,26 @@ def verify_one(task: str, text: str, answer_info: Any) -> bool:
 
 
 def verify_all(jobs: List[tuple], max_workers: int = 8) -> List[bool]:
-    """Verify (task, text, answer) jobs in a local thread pool, in order."""
+    """Verify (task, text, answer) jobs, in order: against the remote
+    verifier service when FUNCTIONCALL_SERVICE_DOMAIN is set (batched, with
+    retries), in a local thread pool otherwise."""
+    from areal_tpu_torch.functioncall import remote
+
+    if remote.remote_enabled():
+        oks: List[bool] = [False] * len(jobs)
+        by_task: Dict[str, List[int]] = {}
+        for i, (task, _, _) in enumerate(jobs):
+            by_task.setdefault(task, []).append(i)
+        for task, idxs in by_task.items():
+            payloads = []
+            for i in idxs:
+                _, text, answer = jobs[i]
+                key = "test_cases" if task == "code" else "answer"
+                payloads.append({"uid": str(i), "solution": text, key: answer})
+            for i, ok in zip(idxs, remote.batch_verify(payloads, task)):
+                oks[i] = ok
+        return oks
+
     with ThreadPoolExecutor(max_workers=max_workers) as ex:
         return list(ex.map(lambda args: verify_one(*args), jobs))
 

@@ -7,8 +7,10 @@ has not consumed yet. Oldest-first selection, per-sample reuse counting
 (a sample is garbage-collected once every MFC consumed it), and the
 recover state: ``ignore_ids`` (ids consumed before a crash, skipped once
 at admission), the ids consumed this epoch, and the sequence ledger's
-snapshot and seeding. Not ported yet: the reference's per-task staleness
-windows (ROADMAP Queue A item 4.2).
+snapshot and seeding, and the per-task staleness windows: a sample
+tagged with a task listed in ``AREAL_TASK_STALENESS_WINDOWS`` is dropped
+at admission once the train step minus its ``version_end`` exceeds that
+task's window.
 """
 
 from __future__ import annotations
@@ -21,11 +23,30 @@ from typing import Dict, List, Optional, Set, Tuple
 
 from areal_tpu_torch.api.data_api import SequenceSample
 from areal_tpu_torch.api.dfg import MFCDef
-from areal_tpu_torch.base import logging, tracing
+from areal_tpu_torch.base import env_registry, logging, tracing
 from areal_tpu_torch.base.fault_injection import faults
 from areal_tpu_torch.system.wal import SeqLedger
 
 logger = logging.getLogger("buffer")
+
+
+def parse_task_windows(spec: Optional[str]) -> Dict[str, int]:
+    """Parse AREAL_TASK_STALENESS_WINDOWS ('math:2,agentic:8') into task
+    tag -> max admitted version lag. Malformed entries are skipped loudly:
+    a mistyped window must not silently drop a task's samples."""
+    out: Dict[str, int] = {}
+    for part in (spec or "").split(","):
+        part = part.strip()
+        if not part:
+            continue
+        task, sep, win = part.partition(":")
+        try:
+            if not sep:
+                raise ValueError("missing ':'")
+            out[task.strip()] = int(win)
+        except ValueError:
+            logger.warning("ignoring malformed task-staleness entry %r", part)
+    return out
 
 
 @dataclasses.dataclass
@@ -83,7 +104,21 @@ class AsyncIOSequenceBuffer:
         # The invariant DETECTOR, not a dedup count: a sample whose seq
         # was already ledger-marked reaching full consumption again.
         # Expected 0 — the kill-anywhere e2e asserts exactly that.
-        self.counters = {"areal:train_samples_duplicated_total": 0}
+        # train_stale_dropped counts per-task staleness-window drops at
+        # admission (below).
+        self.counters = {
+            "areal:train_samples_duplicated_total": 0,
+            "areal:train_stale_dropped_total": 0,
+        }
+        # The staleness drops above by task tag; the trainer folds them
+        # into perf/task_stale_dropped_<task>.
+        self.stale_dropped_by_task: Dict[str, int] = {}
+        # Per-task admission windows on top of the gserver manager's
+        # global allocation gate: a listed task's sample is dropped at
+        # put_batch once current_train_step - version_end exceeds its
+        # window. Untagged or unlisted samples keep the global gate only.
+        self.task_windows = parse_task_windows(
+            env_registry.get_str("AREAL_TASK_STALENESS_WINDOWS"))
         # Advanced by the master each step; stamped on buffer.wait spans
         # so the trace report can derive staleness (train step minus the
         # policy version that STARTED the sample's generation).
@@ -118,11 +153,23 @@ class AsyncIOSequenceBuffer:
             ignored_seen = set()
             resident_dups = set()
             ledgered = set()
+            stale = set()
+            stale_tasks: Dict[str, int] = {}
             for s in samples:
                 seqs = s.metadata.get("wal_seq")
+                tasks = s.metadata.get("task")
+                v_ends = s.metadata.get("version_end")
                 for i in range(s.bs):
                     sample_id = s.ids[i]
                     seq = seqs[i] if seqs else None
+                    task = tasks[i] if tasks else None
+                    win = self.task_windows.get(task) if task else None
+                    if win is not None and v_ends:
+                        lag = self.current_train_step - int(v_ends[i])
+                        if lag > win:
+                            stale.add(sample_id)
+                            stale_tasks[task] = stale_tasks.get(task, 0) + 1
+                            continue
                     if seq is not None and (
                         seq in self.seq_ledger
                         or (seq in self._seq_pending
@@ -157,6 +204,16 @@ class AsyncIOSequenceBuffer:
                     "admission (total %d)",
                     len(ledgered), self.n_ledger_filtered,
                 )
+            if stale:
+                self.counters["areal:train_stale_dropped_total"] += len(stale)
+                for t, n in stale_tasks.items():
+                    self.stale_dropped_by_task[t] = self.stale_dropped_by_task.get(t, 0) + n
+                logger.info(
+                    "per-task staleness window dropped %d sample(s) at "
+                    "admission (total %d; by task %r)",
+                    len(stale), self.counters["areal:train_stale_dropped_total"],
+                    dict(self.stale_dropped_by_task),
+                )
             if resident_dups:
                 self.n_dropped_duplicates += len(resident_dups)
                 logger.warning(
@@ -176,7 +233,7 @@ class AsyncIOSequenceBuffer:
                 for sid in range(s.bs):
                     sub = s._select_indices([sid]) if s.bs > 1 else s
                     sample_id = sub.ids[0]
-                    if sample_id in ledgered:
+                    if sample_id in ledgered or sample_id in stale:
                         continue
                     if sample_id in self.ignore_ids:
                         # consumed before a crash; skip exactly once

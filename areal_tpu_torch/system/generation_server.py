@@ -74,7 +74,7 @@ import time
 import urllib.error
 import urllib.parse
 import urllib.request
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from http.server import BaseHTTPRequestHandler
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from areal_tpu_torch import kernels
@@ -185,30 +185,6 @@ def _refuse_unported(config: GenerationServerConfig):
         raise NotImplementedError(
             f"the port's generation server does not support {bad} yet "
             f"(ROADMAP Queue A): leave them at their defaults")
-
-
-class _HTTPServer(ThreadingHTTPServer):
-    daemon_threads = True
-    # aiohttp's listen backlog: a fleet's burst of concurrent requests
-    # must queue, not be reset (socketserver's default is 5).
-    request_queue_size = 128
-
-    def __init__(self, addr, owner: "GenerationServer"):
-        self.owner = owner
-        super().__init__(addr, _Handler)
-
-
-class _Handler(BaseHTTPRequestHandler):
-    protocol_version = "HTTP/1.1"
-
-    def do_GET(self):
-        self.server.owner._dispatch(self, "GET")
-
-    def do_POST(self):
-        self.server.owner._dispatch(self, "POST")
-
-    def log_message(self, fmt, *args):
-        logger.debug("%s " + fmt, self.address_string(), *args)
 
 
 class GenerationServer(Worker):
@@ -331,7 +307,7 @@ class GenerationServer(Worker):
             "/health": {"GET": self._h_health},
         }
         host = network.gethostip()
-        self._httpd = _HTTPServer((host, 0), self)
+        self._httpd = network.OwnedHTTPServer((host, 0), self)
         self.address = f"http://{host}:{self._httpd.server_address[1]}"
         self._http_thread = threading.Thread(target=self._httpd.serve_forever, daemon=True)
         self._http_thread.start()

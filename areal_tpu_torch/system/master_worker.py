@@ -295,9 +295,15 @@ class MasterWorker(Worker):
                     mreg.PERF_MOE_ROUTER_ENTROPY,
                     mreg.PERF_MOE_EXPERT_OVERLOAD,
                     mreg.PERF_MOE_A2A_BYTES,
-                    # Agentic episodes: turn/tool-call volume.
+                    # Agentic episodes: turn/tool-call volume, the
+                    # per-task staleness means and the per-task
+                    # admission drops.
                     mreg.PERF_EPISODE_TURNS,
                     mreg.PERF_EPISODE_TOOL_CALLS,
+                    mreg.PERF_TASK_STALENESS_MATH,
+                    mreg.PERF_TASK_STALENESS_AGENTIC,
+                    mreg.PERF_TASK_STALE_DROPPED_MATH,
+                    mreg.PERF_TASK_STALE_DROPPED_AGENTIC,
                 ):
                     # Input-pipeline telemetry: per-MFC series + running
                     # mean in perf_summary["overlap"].

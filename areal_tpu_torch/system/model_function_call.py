@@ -239,6 +239,32 @@ class ModelFunctionCall:
             ]
             if tool_calls:
                 stats["perf/episode_tool_calls"] = float(np.mean(tool_calls))
+            # Per-task staleness consumed this step: the train-step lag of
+            # each sample's version_end, split by its task tag, so the
+            # math and agentic windows are both observable.
+            tasks = batch.metadata.get("task") or []
+            v_ends = batch.metadata.get("version_end") or []
+            step = int(self.buffer.current_train_step)
+            for tag, key in (
+                ("math", "perf/task_staleness_math"),
+                ("agentic", "perf/task_staleness_agentic"),
+            ):
+                lags = [
+                    step - int(v)
+                    for t, v in zip(tasks, v_ends)
+                    if t == tag and isinstance(v, (int, float))
+                ]
+                if lags:
+                    stats[key] = float(np.mean(lags))
+            # Admission-side complement: per-task counts of samples the
+            # buffer's staleness windows dropped.
+            for tag, key in (
+                ("math", "perf/task_stale_dropped_math"),
+                ("agentic", "perf/task_stale_dropped_agentic"),
+            ):
+                dropped = self.buffer.stale_dropped_by_task.get(tag, 0)
+                if dropped:
+                    stats[key] = float(dropped)
         # DP workers run concurrently: wall time is the max, flops add,
         # so MFC TFLOP/s is aggregate-over-workers per wall second.
         if stats.get("perf/flops") and stats.get("perf/sec"):

@@ -9,8 +9,10 @@ exit path) and pushes accepted trajectories to the trainer over the ZMQ
 push stream as JSON, each with a sequence id the trainer acks once its
 WAL holds it when ``AREAL_WAL`` is on. At each epoch boundary the
 episodes' success rates merge into the shared score file and the
-dataset's curriculum filter runs. Graders run in this process: the
-pooled remote executor and the gateway route are not ported.
+dataset's curriculum filter runs. The worker installs a client of the
+pooled reward executors (``functioncall/remote.py``): the tool env's
+python tool and the math grader's sympy path run there while an executor
+is live, in local sandboxes otherwise. The gateway route is not ported.
 """
 
 from __future__ import annotations
@@ -117,6 +119,13 @@ class RolloutWorker(AsyncWorker):
             agent_kwargs["gconfig"] = _dc.asdict(config.gconfig)
         self.agent = make_agent(config.agent, **agent_kwargs)
         self.env = _TracedEnv(make_env(config.env))
+        # Pooled reward-executor discovery: install the process-wide
+        # client. With no executor registered available() is False and
+        # everything degrades to the local fork-per-call sandboxes.
+        from areal_tpu_torch.functioncall import remote as fc_remote
+
+        fc_remote.register_executor_pool(
+            fc_remote.ExecutorPoolClient(config.experiment_name, config.trial_name))
         self.manager_addr = name_resolve.wait(
             names.gen_server_manager(config.experiment_name, config.trial_name),
             timeout=300,
@@ -265,6 +274,9 @@ class RolloutWorker(AsyncWorker):
                 await act_queue.put(bundle)
 
         accepted = False
+        # An episode that raised (not one cancelled at shutdown): the
+        # span's `failed` attribute, a port addition the smoke reads.
+        failed = False
         gen_task = None
         try:
             faults.maybe_fail("rollout.episode")
@@ -320,11 +332,13 @@ class RolloutWorker(AsyncWorker):
                 self.pusher.push(data_api.sample_to_json(t), seq=seq)
             accepted = bool(trajs)
         except Exception:
+            failed = True
             logger.exception("rollout episode failed")
         finally:
             if ep is not None:
                 ep.end(
                     accepted=accepted,
+                    failed=failed,
                     reprefill_tokens=ep_gen["reprefill_tokens"],
                     interruptions=ep_gen["interruptions"],
                 )

@@ -29,10 +29,10 @@ import os
 import threading
 import time
 import urllib.parse
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from http.server import BaseHTTPRequestHandler
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
-from areal_tpu_torch.base import logging
+from areal_tpu_torch.base import logging, network
 from areal_tpu_torch.base.chunking import CHUNK_SCHEMA, DEFAULT_CHUNK_BYTES, build_chunk_index
 from areal_tpu_torch.base.fault_injection import faults
 
@@ -207,25 +207,6 @@ def serve_store_chunk(store, query, headers) -> Tuple[Response, int]:
             max(0, len(data) - start))
 
 
-class _Server(ThreadingHTTPServer):
-    daemon_threads = True
-    request_queue_size = 128
-
-    def __init__(self, addr, owner: "_PlaneHTTP"):
-        self.owner = owner
-        super().__init__(addr, _Handler)
-
-
-class _Handler(BaseHTTPRequestHandler):
-    protocol_version = "HTTP/1.1"
-
-    def do_GET(self):
-        self.server.owner._dispatch(self)
-
-    def log_message(self, fmt, *args):
-        logger.debug("%s " + fmt, self.address_string(), *args)
-
-
 def write_response(handler: BaseHTTPRequestHandler, resp: Response, extra=None) -> None:
     """Send one response (Content-Length always set, HTTP/1.1)."""
     status, data, ctype, headers = resp
@@ -248,7 +229,7 @@ class _PlaneHTTP:
 
     def __init__(self, host: str = "127.0.0.1"):
         self._host = host
-        self._httpd: Optional[_Server] = None
+        self._httpd: Optional[network.OwnedHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
         self.address: str = ""
 
@@ -257,13 +238,16 @@ class _PlaneHTTP:
 
     def start(self):
         self._routes = self.routes()
-        self._httpd = _Server((self._host, 0), self)
+        self._httpd = network.OwnedHTTPServer((self._host, 0), self)
         self.address = f"http://{self._host}:{self._httpd.server_address[1]}"
         self._thread = threading.Thread(target=self._httpd.serve_forever, daemon=True)
         self._thread.start()
         return self
 
-    def _dispatch(self, handler: BaseHTTPRequestHandler):
+    def _dispatch(self, handler: BaseHTTPRequestHandler, method: str):
+        if method != "GET":
+            handler.send_error(501, f"Unsupported method ({method!r})")
+            return
         parts = urllib.parse.urlsplit(handler.path)
         query = dict(urllib.parse.parse_qsl(parts.query))
         fn = self._routes.get(parts.path)

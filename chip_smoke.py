@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed N] [--out report.json] [--profile-serving]
         [--phases build,parity,serve_bf16,serve_int8,interrupt,http,grad,train,workers,
-                  async_ppo,sync_ppo,disagg,weight_plane,sft,recover]
+                  async_ppo,sync_ppo,disagg,weight_plane,sft,recover,agentic]
 
 Phases (every one must pass; the script exits nonzero on the first that
 fails, and on a machine without CUDA):
@@ -19,9 +19,10 @@ fails, and on a machine without CUDA):
                  GAE entries by the device time of their kernels beside
                  the whole call, the backward with CUDA events).
 3. serve_bf16  - a ServingEngine at the full width of
-                 DeepSeek-R1-Distill-Qwen-1.5B and 14 of its 28 layers
-                 (seeded random weights; cut since the recover phase
-                 joined, for the run's time limit, as phases 4-6 and 8)
+                 DeepSeek-R1-Distill-Qwen-1.5B and 4 of its 28 layers
+                 (seeded random weights; cut for the run's time limit, to
+                 14 when the recover phase joined and to 4 when the
+                 agentic phase did, as phases 4-6 and 8)
                  serves a mix of requests with a bf16 KV pool; launch
                  counts of every kernel on that path must be > 0.
                  --profile-serving adds the profiled windows.
@@ -29,7 +30,7 @@ fails, and on a machine without CUDA):
 5. interrupt   - update_params mid-generation returns partial results
                  with interrupted=True and the new version goes live.
 6. http        - the port's GenerationServer in process, at the full
-                 width and 14 layers, with the qid prefix cache and
+                 width and 4 layers, with the qid prefix cache and
                  token-budget admission, driven over HTTP: a mixed wave
                  from 18 client threads (checked as serve_bf16's), six
                  continuations that must hit the prefix cache, the same
@@ -40,7 +41,7 @@ fails, and on a machine without CUDA):
 7. grad        - at full width and 2 layers, the gradients of the SFT loss
                  through the kernels against the plain attention on the
                  card, leaf by leaf.
-8. train       - a TorchTrainEngine at the full width and 14 layers of
+8. train       - a TorchTrainEngine at the full width and 4 layers of
                  R1-Distill-Qwen-1.5B (float32 params, bf16 compute): PPO
                  actor inference, one train_step (GAE, advantage
                  normalization, 4 minibatch updates), then 3 SFT steps;
@@ -49,9 +50,9 @@ fails, and on a machine without CUDA):
 9. workers     - the trainer half of the worker system through
                  LocalController(ExperimentConfig).run(): a spawned model
                  worker loads the actor from an HF directory of seeded
-                 random weights at the full width and 7 of the 28
+                 random weights at the full width and 4 of the 28
                  layers (the sft phase trains the same engine through the
-                 worker system at 7; float32
+                 worker system at 4; float32
                  params, bf16 compute) and pulls 2 steps of the train
                  phase's PPO batch, pushed from this process as a
                  rollout worker would; the master runs 2 actor_train
@@ -68,8 +69,8 @@ fails, and on a machine without CUDA):
                  pool, 16 slots x 4096 tokens), the gserver manager, a
                  rollout worker running the math agent and env over a
                  seeded prompt set under a tiny tokenizer, and a model
-                 worker training the actor at full width and 7 of the 28
-                 layers (the weight_plane phase runs the loop at 7 too;
+                 worker training the actor at full width and 4 of the 28
+                 layers (the weight_plane phase runs the loop at 4 too;
                  float32 params, bf16 compute) for 2 steps at
                  max_head_offpolicyness 1. The fanout must land versions
                  1 and 2 on the server, every trained sample must be within
@@ -79,7 +80,7 @@ fails, and on a machine without CUDA):
                  must be > 0.
 11. sync_ppo   - sync PPO through the port's entry point,
                  areal_tpu_torch.training.main_sync_ppo.main(argv) with
-                 the reference's override keys, at the full width and 7
+                 the reference's override keys, at the full width and 4
                  of the 28 layers (SYNC_LAYERS; float32 params, bf16
                  compute, remat): one model worker builds ppo-math with the
                  actor, the reference, the reward (mock backend) and the
@@ -106,7 +107,7 @@ fails, and on a machine without CUDA):
                  same depth: bytes freed, its seconds, the lazy restore's
                  seconds, and a forward after the restore bit-equal to
                  one before (gated).
-12. disagg     - disaggregated serving at full width and 7 of the 28
+12. disagg     - disaggregated serving at full width and 4 of the 28
                  layers (for the run's time limit): a prefill
                  server P (bf16 pool), decode servers D (bf16 pool, a KV
                  tier, a small prefix budget) and D8 (int8 pool), a
@@ -127,7 +128,7 @@ fails, and on a machine without CUDA):
                  burst makes the sizer re-role U and routing follows.
                  Launches of the forward, paged_decode_bf16 and
                  paged_decode_int8 in the fleet must be > 0.
-13. weight_plane - the weight-distribution plane at full width and 7
+13. weight_plane - the weight-distribution plane at full width and 4
                  of the 28 layers: (a) this process dumps version 1 of
                  perturbed float32 params with the int8 companion and
                  serves it from a WeightPlaneSource registered as a
@@ -142,20 +143,22 @@ fails, and on a machine without CUDA):
                  and /cutover_weights: the held leaves equal
                  dequantize_wire_leaf(quantize_wire_leaf(x)) bit for bit
                  and the greedy tokens an engine's on them; (c) the async
-                 RL loop of phase 10 at 7 layers and max_head_offpolicyness
+                 RL loop of phase 10 at 4 layers and max_head_offpolicyness
                  0 with gen_weight_plane=true, two servers at fanout
                  degree 1: versions 1 and 2 land on both through the
                  plane. Both depths were cut since the sft phase joined
                  the default run, the fleet's again (14 to 7) when the
-                 sync_ppo phase did.
+                 sync_ppo phase did, both (7 to 4) when the agentic phase
+                 did.
                  The forward and paged_decode_bf16 must launch on every
                  server after its last cutover, and the loop's four kernels
                  (forward, both backward kernels, packed_gae_f32) > 0.
 14. sft        - supervised fine-tuning through the port's entry point,
                  areal_tpu_torch.training.main_sft.main(argv) with the
-                 reference's override keys, at the full width and 7 of
-                 the 28 layers (for the run's time limit since the
-                 recover phase joined; float32 params, bf16 compute,
+                 reference's override keys, at the full width and 4 of
+                 the 28 layers (for the run's time limit: 7 since the
+                 recover phase joined, 4 since the agentic phase did;
+                 float32 params, bf16 compute,
                  remat): a model
                  worker loads an HF directory of seeded random weights and
                  64 prompt/answer rows (prompts of 256-1024 and answers of
@@ -172,7 +175,7 @@ fails, and on a machine without CUDA):
                  worker, and the forward and paged_decode_bf16 in the
                  servers, must launch.
 15. recover    - checkpoint and recovery through main_sft at the full
-                 width and 7 of the 28 layers (float32 params, bf16
+                 width and 4 of the 28 layers (float32 params, bf16
                  compute, remat, a constant LR, no warmup), with
                  recover_mode=auto, recover_retries=1,
                  exp_ctrl.ckpt_freq_steps=2 and AREAL_CKPT_ASYNC=1 in the
@@ -199,6 +202,37 @@ fails, and on a machine without CUDA):
                  worker's peak device memory; then, in this process on an
                  engine of the same depth, the stall of a synchronous
                  save and of a snapshot into pinned host memory.
+16. agentic    - async PPO on multi-turn tool-use episodes through
+                 main_async_ppo.main(argv) with agent_type=tool-use,
+                 agent_num_turns=3 and agent_scripted_tool_turns=2 (turn
+                 0 calls python, turn 1 the calculator, turn 2 answers;
+                 each later turn a continuation of the same qid, 128 new
+                 tokens a turn), at the full width and 7 of the 28 layers
+                 (AGENTIC_LAYERS): one server (bf16 pool, the prefix
+                 cache on), 32 math prompts of 256-768 tokens, 8 episodes
+                 a step, 2 steps at max_head_offpolicyness 1 under
+                 AREAL_TASK_STALENESS_WINDOWS=agentic:1, and two reward
+                 executors (python -m areal_tpu_torch.system.
+                 reward_executor, two warm workers each), executor 0
+                 armed to die on its first submit. It runs phase 10's
+                 function with the agentic options, so phase 10's gates
+                 hold too: the fanout lands versions 1 and 2 on the
+                 server, and every trained episode's lag (train step -
+                 version_start) is at most the agentic window. Its own
+                 gates: (1) two steps,
+                 finite actor stats; (2) every trained episode 3 turns
+                 and 2 tool calls, no episode failed, every python
+                 observation "42"; (3) executor 0 exited and the
+                 survivor ran at least one job an episode, no python
+                 observation an error; (4) the continuation chunks
+                 re-prefilled under half their prompt tokens, prefix-
+                 cache hits > 0; (5) the window, as above (the mean
+                 perf/task_staleness_agentic is printed); (6) step 1's first minibatch's mean |lp_gen - lp_train|
+                 over the concatenated turns within SYNC_LP_TOL; (7) the
+                 forward and paged_decode_bf16 launched in the server,
+                 both backward kernels and packed_gae_f32 in the model
+                 worker. It prints the phase's seconds, episodes/s, each
+                 turn's median re-prefill and the executors' counters.
 
 Before the last line it prints the card's name and power limit (as
 nvidia-smi reports them) and one {"kernels": [...]} JSON line; the last
@@ -257,13 +291,14 @@ GAE_PLAN_SHAPES = ((64, 4096), (4096, 4096), (66, 8192), (66, 16384), (132, 1638
 # compute end to end: per leaf, against the leaf's largest reference value.
 LEAF_TOL = 5e-2
 # Depths of the serving phases (serve_bf16, serve_int8, interrupt, http)
-# and of the train phase, cut from the model's 28 layers since the recover
-# phase joined the default run (the run's time limit; widths and gates
-# unchanged).
-SERVE_LAYERS = 14
-TRAIN_LAYERS = 14
+# and of the train phase, cut from the model's 28 layers to 14 when the
+# recover phase joined the default run and to 4 when the agentic phase
+# did (the run's time limit; widths and gates unchanged).
+SERVE_LAYERS = 4
+TRAIN_LAYERS = 4
 PHASES = ("build", "parity", "serve_bf16", "serve_int8", "interrupt", "http", "grad", "train",
-          "workers", "async_ppo", "sync_ppo", "disagg", "weight_plane", "sft", "recover")
+          "workers", "async_ppo", "sync_ppo", "disagg", "weight_plane", "sft", "recover",
+          "agentic")
 # The train phase at real size; a rehearsal on the CPU passes smaller ones.
 TRAIN_SIZES = dict(n_prompts=8, group=4, prompt=(128, 512), response=(256, 3072),
                    row_len=4096, max_tokens_per_mb=16384, n_minibatches=4,
@@ -1889,8 +1924,9 @@ def train_phase(torch, rng, dev, cfg, seed, sizes=TRAIN_SIZES):
 
 WORKER_STEPS = 2
 # The workers phase's depth, cut from the model's 28 layers to keep the
-# default run near half its time limit.
-WORKERS_LAYERS = 7
+# default run near half its time limit, from 7 to 4 when the agentic
+# phase joined.
+WORKERS_LAYERS = 4
 WORKERS_TIMEOUT_S = 600.0
 # The realloc dump's update from init against an in-process replay's, per
 # leaf: ||(dump - init) - (replay - init)|| / ||replay - init||. Readings
@@ -1900,6 +1936,45 @@ WORKERS_TIMEOUT_S = 600.0
 # whose order of reduction differs between processes, and none for a
 # stale or untrained dump.
 WORKERS_UPDATE_RTOL = 0.01
+
+
+# Every loop phase at one depth draws the same seeded weights
+# (init_params(cfg, seed)): the first draws and writes them as an HF
+# directory once a run, and each phase links those files into its own.
+_HF_WEIGHTS = {}
+
+
+def seeded_hf_dir(torch, cfg, seed, dev, hf_dir):
+    """config.json and model.safetensors of ``init_params(cfg, seed)`` in
+    bf16, put into ``hf_dir``. Returns the seconds it took: the draw and
+    the write for the run's first phase of this configuration, the links
+    for the others."""
+    import atexit
+    import shutil
+    import tempfile
+
+    from areal_tpu_torch.models.hf import save_hf_model
+    from areal_tpu_torch.models.transformer import init_params
+
+    t0 = time.perf_counter()
+    key = (repr(cfg), seed)
+    src = _HF_WEIGHTS.get(key)
+    if src is None:
+        src = tempfile.mkdtemp(prefix="chip_smoke_hf_")
+        atexit.register(shutil.rmtree, src, ignore_errors=True)
+        params = init_params(cfg, seed=seed, device=dev, dtype=torch.bfloat16)
+        save_hf_model(src, cfg, params, "qwen2")
+        del params
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        _HF_WEIGHTS[key] = src
+    os.makedirs(hf_dir, exist_ok=True)
+    for name in os.listdir(src):
+        try:
+            os.link(os.path.join(src, name), os.path.join(hf_dir, name))
+        except OSError:
+            shutil.copy(os.path.join(src, name), os.path.join(hf_dir, name))
+    return time.perf_counter() - t0
 
 
 def trajectories(rng, sizes, vocab, n_steps):
@@ -2012,8 +2087,6 @@ def workers_phase(torch, rng, dev, cfg, seed, card, train_step_s=None, sizes=TRA
         MasterWorkerConfig, ModelShardSpec, ModelWorkerConfig)
     from areal_tpu_torch.base import name_resolve, names
     from areal_tpu_torch.engine.serving import GenRequest, ServingEngine
-    from areal_tpu_torch.models.hf import save_hf_model
-    from areal_tpu_torch.models.transformer import init_params
     from areal_tpu_torch.system.controller import LocalController
     from areal_tpu_torch.system.generation_server import GenerationServer
     from areal_tpu_torch.system.push_pull_stream import NameResolvingZmqPusher
@@ -2029,21 +2102,13 @@ def workers_phase(torch, rng, dev, cfg, seed, card, train_step_s=None, sizes=TRA
     stats = dict(card=card)
     server = run = None
     try:
-        t0 = time.perf_counter()
         hf_dir = os.path.join(tmp, "hf")
-        params = init_params(cfg, seed=seed, device=dev, dtype=torch.bfloat16)
-        sync(torch, dev)
-        stats["init_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        save_hf_model(hf_dir, cfg, params, "qwen2")
+        stats["hf_setup_s"] = seeded_hf_dir(torch, cfg, seed, dev, hf_dir)
         # An HF directory carries its tokenizer, which the model factory
         # loads (its own generator: the phase's batches stay the same).
         tiny_tokenizer(np.random.default_rng([seed, 6]), hf_dir, 64)
-        del params
-        torch.cuda.empty_cache()
-        stats["hf_save_s"] = time.perf_counter() - t0
-        log(f"  seeded random bf16 weights ({cfg.n_layers} layers) drawn in "
-            f"{stats['init_s']:.1f} s, written as an HF directory in {stats['hf_save_s']:.1f} s")
+        log(f"  seeded random bf16 weights ({cfg.n_layers} layers) as an HF directory in "
+            f"{stats['hf_setup_s']:.1f} s")
 
         n_seqs = sizes["n_prompts"]
         actor = ModelName("actor", 0)
@@ -2249,9 +2314,11 @@ ASYNC_SIZES = dict(n_prompts=64, prompt=(256, 1024), train_batch_size=8, group=4
                    max_new_tokens=256, offpolicy=1, steps=2, slots=16, max_seq_len=4096,
                    row_len=4096, max_tokens_per_mb=16384, n_minibatches=4, words=400)
 ASYNC_TIMEOUT_S = 900.0
-# The async_ppo phase's depth (the weight_plane phase runs the loop at 7
-# layers too): cut to keep the default run inside its time limit.
-ASYNC_LAYERS = 7
+# The async_ppo phase's depth (the weight_plane phase's loop and the
+# agentic phase run the async loop too): cut to keep the default run
+# inside its time limit, to 7 when the weight_plane phase joined and to
+# 4 when the agentic phase did.
+ASYNC_LAYERS = 4
 
 
 def tiny_tokenizer(rng, save_dir, n_words):
@@ -2316,7 +2383,7 @@ def read_trace(trace_dir):
 
 
 def async_ppo_phase(torch, rng, dev, cfg, seed, card, sizes=ASYNC_SIZES, disagg=False,
-                    plane=None):
+                    plane=None, agentic=False):
     """The async RL loop through the port's entry point,
     areal_tpu_torch.training.main_async_ppo.main(argv), with the
     reference's override keys: a GenerationServer (with ``disagg``, a
@@ -2330,33 +2397,45 @@ def async_ppo_phase(torch, rng, dev, cfg, seed, card, sizes=ASYNC_SIZES, disagg=
     trajectories, handing each step's weights back through the manager's
     fanout. Tracing is on: the spans give the staleness of every trained
     sample, the fanouts and the refused allocations; the server's exit
-    record gives its kernel launches and peak memory."""
+    record gives its kernel launches and peak memory.
+
+    With ``agentic`` (the agentic phase, ``sizes`` AGENTIC_SIZES) the
+    rollout worker runs the tool-use agent and env instead (turn 0 calls
+    python, turn 1 the calculator, turn 2 answers; every later turn a
+    continuation of the same qid, the server's prefix cache on), python
+    tool calls and the grader's sympy jobs go to a fleet of reward
+    executors (``python -m areal_tpu_torch.system.reward_executor``)
+    started around the run, executor 0 armed to die on its first submit,
+    and samples are admitted under
+    AREAL_TASK_STALENESS_WINDOWS=agentic:<window>, which also bounds every
+    trained sample's lag. The trace then also gives the tool
+    observations, the failed episodes and each chunk's re-prefill."""
     import shutil
     import tempfile
     from collections import Counter
 
     from areal_tpu_torch.base import tracing
-    from areal_tpu_torch.models.hf import save_hf_model
-    from areal_tpu_torch.models.transformer import init_params
     from areal_tpu_torch.system.generation_server import exit_record_path
     from areal_tpu_torch.training import main_async_ppo
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_async_")
-    exp, trial = os.path.basename(tmp), "async"
+    tag = "agentic" if agentic else "async_ppo"
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{tag}_")
+    exp, trial = os.path.basename(tmp), ("agentic" if agentic else "async")
     trace_dir = os.path.join(tmp, "trace")
     fileroot = os.path.join(tmp, "fileroot")
+    nr_root = os.path.join(tmp, "name_resolve")
     env = {"AREAL_RL_TRACE": "1", "AREAL_RL_TRACE_DIR": trace_dir, "AREAL_FILEROOT": fileroot}
+    if agentic:
+        env["AREAL_TASK_STALENESS_WINDOWS"] = f"agentic:{sizes['window']}"
     saved_env = {k: os.environ.get(k) for k in env}
     stats = dict(card=card)
+    procs = []
     try:
         t0 = time.perf_counter()
         hf_dir = os.path.join(tmp, "hf")
         words = tiny_tokenizer(rng, hf_dir, sizes["words"])
-        params = init_params(cfg, seed=seed, device=dev, dtype=torch.bfloat16)
-        save_hf_model(hf_dir, cfg, params, "qwen2")
-        del params
+        seeded_hf_dir(torch, cfg, seed, dev, hf_dir)
         if dev.type == "cuda":
-            torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(dev)
             # What this process still holds from earlier phases: part of
             # its peak below.
@@ -2368,10 +2447,10 @@ def async_ppo_phase(torch, rng, dev, cfg, seed, card, sizes=ASYNC_SIZES, disagg=
         stats["setup_s"] = time.perf_counter() - t0
         argv = [
             f"experiment_name={exp}", f"trial_name={trial}", f"seed={seed}",
-            f"name_resolve_root={os.path.join(tmp, 'name_resolve')}",
+            f"name_resolve_root={nr_root}",
             f"actor.path={hf_dir}", f"tokenizer_path={hf_dir}",
             f"dataset.path={data}", f"dataset.max_length={sizes['prompt'][1]}",
-            f"train_batch_size={sizes['train_batch_size']}", f"group_size={sizes['group']}",
+            f"train_batch_size={sizes['train_batch_size']}",
             f"ppo.gconfig.max_new_tokens={sizes['max_new_tokens']}",
             f"ppo.max_head_offpolicyness={sizes['offpolicy']}",
             f"ppo.ppo_n_minibatches={sizes['n_minibatches']}",
@@ -2386,6 +2465,13 @@ def async_ppo_phase(torch, rng, dev, cfg, seed, card, sizes=ASYNC_SIZES, disagg=
             f"gen_prefill_chunk={sizes['prompt'][1]}", f"device={dev.type}",
         ]
         servers = ["generation_server/0"]
+        if agentic:
+            argv += ["agent_type=tool-use", f"agent_num_turns={sizes['turns']}",
+                     f"agent_scripted_tool_turns={sizes['tool_turns']}",
+                     "ppo.gconfig.temperature=1.0",
+                     f"gen_prefix_cache_tokens={sizes['slots'] * sizes['max_seq_len']}"]
+        else:
+            argv.append(f"group_size={sizes['group']}")
         if disagg:
             servers.append("generation_server/1")
             argv += ["gen_server_roles=prefill,decode", "gen_kv_tier_mb=64",
@@ -2397,23 +2483,37 @@ def async_ppo_phase(torch, rng, dev, cfg, seed, card, sizes=ASYNC_SIZES, disagg=
             if plane.get("wire"):
                 argv.append(f"gen_weight_wire_dtype={plane['wire']}")
         argv.append(f"n_generation_servers={len(servers)}")
+        if agentic:
+            t0 = time.perf_counter()
+            procs, urls = start_executors(tmp, exp, trial, nr_root, sizes["executors"],
+                                          sizes["exec_workers"])
+            stats["executors_start_s"] = time.perf_counter() - t0
         log(f"  main_async_ppo {' '.join(argv)}")
         os.environ.update(env)
         # Re-read AREAL_RL_TRACE and the trace dir: the master runs here.
         tracing.flush()
         tracing._ENABLED, tracing._REC = None, None
         t0 = time.perf_counter()
-        result = main_async_ppo.main(argv, worker_env=env, timeout=ASYNC_TIMEOUT_S)
+        result = main_async_ppo.main(argv, worker_env=env,
+                                     timeout=AGENTIC_TIMEOUT_S if agentic else ASYNC_TIMEOUT_S)
         stats["run_s"] = time.perf_counter() - t0
         tracing.flush()
+        if agentic:
+            try:
+                procs[0].wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                pass
+            stats["executor0_exit"] = procs[0].poll()
+            survivor = rexec_metrics(urls[1])
+            stop_processes(procs)
         summary = result["perf_summary"]
         steps = [s["actor_train"] for s in summary["mfc_stats"]]
         if result["global_step"] != sizes["steps"] or len(steps) != sizes["steps"]:
-            raise AssertionError(f"async_ppo: {result['global_step']} steps, "
+            raise AssertionError(f"{tag}: {result['global_step']} steps, "
                                  f"{len(steps)} reported")
         bad = [k for s in steps for k, v in s.items() if not math.isfinite(v)]
         if bad:
-            raise AssertionError(f"async_ppo: non-finite MFC stats {bad}")
+            raise AssertionError(f"{tag}: non-finite MFC stats {bad}")
         spans = read_trace(trace_dir)
 
         # The fanout landed each version on the server.
@@ -2428,22 +2528,25 @@ def async_ppo_phase(torch, rng, dev, cfg, seed, card, sizes=ASYNC_SIZES, disagg=
             served = sorted(int(r["attrs"]["version"]) for r in spans.get(name, [])
                             if r["name"] == landed_span and landed_attr in r["attrs"])
             if landed != want or served != want:
-                raise AssertionError(f"async_ppo: fanout landed versions {landed}, {name} "
+                raise AssertionError(f"{tag}: fanout landed versions {landed}, {name} "
                                      f"loaded {served}, want {want}")
         sync_s = [(r["end_ns"] - r["start_ns"]) / 1e9 for r in spans["gserver_manager"]
                   if r["name"] == "manager.weight_update"]
 
-        # Every trained sample within the staleness bound.
+        # Every trained sample within the staleness bound: the head
+        # offpolicyness, and the agentic window where there is one.
         waits = {r["attrs"]["sample_id"]: r["attrs"] for r in spans.get("master", [])
                  if r["name"] == "buffer.wait" and r["attrs"].get("rpc") == "actor_train"}
         n_want = sizes["steps"] * sizes["train_batch_size"]
         if len(waits) != n_want:
-            raise AssertionError(f"async_ppo: {len(waits)} trained samples traced, "
+            raise AssertionError(f"{tag}: {len(waits)} trained samples traced, "
                                  f"want {n_want}")
         lag = Counter(a["train_step"] - a["version_start"] for a in waits.values())
-        if max(lag) > sizes["offpolicy"] or min(a["version_start"] for a in waits.values()) < 0:
-            raise AssertionError(f"async_ppo: staleness {dict(lag)} past "
-                                 f"max_head_offpolicyness={sizes['offpolicy']}")
+        lag_bound = min(sizes["offpolicy"], sizes.get("window", sizes["offpolicy"]))
+        if max(lag) > lag_bound or min(a["version_start"] for a in waits.values()) < 0:
+            raise AssertionError(f"{tag}: staleness {dict(lag)} past {lag_bound} "
+                                 f"(max_head_offpolicyness={sizes['offpolicy']}"
+                                 + (f", agentic window {sizes['window']})" if agentic else ")"))
         staled = sum(1 for r in spans.get("gserver_manager", [])
                      if r["name"] == "manager.allocate" and r["attrs"].get("reason") == "staled")
 
@@ -2506,14 +2609,14 @@ def async_ppo_phase(torch, rng, dev, cfg, seed, card, sizes=ASYNC_SIZES, disagg=
         if dev.type == "cuda":
             for k in ("flash_attn_fwd_bf16", "paged_decode_bf16"):
                 if srv["launches"][k] <= 0:
-                    raise AssertionError(f"async_ppo: kernel {k} was not launched by the server")
+                    raise AssertionError(f"{tag}: kernel {k} was not launched by the server")
             for k in ("flash_attn_fwd_bf16", "flash_attn_bwd_dq_bf16", "flash_attn_bwd_dkv_bf16",
                       "packed_gae_f32"):
                 if worker_counts[k] <= 0:
                     raise AssertionError(
-                        f"async_ppo: kernel {k} was not launched in the model worker")
+                        f"{tag}: kernel {k} was not launched in the model worker")
         if any(r["version"] != sizes["steps"] for r in records):
-            raise AssertionError(f"async_ppo: the servers ended at versions "
+            raise AssertionError(f"{tag}: the servers ended at versions "
                                  f"{[r['version'] for r in records]}")
         gen_tokens = srv["metrics"]["total_generated"]
         stats.update(
@@ -2548,8 +2651,11 @@ def async_ppo_phase(torch, rng, dev, cfg, seed, card, sizes=ASYNC_SIZES, disagg=
             f"{stats.get('launcher_held_gb', 0.0):.2f} GB from earlier phases at the start); "
             f"launches in the model worker "
             f"{worker_counts}, in the server {srv['launches']}")
+        if agentic:
+            agentic_gates(stats, sizes, steps, spans.get("rollout_worker/0", []), srv, survivor)
         return stats
     finally:
+        stop_processes(procs)
         for k, v in saved_env.items():
             if v is None:
                 os.environ.pop(k, None)
@@ -2569,8 +2675,9 @@ SYNC_SIZES = dict(n_prompts=64, prompt=(256, 1024), train_batch_size=8, group=4,
                   offload_seqs=4, offload_len=1024)
 SYNC_TIMEOUT_S = 900.0
 # The sync_ppo phase's depth: its four engines (actor, ref, two critics)
-# share the card, and the run's time limit.
-SYNC_LAYERS = 7
+# share the card, and the run's time limit (7 when it joined, 4 since
+# the agentic phase did).
+SYNC_LAYERS = 4
 # Step 1's first actor minibatch runs on the weights that generated the
 # batch, so the generator's (paged decode) and the training forward's
 # (flash) logprobs of its tokens differ only by bf16 rounding. Their mean
@@ -2666,8 +2773,7 @@ def sync_ppo_phase(torch, rng, dev, cfg, seed, card, sizes=SYNC_SIZES):
     import shutil
     import tempfile
 
-    from areal_tpu_torch.models.hf import load_hf_model, save_hf_model
-    from areal_tpu_torch.models.transformer import init_params
+    from areal_tpu_torch.models.hf import load_hf_model
     from areal_tpu_torch.system.worker_base import exit_record_path
     from areal_tpu_torch.training import main_sync_ppo
 
@@ -2681,11 +2787,7 @@ def sync_ppo_phase(torch, rng, dev, cfg, seed, card, sizes=SYNC_SIZES):
         t0 = time.perf_counter()
         hf_dir = os.path.join(tmp, "hf")
         words = tiny_tokenizer(rng, hf_dir, sizes["words"])
-        params = init_params(cfg, seed=seed, device=dev, dtype=torch.bfloat16)
-        save_hf_model(hf_dir, cfg, params, "qwen2")
-        del params
-        if dev.type == "cuda":
-            torch.cuda.empty_cache()
+        seeded_hf_dir(torch, cfg, seed, dev, hf_dir)
         data = os.path.join(tmp, "math.jsonl")
         rows = math_prompt_rows(rng, sizes["n_prompts"], sizes["prompt"], words)
         with open(data, "w") as f:
@@ -2827,9 +2929,9 @@ DISAGG_SIZES = dict(wave=16, prompt=(1025, 3072), new=128, cont=6, fresh=64, con
                     burst_new=32, rerole_high=16384)
 DISAGG_TIMEOUT_S = 300.0
 # Cut in depth for the run's time limit: 14 since PR 10, 7 since the sft
-# phase joined the default run (the gates count tokens and pages, not
-# layers).
-DISAGG_LAYERS = 7
+# phase joined the default run, 4 since the agentic phase did (the gates
+# count tokens and pages, not layers).
+DISAGG_LAYERS = 4
 
 
 def http_raw(url, headers=None, timeout=120.0):
@@ -3389,9 +3491,9 @@ PLANE_SIZES = dict(slots=16, max_seq_len=8192, page=128, chunk=1024, wave_thread
 PLANE_TIMEOUT_S = 600.0
 # The depths of the plane's fleet, (a) and (b), and of (c), the async loop
 # over the plane: cut from 28 since the sft phase joined the default run,
-# to keep it inside the run's limit.
-PLANE_FLEET_LAYERS = 7
-PLANE_LOOP_LAYERS = 7
+# to keep it inside the run's limit; both to 4 when the agentic phase did.
+PLANE_FLEET_LAYERS = 4
+PLANE_LOOP_LAYERS = 4
 # (c) runs at max_head_offpolicyness 0: the rollouts of step 2 start only
 # once v1 has landed, so v1's fanout ends before the trainer can finish.
 # At 1 the trainer could finish step 2 while v1 was still in flight from
@@ -3798,8 +3900,9 @@ SFT_SIZES = dict(n_rows=64, prompt=(256, 1024), answer=(128, 512), max_length=20
                  chunk=1024, n_greedy=8, greedy_lens=(300, 1200), greedy_new=32)
 SFT_TIMEOUT_S = 600.0
 # Cut in depth since the recover phase joined the default run (the run's
-# time limit): the HF save and the loads move 3.2 GB, not 7.1.
-SFT_LAYERS = 7
+# time limit): the HF save and the loads move 3.2 GB at 7 layers, not
+# 7.1; at 4 since the agentic phase joined.
+SFT_LAYERS = 4
 
 
 def sft_rows(rng, n, sizes, words):
@@ -3841,9 +3944,8 @@ def sft_phase(torch, rng, dev, cfg, seed, card, sizes=SFT_SIZES):
     from areal_tpu_torch.engine.serving import GenRequest
     from areal_tpu_torch.engine.torch_engine import TorchTrainEngine
     from areal_tpu_torch.interfaces.sft import SFTInterface
-    from areal_tpu_torch.models.hf import load_hf_config, load_hf_model, save_hf_model
+    from areal_tpu_torch.models.hf import load_hf_config, load_hf_model
     from areal_tpu_torch.models.hf.qwen2 import config_from_hf
-    from areal_tpu_torch.models.transformer import init_params
     from areal_tpu_torch.system import master_worker
     from areal_tpu_torch.system.generation_server import GenerationServer
     from areal_tpu_torch.training import main_sft
@@ -3862,11 +3964,7 @@ def sft_phase(torch, rng, dev, cfg, seed, card, sizes=SFT_SIZES):
         words = tiny_tokenizer(rng, hf_dir, sizes["words"])
         # bf16 on disk (half the bytes to write and read); the model worker
         # trains float32 params from it.
-        params = init_params(cfg, seed=seed, device=dev, dtype=torch.bfloat16)
-        save_hf_model(hf_dir, cfg, params, "qwen2")
-        del params
-        if dev.type == "cuda":
-            torch.cuda.empty_cache()
+        seeded_hf_dir(torch, cfg, seed, dev, hf_dir)
         data = os.path.join(tmp, "sft.jsonl")
         with open(data, "w") as f:
             f.writelines(json.dumps(r) + "\n" for r in sft_rows(rng, sizes["n_rows"], sizes,
@@ -4131,9 +4229,10 @@ RECOVER_SIZES = dict(n_rows=96, prompt=(256, 1024), answer=(128, 512), max_lengt
                      train_batch_size=16, steps=5, ckpt_steps=2, fail_at=4, words=400,
                      row_len=4096, max_tokens_per_mb=16384, lr=1e-4)
 RECOVER_TIMEOUT_S = 600.0
-# Cut in depth for the run's time limit: two worker starts, two 9.5 GB
-# checkpoints and a restore at 7 layers.
-RECOVER_LAYERS = 7
+# Cut in depth for the run's time limit: two worker starts, two
+# checkpoints and a restore, at 7 layers when it joined and at 4 since
+# the agentic phase joined the default run.
+RECOVER_LAYERS = 4
 RECOVER_KERNELS = ("flash_attn_fwd_bf16", "flash_attn_bwd_dq_bf16", "flash_attn_bwd_dkv_bf16")
 
 
@@ -4200,8 +4299,7 @@ def recover_phase(torch, rng, dev, cfg, seed, card, sizes=RECOVER_SIZES):
     from areal_tpu_torch.base import recover
     from areal_tpu_torch.base.fault_injection import faults
     from areal_tpu_torch.engine import checkpoint
-    from areal_tpu_torch.models.hf import save_hf_model
-    from areal_tpu_torch.models.transformer import init_params
+    from areal_tpu_torch.models.hf import load_hf_model
     from areal_tpu_torch.system import master_worker
     from areal_tpu_torch.system.function_executor import FunctionExecutor
     from areal_tpu_torch.system.worker_base import exit_record_path
@@ -4222,9 +4320,9 @@ def recover_phase(torch, rng, dev, cfg, seed, card, sizes=RECOVER_SIZES):
         t0 = time.perf_counter()
         hf_dir = os.path.join(tmp, "hf")
         words = tiny_tokenizer(rng, hf_dir, sizes["words"])
+        seeded_hf_dir(torch, cfg, seed, dev, hf_dir)
         # Kept (bf16) for the in-process engine of the stall measurements.
-        params = init_params(cfg, seed=seed, device=dev, dtype=torch.bfloat16)
-        save_hf_model(hf_dir, cfg, params, "qwen2")
+        params = cast_tree(load_hf_model(hf_dir)[1], torch.bfloat16, dev)
         data = os.path.join(tmp, "sft.jsonl")
         with open(data, "w") as f:
             f.writelines(json.dumps(r) + "\n" for r in sft_rows(rng, sizes["n_rows"], sizes,
@@ -4401,6 +4499,182 @@ def recover_phase(torch, rng, dev, cfg, seed, card, sizes=RECOVER_SIZES):
             else:
                 os.environ[k] = v
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ----------------------------------------------------------------------
+# Phase 16: async PPO on agentic episodes (async_ppo_phase with agentic)
+# ----------------------------------------------------------------------
+
+# The agentic phase at real size; a rehearsal on the CPU passes smaller
+# ones. Three turns an episode: turn 0 calls python, turn 1 the
+# calculator, turn 2 answers. `window` is the agentic staleness window.
+AGENTIC_SIZES = dict(n_prompts=32, prompt=(256, 768), train_batch_size=8, max_new_tokens=128,
+                     turns=3, tool_turns=2, offpolicy=1, window=1, steps=2, slots=16,
+                     max_seq_len=4096, row_len=4096, max_tokens_per_mb=16384, n_minibatches=4,
+                     words=400, executors=2, exec_workers=2)
+AGENTIC_TIMEOUT_S = 600.0
+# Cut in depth for the run's time limit, as the other loops.
+AGENTIC_LAYERS = 7
+
+
+def start_executors(tmp, exp, trial, nr_root, n, workers):
+    """`n` reward executors (``python -m areal_tpu_torch.system.reward_executor``,
+    `workers` warm sandboxes each) on the run's name_resolve root,
+    executor 0 armed to die on its first submit; returns the processes
+    and their URLs once every one has registered."""
+    from areal_tpu_torch.base import name_resolve, names
+
+    procs = []
+    for i in range(n):
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            p for p in (ROOT, os.environ.get("PYTHONPATH")) if p),
+            AREAL_HEALTH_TTL="2", CUDA_VISIBLE_DEVICES="")
+        if i == 0:
+            env["AREAL_FAULTS"] = "rexec.die=die"
+        with open(os.path.join(tmp, f"rexec{i}.log"), "w") as log_f:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "areal_tpu_torch.system.reward_executor",
+                 "--experiment", exp, "--trial", trial, "--index", str(i),
+                 "--workers", str(workers), "--name-resolve-root", nr_root],
+                env=env, cwd=ROOT, stdin=subprocess.DEVNULL, stdout=log_f,
+                stderr=subprocess.STDOUT))
+    name_resolve.reconfigure("nfs", record_root=nr_root)
+    urls, deadline = {}, time.monotonic() + 120
+    while len(urls) < n and time.monotonic() < deadline:
+        for i in range(n):
+            try:
+                urls[i] = name_resolve.get(names.reward_executor_url(exp, trial, str(i)))
+            except name_resolve.NameEntryNotFoundError:
+                pass
+        if any(p.poll() is not None for p in procs):
+            break
+        time.sleep(0.2)
+    if len(urls) < n:
+        stop_processes(procs)
+        raise AssertionError(f"agentic: only executors {sorted(urls)} of {n} registered")
+    return procs, urls
+
+
+def stop_processes(procs):
+    for p in procs:
+        if p.poll() is None:
+            p.terminate()
+    for p in procs:
+        try:
+            p.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+
+
+def rexec_metrics(url):
+    """The executor's /metrics lines as {name: value}."""
+    _status, _headers, body = http_raw(url + "/metrics", timeout=30)
+    return {k: float(v) for k, v in (line.split() for line in body.decode().splitlines() if line)}
+
+
+def turn_reprefill(spans):
+    """Each turn's re-prefill tokens an episode, from the rollout worker's
+    gen.chunk spans: per qid in start order, a chunk that is no
+    continuation opens turn 0, a continuation chunk that re-prefilled less
+    than its whole prompt opens the next turn, and a resubmission (an
+    interrupted chunk, which re-prefills everything) adds to the turn it
+    interrupted. Returns {turn: [tokens an episode]}."""
+    by_qid = {}
+    for r in spans:
+        a = r.get("attrs") or {}
+        if r["name"] == "gen.chunk" and "reprefill_tokens" in a:
+            by_qid.setdefault(a["qid"], []).append((r["start_ns"], a))
+    out = {}
+    for chunks in by_qid.values():
+        turns = []
+        for _, a in sorted(chunks, key=lambda c: c[0]):
+            if not turns or (a["continuation"]
+                             and a["reprefill_tokens"] < a["full_prefill_tokens"]):
+                turns.append(0)
+            turns[-1] += a["reprefill_tokens"]
+        for t, n in enumerate(turns):
+            out.setdefault(t, []).append(n)
+    return out
+
+
+def agentic_gates(stats, sizes, steps, rollout, srv, survivor):
+    """The agentic phase's own readings and gates, on what async_ppo_phase
+    read: the actor stats, the rollout worker's episodes, tool
+    observations and chunks, the surviving executor's /metrics and the
+    server's exit record. Every reading is logged before any gate."""
+    n_trained = sizes["steps"] * sizes["train_batch_size"]
+    turns = [s.get("perf/episode_turns") for s in steps]
+    calls = [s.get("perf/episode_tool_calls") for s in steps]
+    failed = [r for r in rollout if r["name"] == "rollout.episode"
+              and (r.get("attrs") or {}).get("failed")]
+    py_obs = [r["attrs"]["obs"] for r in rollout
+              if r["name"] == "tool.result" and r["attrs"]["tool"] == "python"]
+    errors = [o for o in py_obs if o.startswith("error:")]
+    cont = [r["attrs"] for r in rollout if r["name"] == "gen.chunk"
+            and (r.get("attrs") or {}).get("continuation")
+            and "reprefill_tokens" in r["attrs"]]
+    reprefill = sum(a["reprefill_tokens"] for a in cont)
+    full = sum(a["full_prefill_tokens"] for a in cont)
+    hits = srv["metrics"]["prefix_cache_hits"]
+    per_turn = turn_reprefill(rollout)
+    stale = [s.get("perf/task_staleness_agentic") for s in steps]
+    lp_diff = steps[0]["ppo_actor_first_mb/abs_logprob_diff"]
+    exec0_exit = stats["executor0_exit"]
+    stats.update(
+        episode_turns=turns, tool_calls=calls,
+        episodes_per_s=n_trained / stats["run_s"], python_observations=len(py_obs),
+        continuation_reprefill=reprefill, continuation_full_prefill=full,
+        reprefill_tokens_steps=[s.get("perf/reprefill_tokens") for s in steps],
+        turn_reprefill_median={t: float(np.median(v)) for t, v in sorted(per_turn.items())},
+        prefix_cache_hits=hits, prefix_tokens_reused=srv["metrics"]["prefix_tokens_reused"],
+        task_staleness_agentic=stale,
+        stale_dropped=[s.get("perf/task_stale_dropped_agentic", 0.0) for s in steps],
+        abs_logprob_diff_step1_mb1=lp_diff,
+        importance_weight_step1_mb1=steps[0]["ppo_actor_first_mb/importance_weight"],
+        executor_survivor={k.split(":")[1]: v for k, v in survivor.items()})
+    log(f"  {n_trained} trained tool-use episodes, {stats['episodes_per_s']:.3f} episodes/s "
+        f"over the run (executors up in {stats['executors_start_s']:.1f} s); {stats['card']}")
+    log(f"  turns {turns}, tool calls {calls} a step; {len(failed)} failed episodes; "
+        f"{len(py_obs)} python observations {sorted(set(py_obs))[:3]}; the reward "
+        f"executors: executor 0 exit {exec0_exit}, the survivor ran "
+        f"{survivor['areal:rexec_jobs_total']:.0f} jobs "
+        f"({survivor['areal:rexec_job_failures']:.0f} failed, "
+        f"{survivor['areal:rexec_worker_respawns']:.0f} respawns, "
+        f"{survivor['areal:rexec_warm_hits']:.0f} warm hits, "
+        f"{survivor['areal:rexec_shed_total']:.0f} sheds)")
+    log(f"  continuation chunks re-prefilled {reprefill} of their {full} prompt tokens; "
+        f"median re-prefill an episode by turn {stats['turn_reprefill_median']}; "
+        f"perf/reprefill_tokens by step {stats['reprefill_tokens_steps']}; prefix-cache "
+        f"hits {hits:.0f}, tokens reused {stats['prefix_tokens_reused']:.0f}; mean "
+        f"perf/task_staleness_agentic by step {stale} (window {sizes['window']}), dropped "
+        f"{stats['stale_dropped']}")
+    log(f"  step 1's first minibatch, the generator's logprobs of the concatenated turns "
+        f"against the training forward's: mean |difference| {lp_diff:.6f} (limit "
+        f"{SYNC_LP_TOL}), importance weight {stats['importance_weight_step1_mb1']:.6f}")
+
+    # (2) every trained episode ran its turns and tool calls, none
+    # failed, and the python tool answered 42.
+    if (turns != [float(sizes["turns"])] * sizes["steps"]
+            or calls != [float(sizes["tool_turns"])] * sizes["steps"] or failed
+            or len(py_obs) < n_trained or any(o.strip() != "42" for o in py_obs)):
+        raise AssertionError(f"agentic: turns {turns}, tool calls {calls}, failed episodes "
+                             f"{len(failed)}, python observations {sorted(set(py_obs))[:5]} "
+                             f"({len(py_obs)})")
+    # (3) executor 0 died, the survivor took the tool traffic.
+    if exec0_exit is None or survivor["areal:rexec_jobs_total"] < n_trained or errors:
+        raise AssertionError(f"agentic: executor 0 exit code {exec0_exit}, survivor "
+                             f"{survivor}, python errors {errors[:3]}")
+    # (4) continuations re-prefill only their deltas.
+    if not cont or not reprefill < 0.5 * full or hits <= 0:
+        raise AssertionError(f"agentic: continuation chunks {len(cont)} re-prefilled "
+                             f"{reprefill} of {full} tokens; prefix-cache hits {hits}")
+    # (6) step 1's first minibatch: the generator's logprobs of the
+    # concatenated turns against the training forward's.
+    if not lp_diff <= SYNC_LP_TOL:
+        raise AssertionError(f"agentic: step 1's first minibatch: the generator's logprobs "
+                             f"differ from the training forward's by {lp_diff:.6f} a token "
+                             f"on average, past {SYNC_LP_TOL}")
 
 
 def cast_tree(tree, dtype, device=None):
@@ -4673,6 +4947,21 @@ def main() -> int:
                 main_counts[k] = main_counts.get(k, 0) + n
         torch.cuda.empty_cache()
         phase_done("recover", t0)
+
+    if "agentic" in phases:
+        log("phase agentic")
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        report["phases"]["agentic"] = async_ppo_phase(
+            torch, np.random.default_rng([args.seed, 13]), dev,
+            dataclasses.replace(cfg, n_layers=AGENTIC_LAYERS), args.seed, card,
+            sizes=AGENTIC_SIZES, agentic=True)
+        # Agentic RL is a main path of its own: its launches add.
+        for k, n in report["phases"]["agentic"]["launches"].items():
+            if n:
+                main_counts[k] = main_counts.get(k, 0) + n
+        torch.cuda.empty_cache()
+        phase_done("agentic", t0)
 
     kernels_line = []
     for name, row in kernel_rows.items():

@@ -80,7 +80,7 @@ def test_help_config_lists_the_reference_keys(capsys):
 
 
 @pytest.mark.parametrize("override", [
-    "train_n_hosts=2", "auto_eval=true", "allocation_mode=d2", "agent_type=tool-use",
+    "train_n_hosts=2", "auto_eval=true", "allocation_mode=d2", "gen_decode_weight_dtype=int8",
     "gen_weight_shards=0/1", "gen_elastic_fleet=true", "gen_autoscale=true",
     "gen_tensor_parallel=2", "actor.prefetch_depth=2", "ppo.generation_size=8",
     "gen_speculative_draft_len=2",
@@ -112,3 +112,26 @@ def test_async_ppo_loop_trains_over_the_weight_plane_on_cpu():
         peers = sum(b[step] for b in plane["bytes_from_peers"].values())
         assert origin == peers > 0  # one payload from the origin, one from the peer
     assert max(stats["staleness_hist"]) <= TINY_SIZES["offpolicy"]
+
+
+@pytest.mark.parametrize("agent_type", ["math-single-step", "math-multi-turn", "tool-use"])
+def test_agent_type_builds_the_reference_agent_and_env(agent_type):
+    """The launcher builds the rollout agent and env that the reference's
+    builds for the same overrides."""
+    from areal_tpu.api import cli_args as jcli_args
+    from areal_tpu.experiments import make_experiment as jmake_experiment
+
+    overrides = ["actor.path=/nonexistent", f"agent_type={agent_type}", "agent_num_turns=3",
+                 "agent_turn_discount=0.9", "agent_scripted_tool_turns=2", "group_size=2",
+                 "ppo.gconfig.max_new_tokens=64", "n_rollout_workers=2"]
+    got_cfg, want_cfg = cli_args.AsyncPPOMATHExpConfig(), jcli_args.AsyncPPOMATHExpConfig()
+    cli_args.apply_overrides(got_cfg, overrides + ["device=cpu"])
+    jcli_args.apply_overrides(want_cfg, overrides)
+    got = make_experiment("async-ppo-math", got_cfg).rollout_workers
+    want = jmake_experiment("async-ppo-math", want_cfg).rollout_workers
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        assert (g.agent.type_, g.env.type_) == (w.agent.type_, w.env.type_)
+        assert g.agent.args == w.agent.args
+    assert got[0].env.type_ == ("tool-use" if agent_type == "tool-use"
+                                else "math-code-single-step")

@@ -75,6 +75,11 @@ def test_port_sources_import_no_jax():
     "areal_tpu_torch.models.generation, areal_tpu_torch.interfaces, "
     "areal_tpu_torch.interfaces.reward, areal_tpu_torch.interfaces.fused, "
     "areal_tpu_torch.datasets.prompt",
+    "areal_tpu_torch.system.reward_executor, areal_tpu_torch.functioncall.remote, "
+    "areal_tpu_torch.functioncall.python_answer, areal_tpu_torch.agents, "
+    "areal_tpu_torch.agents.tool_use, areal_tpu_torch.agents.math_multi_turn, "
+    "areal_tpu_torch.agents.null, areal_tpu_torch.datasets.rw_paired, "
+    "areal_tpu_torch.experiments.async_ppo_math_exp",
 ])
 def test_importing_the_port_loads_no_jax(modules):
     code = (
@@ -87,3 +92,24 @@ def test_importing_the_port_loads_no_jax(modules):
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_reward_executor_as_main_loads_no_jax_and_no_torch():
+    """``python -m areal_tpu_torch.system.reward_executor --selftest`` runs
+    the service as ``__main__`` (pool, HTTP front, one sandboxed job, a
+    /metrics probe) with neither JAX, the JAX package nor torch loaded."""
+    code = (
+        "import runpy, sys\n"
+        "sys.argv = ['reward_executor', '--selftest', '--workers', '1']\n"
+        "try:\n"
+        "    runpy.run_module('areal_tpu_torch.system.reward_executor', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN + ('torch',)!r})\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "rexec selftest ok" in proc.stdout
