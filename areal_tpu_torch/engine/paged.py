@@ -23,7 +23,6 @@
 
 from __future__ import annotations
 
-import functools
 from typing import List, Optional, Tuple
 
 import torch
@@ -35,6 +34,7 @@ from areal_tpu_torch.models.transformer import (
 )
 from areal_tpu_torch.ops.quant_const import KV_INT8_MAX
 from areal_tpu_torch.ops.sampling import NEG_INF, warp_sample
+from areal_tpu_torch.ops.wquant import qmat
 
 TRASH_PAGE = 0  # reserved sink page, never allocated
 
@@ -172,9 +172,7 @@ def split_plan(B: int, Hkv: int, P: int, n_sm: int) -> Tuple[int, int]:
     return -(-P // per), per
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
+_sm_count = kernels.sm_count
 
 
 def _paged_decode_kernel(q, k_pages, v_pages, lengths, page_indices, scale):
@@ -351,10 +349,14 @@ def paged_decode_hidden(params, cfg: TransformerConfig, tokens, k_pages,
 def paged_decode_step(params, cfg: TransformerConfig, tokens, k_pages,
                       v_pages, page_indices, lengths, active):
     """One decode step for all slots: float32 logits [B, V]; the pools
-    are written in place."""
+    are written in place. A tree with int8 decode weights
+    (ops/wquant.quantize_decode_weights) runs its quantized head."""
     x = paged_decode_hidden(params, cfg, tokens, k_pages, v_pages,
                             page_indices, lengths, active)
-    return lm_head(params, cfg, x, torch_dtype(cfg.compute_dtype))
+    cdt = torch_dtype(cfg.compute_dtype)
+    if "head_q" in params:
+        return qmat(x, params["head_q"], cdt).float()
+    return lm_head(params, cfg, x, cdt)
 
 
 # ----------------------------------------------------------------------

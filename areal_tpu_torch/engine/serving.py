@@ -38,9 +38,15 @@ Work on loop-owned state from other threads goes through the loop door
 (``_run_on_loop``). The weight plane's ``cutover_params`` stages a
 prefetched tree and blocks until the loop has swapped to it.
 
-Not ported yet: speculative decoding, int8 weights, mesh / tensor
-parallelism (with it the shard-leaf cutover) and the env knobs (the tier
-is configured by argument only).
+N-gram speculative decoding (``speculative_draft_len``,
+engine/spec_decode.py) and int8 decode weights (``decode_weight_dtype``,
+ops/wquant.py, rebuilt on every weight swap) are the reference's options;
+prefill always runs the unquantized params.
+
+Not ported yet: mesh / tensor parallelism (with it the shard-leaf
+cutover) and the env knobs (the tier, speculation and decode weights are
+configured by argument only: ``AREAL_SPEC_DRAFT``, ``AREAL_SPEC_WINDOW``
+and ``AREAL_DECODE_WEIGHT_DTYPE`` are not read).
 """
 
 from __future__ import annotations
@@ -73,9 +79,11 @@ from areal_tpu_torch.engine.paged import (
     scatter_prefill,
     scatter_prefill_int8,
 )
+from areal_tpu_torch.engine.spec_decode import paged_spec_decode_block, set_history
 from areal_tpu_torch.models.config import TransformerConfig
 from areal_tpu_torch.models.transformer import forward, lm_head
 from areal_tpu_torch.ops.sampling import select_tier, warp_sample
+from areal_tpu_torch.ops.wquant import maybe_quantize_decode_weights
 
 logger = logging.getLogger("areal_tpu_torch.serving")
 
@@ -123,11 +131,15 @@ def _round_up(n: int, multiple: int) -> int:
 
 
 def _to_device(tree, device, like=None):
-    """A param tree (tensors or numpy arrays) on ``device``; each leaf keeps
-    its dtype, or takes the matching leaf's dtype in ``like``."""
+    """A param tree (tensors or numpy arrays; an int8 decode tree's
+    (data, scale) pairs too) on ``device``; each leaf keeps its dtype, or
+    takes the matching leaf's dtype in ``like``."""
     if isinstance(tree, dict):
         return {k: _to_device(v, device, like[k] if like is not None else None)
                 for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_to_device(v, device, like[j] if like is not None else None)
+                     for j, v in enumerate(tree))
     t = torch.as_tensor(tree)
     return t.to(device=device, dtype=like.dtype if like is not None else t.dtype)
 
@@ -177,6 +189,10 @@ class ServingEngine:
         chunked_prefill_per_lap: int = 2,
         prefix_cache_tokens: Optional[int] = None,
         kv_cache_dtype: Optional[str] = None,
+        speculative_draft_len: int = 0,
+        speculative_ngram: int = 2,
+        speculative_window: Optional[int] = None,
+        decode_weight_dtype: Optional[str] = None,
         prefill_token_budget: Optional[int] = None,
         decode_blocks_per_admit: int = 1,
         kv_tier_bytes: Optional[int] = None,
@@ -206,6 +222,20 @@ class ServingEngine:
             raise ValueError("prefill_token_budget must be >= 1 or None")
         if decode_blocks_per_admit < 1:
             raise ValueError("decode_blocks_per_admit must be >= 1")
+        if speculative_draft_len < 0 or speculative_ngram < 1:
+            raise ValueError(
+                f"bad speculative config: draft_len={speculative_draft_len}, "
+                f"ngram={speculative_ngram}")
+        # None is the reference's default window (1024 recent tokens); 0
+        # scans the whole history.
+        if speculative_window is None:
+            speculative_window = 1024
+        if speculative_window < 0:
+            raise ValueError(
+                f"speculative_window must be >= 0 (0 = unbounded), got {speculative_window}")
+        if decode_weight_dtype not in (None, "model", "int8"):
+            raise ValueError(
+                f"decode_weight_dtype={decode_weight_dtype!r}: expected None, 'model', or 'int8'")
         if kv_spill_dtype not in (None, "model", "int8", "fp8"):
             raise ValueError(
                 f"kv_spill_dtype={kv_spill_dtype!r}: expected None, "
@@ -244,6 +274,20 @@ class ServingEngine:
         self.eos_token_id = eos_token_id
         self.kv_cache_dtype = kv_cache_dtype
         self.version = 0
+        # N-gram speculative decoding: draft_len > 0 feeds 1 + draft_len
+        # rows a slot a step and keeps the verified prefix. The yield
+        # counters: tokens emitted over steps of active slots.
+        self.spec_draft_len = speculative_draft_len
+        self.spec_ngram = speculative_ngram
+        self.spec_window = speculative_window
+        self._spec_emitted = 0
+        self._spec_steps = 0
+        # int8 decode weights (W8A16): the decode blocks run this tree,
+        # rebuilt from the live params at init and on every swap; prefill
+        # runs self.params.
+        self.decode_weight_dtype = None if decode_weight_dtype == "model" else decode_weight_dtype
+        self._qparams = None
+        self._refresh_qparams()
 
         pool_tokens = kv_pool_tokens or max_batch_size * self.S
         self.n_pages = pages_needed(pool_tokens, page_size) + 1  # + trash
@@ -267,6 +311,10 @@ class ServingEngine:
         )
         self._gen = torch.Generator(device=dev)
         self._gen.manual_seed(seed)
+        # Token history a slot (prompt + emitted; one scratch column for
+        # masked writes), for the draft lookup.
+        self._history = (torch.zeros((B, self.S + 1), dtype=torch.int32, device=dev)
+                         if speculative_draft_len > 0 else None)
         self._stream = (torch.cuda.current_stream(dev) if dev.type == "cuda"
                         else None)
 
@@ -912,10 +960,9 @@ class ServingEngine:
 
     def metrics(self) -> Dict[str, float]:
         """The reference engine's metrics, key for key. Features the port
-        lacks read their disabled values (MoE and speculative decoding
-        0.0); ``kv_tier_*`` keys appear with a tier. The decode control
-        state lives on the device between blocks, so ``decode_resident``
-        reads 1.0."""
+        lacks read their disabled values (MoE 0.0); ``kv_tier_*`` keys
+        appear with a tier. The decode control state lives on the device
+        between blocks, so ``decode_resident`` reads 1.0."""
         return {
             "num_running_reqs": float(self.n_running),
             "num_used_tokens": float(self.n_used_tokens),
@@ -961,14 +1008,32 @@ class ServingEngine:
             "kv_prefix_lost_total": float(self._kv_lost_evict + self._kv_lost_spill),
             **{f"kv_tier_{k}": v for k, v in
                (self.kv_tier.stats() if self.kv_tier is not None else {}).items()},
-            "spec_tokens_per_step": 0.0,
-            "spec_emitted_tokens": 0.0,
-            "spec_active_steps": 0.0,
+            # Speculation yield: emitted tokens per decode step of an
+            # active slot (1.0 = no gain; the ceiling is 1 + draft_len),
+            # and its sums for the fleet's ratio.
+            "spec_tokens_per_step": (float(self._spec_emitted / self._spec_steps)
+                                     if self._spec_steps else 0.0),
+            "spec_emitted_tokens": float(self._spec_emitted),
+            "spec_active_steps": float(self._spec_steps),
         }
 
     # ------------------------------------------------------------------
     # Engine-thread internals
     # ------------------------------------------------------------------
+
+    def _refresh_qparams(self):
+        """(Re)build the int8 decode-weight tree from the live params, at
+        init and after every weight swap."""
+        if self.decode_weight_dtype is None:
+            return
+        self._qparams = maybe_quantize_decode_weights(
+            self.params, self.cfg.tied_embeddings, self.decode_weight_dtype)
+
+    @property
+    def _decode_params(self):
+        """The param tree the decode blocks run (the int8 tree when
+        decode_weight_dtype is set); prefill always runs self.params."""
+        return self._qparams if self._qparams is not None else self.params
 
     def _ensure_pool(self):
         if self._k_pages is not None:
@@ -1241,6 +1306,17 @@ class ServingEngine:
                         req.top_p, req.top_k, req.greedy))
         if adm:
             self._apply_admits(adm)
+            if self._history is not None:
+                # The slot's full token history, a prefix-cache hit's cached
+                # part too (drafts match against it).
+                rows = np.zeros((len(adm), self.S + 1), np.int32)
+                for i, a in enumerate(adm):
+                    req = self._slot_req[a[0]]
+                    plen = min(len(req.input_ids), self.S)
+                    rows[i, :plen] = req.input_ids[:plen]
+                    rows[i, plen] = self._slot_out[a[0]][0]
+                set_history(self._history, self._h2d(np.asarray([a[0] for a in adm], np.int64)),
+                            self._h2d(rows))
 
     def _apply_admits(self, adm):
         """Activate admitted slots in the device control state: one int32
@@ -1317,10 +1393,13 @@ class ServingEngine:
             if req is None or self._pending_deact[slot]:
                 continue
             # Capped at the page-table width: a slot at max_seq_len stops
-            # on budget within the block.
+            # on budget within the block. A speculative block feeds 1 +
+            # draft_len rows a step, each writing KV; the device never
+            # writes past len + remaining, so the slot's budget caps it.
+            block_tokens = self.block_steps * (1 + self.spec_draft_len)
             remaining = max(1, req.max_new_tokens - len(self._slot_out[slot]))
             need = min(
-                pages_needed(int(self._len[slot]) + min(self.block_steps, remaining),
+                pages_needed(int(self._len[slot]) + min(block_tokens, remaining),
                              self.page_size),
                 self.max_pages,
             )
@@ -1421,6 +1500,7 @@ class ServingEngine:
             self._flush_prefix_cache()
             t0 = time.monotonic()
             self.params = pending  # staged on the updater's thread
+            self._refresh_qparams()
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             self.last_weight_swap_s = time.monotonic() - t0
@@ -1493,7 +1573,9 @@ class ServingEngine:
 
     def _serve(self):
         self._ensure_pool()
-        n = self.block_steps
+        # Columns of the packed block result: a speculative block emits up
+        # to 1 + draft_len tokens a step.
+        n = self.block_steps * (1 + self.spec_draft_len)
         while not self._stop.is_set():
             # Handoff export / import and tier commands (loop-owned state).
             self._drain_cmds()
@@ -1537,13 +1619,24 @@ class ServingEngine:
             tier = select_tier(self._host_tp, self._host_tk, np.asarray(running),
                                self.cfg.vocab_size)
             t_blk0 = time.monotonic()
-            (packed, lengths, next_input, active, remaining,
-             min_remaining) = paged_decode_block(
-                self.params, self.cfg, self._k_pages, self._v_pages,
-                self._pt_dev, lengths, next_input, active, remaining,
-                min_remaining, temps, top_ps, top_ks, greedy,
-                self._eos_global, self._gen, n_steps=n, tier=tier,
-            )
+            if self.spec_draft_len > 0:
+                (packed, lengths, next_input, active, remaining,
+                 min_remaining) = paged_spec_decode_block(
+                    self._decode_params, self.cfg, self._k_pages, self._v_pages,
+                    self._pt_dev, lengths, next_input, active, remaining,
+                    min_remaining, temps, top_ps, top_ks, greedy,
+                    self._eos_global, self._gen, self._history,
+                    n_steps=self.block_steps, draft_len=self.spec_draft_len,
+                    ngram=self.spec_ngram, ngram_window=self.spec_window, tier=tier,
+                )
+            else:
+                (packed, lengths, next_input, active, remaining,
+                 min_remaining) = paged_decode_block(
+                    self._decode_params, self.cfg, self._k_pages, self._v_pages,
+                    self._pt_dev, lengths, next_input, active, remaining,
+                    min_remaining, temps, top_ps, top_ks, greedy,
+                    self._eos_global, self._gen, n_steps=n, tier=tier,
+                )
             self._dstate = (lengths, next_input, active, remaining,
                             min_remaining, temps, top_ps, top_ks, greedy)
             p = packed.cpu().numpy()  # the block's single device fetch
@@ -1563,6 +1656,11 @@ class ServingEngine:
                     t_prev = self._slot_emit_t[slot] or t_blk0
                     self.itl_hist.add((t_blk1 - t_prev) * 1000.0 / k, count=k)
                     self._slot_emit_t[slot] = t_blk1
+            if self.spec_draft_len > 0:
+                # The speculative block's extra column: steps each slot was
+                # active, the yield's exact denominator.
+                self._spec_emitted += int(n_emitted.sum())
+                self._spec_steps += int(p[:, 2 * n + 4].sum())
             hit_eos_h = p[:, 2 * n + 1] > 0.5
             active_h = p[:, 2 * n + 2] > 0.5
             # Mirror lengths for occupied slots only: the device array is

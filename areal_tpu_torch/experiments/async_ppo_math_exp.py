@@ -48,8 +48,6 @@ def refuse_unported(cfg: AsyncPPOMATHExpConfig):
         "critic": cfg.critic is not None,
         "ppo.generation_size": cfg.ppo.generation_size is not None,
         "gen_tensor_parallel": cfg.gen_tensor_parallel != 1,
-        "gen_speculative_draft_len": cfg.gen_speculative_draft_len != 0,
-        "gen_decode_weight_dtype": cfg.gen_decode_weight_dtype not in (None, "model"),
         "gen_weight_shards": bool(cfg.gen_weight_shards.strip(",")),
         "gen_elastic_fleet": cfg.gen_elastic_fleet,
         "gen_autoscale": cfg.gen_autoscale,
@@ -216,6 +214,10 @@ def build_async_ppo_math_experiment(cfg: AsyncPPOMATHExpConfig) -> ExperimentCon
             chunked_prefill_per_lap=cfg.gen_chunked_prefill_per_lap,
             prefix_cache_tokens=cfg.gen_prefix_cache_tokens,
             kv_cache_dtype=cfg.gen_kv_cache_dtype,
+            speculative_draft_len=cfg.gen_speculative_draft_len,
+            speculative_ngram=cfg.gen_speculative_ngram,
+            speculative_window=cfg.gen_speculative_window,
+            decode_weight_dtype=cfg.gen_decode_weight_dtype,
             role=roles[i],
             kv_handoff_compress=cfg.gen_kv_handoff_compress,
             kv_tier_bytes=(cfg.gen_kv_tier_mb << 20 if cfg.gen_kv_tier_mb is not None

@@ -9,19 +9,20 @@ parallel, one ``nvcc`` each. Nothing here runs at import: the CPU tests
 import every module of the port on a machine with no ``nvcc``.
 
 The wrappers (``ops/attention.flash_packed_attention`` and its backward,
-``engine/paged.paged_decode_attention``, ``ops/gae.segment_scan_reverse``
-and ``ops/gae.packed_gae``)
+``engine/paged.paged_decode_attention``, ``ops/gae.segment_scan_reverse``,
+``ops/gae.packed_gae`` and ``ops/wquant.w8a16_matmul``)
 pass tensor pointers and the
 current CUDA stream, raise if the C entry point returns a CUDA error,
 and add one to ``launches[name]`` per call of the entry point (one call
-may run more than one CUDA kernel: the split-K paged decode runs its
-splits, then a combine), so a run can show that its main path went
+may run more than one CUDA kernel: the split-K paged decode and the
+split-K W8A16 matmul run their splits, then a combine), so a run can show that its main path went
 through each kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -43,6 +44,7 @@ SOURCES = {
     "paged_decode": "paged_decode.cu",
     "flash_attn_bwd": "flash_attn_bwd.cu",
     "gae_scan": "gae_scan.cu",
+    "w8a16_matmul": "w8a16_matmul.cu",
 }
 
 # Kernel launch counts by kernel name (the C entry points).
@@ -54,6 +56,7 @@ launches: Dict[str, int] = {
     "flash_attn_bwd_dkv_bf16": 0,
     "gae_scan_f32": 0,
     "packed_gae_f32": 0,
+    "w8a16_matmul_bf16": 0,
 }
 
 NVCC_FLAGS = [
@@ -87,7 +90,14 @@ ENTRY_POINTS = {
         "flash_attn_bwd", [P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, P]),
     "gae_scan_f32": ("gae_scan", [P, P, P, I, I, I, I, P, P, P, U, P]),
     "packed_gae_f32": ("gae_scan", [P, P, P, P, P, P, F, F, I, I, I, I, P, P, P, U, P]),
+    "w8a16_matmul_bf16": ("w8a16_matmul", [P, P, P, P, P, I, I, I, I, I, I, I, P]),
 }
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """The card's SM count, which the launch plans read."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def reset_launches() -> None:

@@ -116,9 +116,18 @@ def count_params(params: Params) -> int:
 
 
 def layer_params(layers: Params, i: int) -> Params:
-    """Layer ``i`` of the stacked layer tree (views into the leaves)."""
-    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
-            for k, v in layers.items()}
+    """Layer ``i`` of the stacked layer tree (views into the leaves). A
+    quantized (int8, scale) leaf (ops/wquant.py) gives the pair of its
+    layer-``i`` slices."""
+
+    def pick(v):
+        if isinstance(v, dict):
+            return layer_params(v, i)
+        if isinstance(v, tuple):
+            return tuple(x[i] for x in v)
+        return v[i]
+
+    return {k: pick(v) for k, v in layers.items()}
 
 
 def unbind_layers(layers: Params, n_layers: int) -> List[Params]:

@@ -55,9 +55,14 @@ become blocking ones on the request's thread; its peer client is
   the budget; ``GET /weights/manifest`` and ``/weights/chunk`` serve the
   held store to sibling servers, during the fetch too.
 
+The engine options ``speculative_draft_len`` / ``speculative_ngram`` /
+``speculative_window`` (n-gram speculative decoding) and
+``decode_weight_dtype`` (int8 decode weights, rebuilt on every weight
+update) pass through to the engine; ``/metrics`` carries the speculation
+yield (``areal:spec_*``).
+
 Not ported yet (refused at boot when configured): tensor parallelism
-and weight shards (with them the plane's shard streams), speculative
-decoding, int8 decode weights. The server serves an HF checkpoint
+and weight shards (with them the plane's shard streams). The server serves an HF checkpoint
 (``model_path``) in its compute dtype and takes its EOS from the
 tokenizer (``tokenizer_path``, else the checkpoint's); a weight update
 from a directory that holds no raw dump or pickle reads it as an HF
@@ -177,8 +182,6 @@ def _refuse_unported(config: GenerationServerConfig):
         "tensor_parallel": config.tensor_parallel > 1,
         "weight_shard_rank": config.weight_shard_rank is not None,
         "weight_shard_degree": config.weight_shard_degree is not None,
-        "speculative_draft_len": config.speculative_draft_len > 0,
-        "decode_weight_dtype": config.decode_weight_dtype not in (None, "model"),
     }
     bad = [k for k, v in refused.items() if v]
     if bad:
@@ -218,6 +221,10 @@ class GenerationServer(Worker):
             chunked_prefill_per_lap=config.chunked_prefill_per_lap,
             prefix_cache_tokens=config.prefix_cache_tokens,
             kv_cache_dtype=config.kv_cache_dtype,
+            speculative_draft_len=config.speculative_draft_len,
+            speculative_ngram=config.speculative_ngram,
+            speculative_window=config.speculative_window,
+            decode_weight_dtype=config.decode_weight_dtype,
             prefill_token_budget=config.prefill_token_budget,
             decode_blocks_per_admit=config.decode_blocks_per_admit,
             kv_tier_bytes=config.kv_tier_bytes,

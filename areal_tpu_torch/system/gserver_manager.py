@@ -40,7 +40,8 @@ A singleton worker that:
   and readmits a returning one after bringing it to the current version
   (over the plane from peers that hold it, the origin last, or with
   ``/update_weights_from_disk``);
-- logs the fleet's generation throughput from the servers' ``/metrics``.
+- logs the fleet's generation throughput from the servers' ``/metrics``,
+  with the fleet's speculation yield when a server speculates.
 
 The JSON bodies of every route are the reference's, so a port manager
 fronts reference servers and a reference client reaches a port manager.
@@ -152,6 +153,11 @@ class GserverManager(Worker):
         # loop and must not do name_resolve file I/O there.
         self._training_samples_cache = 0
         self._server_gen_totals = {u: 0.0 for u in self.server_urls}
+        # Fleet speculation yield as a ratio of SUMS: each server's emitted
+        # tokens and active decode steps (a mean of per-server ratios would
+        # overweight idle servers).
+        self._server_spec_emitted = {u: 0.0 for u in self.server_urls}
+        self._server_spec_steps = {u: 0.0 for u in self.server_urls}
         # qid -> url LRU (a session's next chunk goes to the server
         # holding its prefix); servers that shed a client with 429 are
         # routed around until their Retry-After elapses; tokens routed
@@ -1379,6 +1385,10 @@ class GserverManager(Worker):
                             self._server_shed_total[u] = float(val)
                         elif name == "areal:total_generated_tokens":
                             self._server_gen_totals[u] = float(val)
+                        elif name == "areal:spec_emitted_tokens":
+                            self._server_spec_emitted[u] = float(val)
+                        elif name == "areal:spec_active_steps":
+                            self._server_spec_steps[u] = float(val)
                         elif name == "areal:queued_prompt_tokens":
                             self._server_queued_toks[u] = float(val)
                         elif name == "areal:kv_pages_free":
@@ -1477,22 +1487,30 @@ class GserverManager(Worker):
                 self._maybe_rerole()
             except Exception:
                 logger.warning("elastic rerole pass failed", exc_info=True)
-        # Periodic generation-throughput log: interval tokens/s over all
-        # servers plus the rollout counters.
         now = time.monotonic()
         if now - self._last_throughput_log > self._throughput_log_interval:
-            total_gen = sum(self._server_gen_totals.values())
-            dt = now - self._last_throughput_log
-            tps = max(0.0, total_gen - self._last_gen_total) / dt
-            with self._lock:
-                rs = self.rollout_stat.as_dict()
-            logger.info(
-                f"generation throughput: {tps:.0f} tokens/s (total {total_gen:.0f}) "
-                f"rollouts={rs} weight_version={self.weight_version}")
-            self._last_gen_total = total_gen
-            self._last_throughput_log = now
+            self._log_throughput(now)
         time.sleep(0.05)
         return PollResult(batch_count=0)
+
+    def _log_throughput(self, now: float):
+        """The periodic generation-throughput log: interval tokens/s over
+        all servers, the rollout counters and, when any server speculates,
+        the fleet's speculation yield (total emitted tokens over total
+        active decode steps, so busy servers weigh in proportionally)."""
+        total_gen = sum(self._server_gen_totals.values())
+        dt = now - self._last_throughput_log
+        tps = max(0.0, total_gen - self._last_gen_total) / dt
+        with self._lock:
+            rs = self.rollout_stat.as_dict()
+        steps = sum(self._server_spec_steps.values())
+        logger.info(
+            f"generation throughput: {tps:.0f} tokens/s (total {total_gen:.0f}) "
+            f"rollouts={rs} weight_version={self.weight_version}"
+            + (f" spec_tokens_per_step={sum(self._server_spec_emitted.values()) / steps:.2f}"
+               if steps > 0 else ""))
+        self._last_gen_total = total_gen
+        self._last_throughput_log = now
 
     def _exit_hook(self):
         try:

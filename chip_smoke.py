@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (areal_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--out report.json] [--profile-serving]
-        [--phases build,parity,serve_bf16,serve_int8,interrupt,http,grad,train,workers,
+        [--phases build,parity,serve_bf16,serve_int8,interrupt,spec,http,grad,train,workers,
                   async_ppo,sync_ppo,disagg,weight_plane,sft,recover,agentic]
 
 Phases (every one must pass; the script exits nonzero on the first that
@@ -17,19 +17,49 @@ fails, and on a machine without CUDA):
                  time kernel, plain version and (where one exists) one
                  PyTorch library call (the forward, paged decode and both
                  GAE entries by the device time of their kernels beside
-                 the whole call, the backward with CUDA events).
+                 the whole call, the backward with CUDA events); the
+                 W8A16 matmul at the decode path's shapes for 16, 37 and
+                 80 rows against dequantize + cuBLAS, timed beside bf16
+                 torch.matmul on the unquantized weight and summed over
+                 one decode step at 28 layers plus the head.
 3. serve_bf16  - a ServingEngine at the full width of
                  DeepSeek-R1-Distill-Qwen-1.5B and 4 of its 28 layers
                  (seeded random weights; cut for the run's time limit, to
                  14 when the recover phase joined and to 4 when the
-                 agentic phase did, as phases 4-6 and 8)
+                 agentic phase did, as phases 4-7 and 9)
                  serves a mix of requests with a bf16 KV pool; launch
                  counts of every kernel on that path must be > 0.
                  --profile-serving adds the profiled windows.
 4. serve_int8  - the same with kv_cache_dtype="int8".
 5. interrupt   - update_params mid-generation returns partial results
                  with interrupted=True and the new version goes live.
-6. http        - the port's GenerationServer in process, at the full
+6. spec        - n-gram speculative decoding and int8 decode weights at
+                 the serving phases' width, depth and params (16 slots x
+                 4096 tokens, 128-token pages): (a) 16 greedy requests of
+                 256 tokens (half a 64-token span repeated 4-8 times, half
+                 fresh) through a plain engine and one with draft length
+                 4 over bigrams: the speculative outputs pass the
+                 teacher-forced check, each request's tokens equal the
+                 plain engine's up to the first token where they part
+                 (the teacher-forced top-2 gap there within 0.1 nats; the
+                 count of requests that part is printed), more than one
+                 token a step, paged_decode_bf16 launched; (b) sampled
+                 requests (temperature 1, top-p 0.9) on the speculative
+                 engine: valid ids, median |logprob - the forward's|
+                 within 0.05; (c) the int8 pool, speculation and int8
+                 weights in one engine: first tokens equal the bf16
+                 engine's, greedy tokens pass the teacher-forced check on
+                 the dequantized decode weights w_q * s,
+                 w8a16_matmul_bf16 and paged_decode_int8 launched; then
+                 a GenerationServer with both options takes an HTTP wave
+                 (/metrics: areal:spec_emitted_tokens >
+                 areal:spec_active_steps) and a weight update from a raw
+                 dump of perturbed params, after which its greedy tokens
+                 equal an engine's on those params (the int8 copy was
+                 rebuilt). It prints decode tok/s and the yield of four
+                 engines: plain bf16, int8 weights, speculative, and
+                 speculative with int8 weights.
+7. http        - the port's GenerationServer in process, at the full
                  width and 4 layers, with the qid prefix cache and
                  token-budget admission, driven over HTTP: a mixed wave
                  from 18 client threads (checked as serve_bf16's), six
@@ -38,16 +68,16 @@ fails, and on a machine without CUDA):
                  greedy requests bit-equal over HTTP and direct, a weight
                  update from a raw dump mid-wave, a stale retry, and
                  shedding; launch counts through the server must be > 0.
-7. grad        - at full width and 2 layers, the gradients of the SFT loss
+8. grad        - at full width and 2 layers, the gradients of the SFT loss
                  through the kernels against the plain attention on the
                  card, leaf by leaf.
-8. train       - a TorchTrainEngine at the full width and 4 layers of
+9. train       - a TorchTrainEngine at the full width and 4 layers of
                  R1-Distill-Qwen-1.5B (float32 params, bf16 compute): PPO
                  actor inference, one train_step (GAE, advantage
                  normalization, 4 minibatch updates), then 3 SFT steps;
                  launch counts of the forward, both backward kernels and
                  the fused GAE entry (packed_gae_f32) must be > 0.
-9. workers     - the trainer half of the worker system through
+10. workers     - the trainer half of the worker system through
                  LocalController(ExperimentConfig).run(): a spawned model
                  worker loads the actor from an HF directory of seeded
                  random weights at the full width and 4 of the 28
@@ -63,7 +93,7 @@ fails, and on a machine without CUDA):
                  forward, both backward kernels and packed_gae_f32 in the
                  worker, and of the forward and paged_decode_bf16 in the
                  server, must be > 0.
-10. async_ppo  - the async RL loop through the port's entry point,
+11. async_ppo  - the async RL loop through the port's entry point,
                  areal_tpu_torch.training.main_async_ppo.main(argv) with
                  the reference's override keys: a GenerationServer (bf16
                  pool, 16 slots x 4096 tokens), the gserver manager, a
@@ -78,7 +108,7 @@ fails, and on a machine without CUDA):
                  paged_decode_bf16 in the server and of the forward, both
                  backward kernels and packed_gae_f32 in the model worker
                  must be > 0.
-11. sync_ppo   - sync PPO through the port's entry point,
+12. sync_ppo   - sync PPO through the port's entry point,
                  areal_tpu_torch.training.main_sync_ppo.main(argv) with
                  the reference's override keys, at the full width and 4
                  of the 28 layers (SYNC_LAYERS; float32 params, bf16
@@ -107,7 +137,7 @@ fails, and on a machine without CUDA):
                  same depth: bytes freed, its seconds, the lazy restore's
                  seconds, and a forward after the restore bit-equal to
                  one before (gated).
-12. disagg     - disaggregated serving at full width and 4 of the 28
+13. disagg     - disaggregated serving at full width and 4 of the 28
                  layers (for the run's time limit): a prefill
                  server P (bf16 pool), decode servers D (bf16 pool, a KV
                  tier, a small prefix budget) and D8 (int8 pool), a
@@ -128,7 +158,7 @@ fails, and on a machine without CUDA):
                  burst makes the sizer re-role U and routing follows.
                  Launches of the forward, paged_decode_bf16 and
                  paged_decode_int8 in the fleet must be > 0.
-13. weight_plane - the weight-distribution plane at full width and 4
+14. weight_plane - the weight-distribution plane at full width and 4
                  of the 28 layers: (a) this process dumps version 1 of
                  perturbed float32 params with the int8 companion and
                  serves it from a WeightPlaneSource registered as a
@@ -143,7 +173,7 @@ fails, and on a machine without CUDA):
                  and /cutover_weights: the held leaves equal
                  dequantize_wire_leaf(quantize_wire_leaf(x)) bit for bit
                  and the greedy tokens an engine's on them; (c) the async
-                 RL loop of phase 10 at 4 layers and max_head_offpolicyness
+                 RL loop of phase 11 at 4 layers and max_head_offpolicyness
                  0 with gen_weight_plane=true, two servers at fanout
                  degree 1: versions 1 and 2 land on both through the
                  plane. Both depths were cut since the sft phase joined
@@ -153,7 +183,7 @@ fails, and on a machine without CUDA):
                  The forward and paged_decode_bf16 must launch on every
                  server after its last cutover, and the loop's four kernels
                  (forward, both backward kernels, packed_gae_f32) > 0.
-14. sft        - supervised fine-tuning through the port's entry point,
+15. sft        - supervised fine-tuning through the port's entry point,
                  areal_tpu_torch.training.main_sft.main(argv) with the
                  reference's override keys, at the full width and 4 of
                  the 28 layers (for the run's time limit: 7 since the
@@ -174,7 +204,7 @@ fails, and on a machine without CUDA):
                  params. The forward and both backward kernels in the
                  worker, and the forward and paged_decode_bf16 in the
                  servers, must launch.
-15. recover    - checkpoint and recovery through main_sft at the full
+16. recover    - checkpoint and recovery through main_sft at the full
                  width and 4 of the 28 layers (float32 params, bf16
                  compute, remat, a constant LR, no warmup), with
                  recover_mode=auto, recover_retries=1,
@@ -202,7 +232,7 @@ fails, and on a machine without CUDA):
                  worker's peak device memory; then, in this process on an
                  engine of the same depth, the stall of a synchronous
                  save and of a snapshot into pinned host memory.
-16. agentic    - async PPO on multi-turn tool-use episodes through
+17. agentic    - async PPO on multi-turn tool-use episodes through
                  main_async_ppo.main(argv) with agent_type=tool-use,
                  agent_num_turns=3 and agent_scripted_tool_turns=2 (turn
                  0 calls python, turn 1 the calculator, turn 2 answers;
@@ -214,8 +244,8 @@ fails, and on a machine without CUDA):
                  AREAL_TASK_STALENESS_WINDOWS=agentic:1, and two reward
                  executors (python -m areal_tpu_torch.system.
                  reward_executor, two warm workers each), executor 0
-                 armed to die on its first submit. It runs phase 10's
-                 function with the agentic options, so phase 10's gates
+                 armed to die on its first submit. It runs phase 11's
+                 function with the agentic options, so phase 11's gates
                  hold too: the fanout lands versions 1 and 2 on the
                  server, and every trained episode's lag (train step -
                  version_start) is at most the agentic window. Its own
@@ -290,15 +320,15 @@ GAE_PLAN_SHAPES = ((64, 4096), (4096, 4096), (66, 8192), (66, 16384), (132, 1638
 # SFT-loss gradients through the kernels against the plain attention, bf16
 # compute end to end: per leaf, against the leaf's largest reference value.
 LEAF_TOL = 5e-2
-# Depths of the serving phases (serve_bf16, serve_int8, interrupt, http)
+# Depths of the serving phases (serve_bf16, serve_int8, interrupt, spec, http)
 # and of the train phase, cut from the model's 28 layers to 14 when the
 # recover phase joined the default run and to 4 when the agentic phase
 # did (the run's time limit; widths and gates unchanged).
 SERVE_LAYERS = 4
 TRAIN_LAYERS = 4
-PHASES = ("build", "parity", "serve_bf16", "serve_int8", "interrupt", "http", "grad", "train",
-          "workers", "async_ppo", "sync_ppo", "disagg", "weight_plane", "sft", "recover",
-          "agentic")
+PHASES = ("build", "parity", "serve_bf16", "serve_int8", "interrupt", "spec", "http", "grad",
+          "train", "workers", "async_ppo", "sync_ppo", "disagg", "weight_plane", "sft",
+          "recover", "agentic")
 # The train phase at real size; a rehearsal on the CPU passes smaller ones.
 TRAIN_SIZES = dict(n_prompts=8, group=4, prompt=(128, 512), response=(256, 3072),
                    row_len=4096, max_tokens_per_mb=16384, n_minibatches=4,
@@ -1052,6 +1082,117 @@ def parity_gae(torch, rng, dev, report, gae_rng):
             plan_modes=[dict(shape=m["shape"], chosen=m["chosen"], **m[kname]) for m in modes])
 
 
+# The decode-path matmuls of R1-Distill-Qwen-1.5B as (names, K, N): the
+# W8A16 kernel's shapes. A decode step runs each name once a layer (28) and
+# the head once; M is the step's rows, 16 slots plain and 80 at draft
+# length 4, 37 a ragged count.
+W8A16_SHAPES = ((("wq", "wo"), 1536, 1536), (("wk", "wv"), 1536, 256),
+                (("w_gate", "w_up"), 1536, 8960), (("w_down",), 8960, 1536),
+                (("head",), 1536, 151936))
+W8A16_M = (16, 37, 80)
+W8A16_TIMED_M = (16, 80)
+MODEL_LAYERS = 28
+# The kernel against its plain version, both bf16 with float32 sums in
+# another order: every output row within W8A16_RTOL of that row's largest
+# plain value (about 2.5 bf16 ulps there).
+W8A16_RTOL = 1e-2
+# Timed calls cycle through copies of the weight that together pass
+# W8A16_RING_BYTES, so each call finds its weight out of the 50 MB L2, as
+# a decode step does (it streams every layer's weights once).
+W8A16_RING_BYTES = 128 << 20
+
+
+class Ring:
+    """Each call returns the next of `items`, cyclically."""
+
+    def __init__(self, items):
+        self.items, self.i = list(items), 0
+
+    def __call__(self):
+        self.i = (self.i + 1) % len(self.items)
+        return self.items[self.i]
+
+
+def parity_w8a16(torch, dev, report, case_rng):
+    """The W8A16 kernel against its plain version (dequantize, cuBLAS,
+    scale) at the decode-path shapes and M in W8A16_M: per-row error, two
+    runs bit-equal. At M = 16 and 80 it times the kernel (device time of
+    its kernels), the plain version and torch.matmul on the unquantized
+    bf16 weight (the call int8 weights replace; device time), beside the
+    bound (int8 weight, scales, activations and output once / 3.35 TB/s),
+    and sums them over one decode step at the model's 28 layers plus the
+    head. Each timed call reads its weight from a ring of copies larger
+    than the L2 (W8A16_RING_BYTES). Weights and activations are drawn on
+    the card from a generator seeded from `case_rng`."""
+    from areal_tpu_torch.ops.wquant import _qmat_plain, quantize_weight, w8a16_matmul
+
+    gen = torch.Generator(device=dev).manual_seed(int(case_rng.integers(1 << 31)))
+    bf = torch.bfloat16
+    errs, rels, shapes = [], [], []
+    step = {M: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, bytes=0.0)
+            for M in W8A16_TIMED_M}
+    for names, K, N in W8A16_SHAPES:
+        w = (torch.randn((K, N), generator=gen, device=dev) * K ** -0.5).to(bf)
+        wq, s = quantize_weight(w)
+        for M in W8A16_M:
+            a = torch.randn((M, K), generator=gen, device=dev).to(bf)
+            out = w8a16_matmul(a, wq, s)
+            ref = _qmat_plain(a, wq, s, bf)
+            err, rel = row_errors(out, ref)
+            same = torch.equal(out, w8a16_matmul(a, wq, s))
+            log(f"  w8a16_matmul_bf16 {'/'.join(names)} M={M} K={K} N={N}: max_abs_err="
+                f"{err:.3e} max_row_rel_err={rel:.3e} (tol {W8A16_RTOL}); two runs bit-equal: "
+                f"{same}")
+            if not (rel <= W8A16_RTOL and same and torch.isfinite(out.float()).all()):
+                raise AssertionError(f"w8a16_matmul_bf16 M={M} K={K} N={N} disagrees with its "
+                                     "plain version, or two runs differ")
+            errs.append(err)
+            rels.append(rel)
+            if M not in W8A16_TIMED_M:
+                continue
+            nbytes = K * N + 4 * N + 2 * M * K + 2 * M * N
+            flops = 2.0 * M * N * K
+            b_ms, b_by = bound(flops, nbytes)
+            if M == W8A16_TIMED_M[0]:
+                q_ring = Ring([wq] + [wq.clone() for _ in range(W8A16_RING_BYTES // (K * N))])
+                w_ring = Ring([w] + [w.clone() for _ in range(W8A16_RING_BYTES // (2 * K * N))])
+            row = dict(names=list(names), M=M, K=K, N=N, bound_ms=b_ms, bound_by=b_by,
+                       ms=device_ms(lambda: w8a16_matmul(a, q_ring(), s), ("w8a16",),
+                                    iters=30, per_call="auto"),
+                       plain_ms=time_ms(lambda: _qmat_plain(a, q_ring(), s, bf), iters=10),
+                       library_ms=device_ms(lambda: torch.matmul(a, w_ring()), iters=30,
+                                            per_call="auto"))
+            shapes.append(row)
+            times = MODEL_LAYERS * len(names) if names != ("head",) else 1
+            for k in ("ms", "plain_ms", "library_ms"):
+                step[M][k] += times * row[k]
+            step[M]["flops"] += times * flops
+            step[M]["bytes"] += times * nbytes
+            log(f"  w8a16_matmul_bf16 timing M={M} K={K} N={N}: kernel {row['ms']:.4f} ms "
+                f"(device), plain {row['plain_ms']:.4f} ms, bf16 torch.matmul "
+                f"{row['library_ms']:.4f} ms (device); bound {b_ms:.4f} ms ({b_by}); "
+                f"weights cold in L2")
+        del w, wq, s, a, out, ref, q_ring, w_ring
+        torch.cuda.empty_cache()
+    for M, t in step.items():
+        t["bound_ms"], t["bound_by"] = bound(t["flops"], t["bytes"])
+        log(f"  w8a16_matmul_bf16 one decode step at {MODEL_LAYERS} layers + head, M={M}: "
+            f"kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, bf16 torch.matmul "
+            f"{t['library_ms']:.3f} ms; bound {t['bound_ms']:.3f} ms ({t['bound_by']})")
+    main = step[80]
+    report["w8a16_matmul_bf16"] = dict(
+        name="w8a16_matmul_bf16", route="cuda", source="areal_tpu_torch/csrc/w8a16_matmul.cu",
+        replaces="areal_tpu/ops/wquant.py:44",
+        note=("no TPU kernel: the reference's qmat quantized branch (wquant.py:44-51) is an "
+              "XLA fusion; the numbers are one decode step's W8A16 matmuls at 28 layers plus "
+              "the head, M=80 rows (16 slots, draft length 4)"),
+        max_abs_err=max(errs), max_row_rel_err=max(rels), ms=main["ms"],
+        plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        library_ms=main["library_ms"], shape="decode step, 28 layers + head, M=80",
+        step_m16={k: step[16][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+        shapes=shapes)
+
+
 # ----------------------------------------------------------------------
 # Phases 3-5: serving
 # ----------------------------------------------------------------------
@@ -1106,10 +1247,7 @@ def mixed_requests(rng, vocab):
 def check_results(torch, engine, cfg, params, reqs, results):
     """Every request finished with valid ids and logprobs <= 0; the twin
     greedy prompts agree; greedy outputs agree with a teacher-forced
-    forward over prompt + output (the packed prefill path, a different
-    computation from the paged decode that produced them)."""
-    from areal_tpu_torch.models.transformer import forward
-
+    forward over prompt + output (teacher_forced_check)."""
     V = cfg.vocab_size
     for r in reqs:
         res = results[r.qid]
@@ -1122,34 +1260,54 @@ def check_results(torch, engine, cfg, params, reqs, results):
             raise AssertionError(f"{r.qid}: logprob not finite or > 0")
     if results["twin0"].output_ids != results["twin1"].output_ids:
         raise AssertionError("identical greedy prompts gave different tokens")
+    teacher_forced_check(torch, engine.device, cfg, params, reqs, results)
+
+
+def teacher_forced_logp(torch, dev, cfg, params, prompt, out):
+    """log_softmax of a forward over prompt + out[:-1] at the positions
+    that predict each of `out` ([len(out), V] float32)."""
+    from areal_tpu_torch.models.transformer import forward
+
+    seq = list(prompt) + list(out)[:-1]
+    ids = torch.tensor([seq], dtype=torch.int32, device=dev)
+    pos = torch.arange(len(seq), dtype=torch.int32, device=dev)[None]
+    with torch.inference_mode():
+        logits = forward(params, cfg, ids, torch.ones_like(ids), pos,
+                         device=dev)[0, len(prompt) - 1:]
+    if not torch.isfinite(logits).all():
+        raise AssertionError("non-finite teacher-forced logits")
+    return torch.log_softmax(logits.float(), dim=-1)
+
+
+def teacher_forced_check(torch, dev, cfg, params, reqs, results, agree_min=0.95,
+                         med_max=0.05, greedy_only=True, label="teacher-forced check"):
+    """Outputs against a teacher-forced forward over prompt + output (the
+    packed prefill path, a different computation from the paged decode that
+    produced them): at least `agree_min` of the greedy tokens at the
+    forward's argmax (within 0.1 nats), and the median |logprob - the
+    forward's| at most `med_max`. Sampled requests count toward the median
+    only, and only with greedy_only=False; prompts over 1100 tokens are
+    skipped."""
     diffs, agree, n_tok = [], 0, 0
     for r in reqs:
-        if not r.greedy or len(r.input_ids) > 1100:
+        if (greedy_only and not r.greedy) or len(r.input_ids) > 1100:
             continue
         res = results[r.qid]
-        seq = list(r.input_ids) + res.output_ids[:-1]
-        T = len(seq)
-        ids = torch.tensor([seq], dtype=torch.int32, device=engine.device)
-        seg = torch.ones_like(ids)
-        pos = torch.arange(T, dtype=torch.int32, device=engine.device)[None]
-        with torch.inference_mode():
-            logits = forward(params, cfg, ids, seg, pos,
-                             device=engine.device)[0, len(r.input_ids) - 1:]
-        if not torch.isfinite(logits).all():
-            raise AssertionError(f"{r.qid}: non-finite teacher-forced logits")
-        logp = torch.log_softmax(logits, dim=-1)
-        out = torch.tensor(res.output_ids, device=engine.device)
+        logp = teacher_forced_logp(torch, dev, cfg, params, r.input_ids, res.output_ids)
+        out = torch.tensor(res.output_ids, device=dev)
         lp_tf = logp.gather(-1, out[:, None])[:, 0].cpu().numpy()
         diffs.extend(np.abs(lp_tf - np.asarray(res.output_logprobs)).tolist())
-        # a greedy token is the forward's argmax, or within 0.1 nats of it
-        gap = (logp.max(dim=-1).values - logp.gather(-1, out[:, None])[:, 0]).cpu().numpy()
-        agree += int((gap <= 0.1).sum())
-        n_tok += len(out)
+        if r.greedy:
+            # a greedy token is the forward's argmax, or within 0.1 nats of it
+            gap = (logp.max(dim=-1).values - logp.gather(-1, out[:, None])[:, 0]).cpu().numpy()
+            agree += int((gap <= 0.1).sum())
+            n_tok += len(out)
     med = float(np.median(diffs))
-    log(f"  teacher-forced check: {agree}/{n_tok} greedy tokens at the forward's argmax "
+    log(f"  {label}: {agree}/{n_tok} greedy tokens at the forward's argmax "
         f"(within 0.1 nats); median |logprob diff| {med:.4f}")
-    if agree < 0.95 * n_tok or med > 0.05:
-        raise AssertionError("greedy outputs disagree with the teacher-forced forward")
+    if agree < agree_min * n_tok or med > med_max:
+        raise AssertionError(f"{label}: outputs disagree with the teacher-forced forward")
+    return dict(agree=agree, greedy_tokens=n_tok, median_logprob_diff=med)
 
 
 def _kernel_class(name: str) -> str:
@@ -1340,7 +1498,7 @@ def interrupt_phase(torch, rng, dev, cfg, params):
 
 
 # ----------------------------------------------------------------------
-# Phase 6: the generation server over HTTP
+# Phase 7: the generation server over HTTP
 # ----------------------------------------------------------------------
 
 STOP_TOKEN = 151643  # R1-Distill-Qwen's end-of-sentence id: the server has no tokenizer
@@ -1638,7 +1796,310 @@ def http_phase(torch, rng, dev, cfg, seed, card):
 
 
 # ----------------------------------------------------------------------
-# Phases 7-8: training
+# Phase 6: speculative decoding and int8 decode weights
+# ----------------------------------------------------------------------
+
+# The spec phase at real size: the serving phases' engine (16 slots x 4096
+# tokens, 128-token pages, 16-step blocks, 1024-token chunks), 16 greedy
+# requests of 256 new tokens (half a 64-token span repeated 4-8 times, half
+# fresh prompts of 256-512 tokens), draft length 4 over bigrams; 128
+# sampled tokens a request in leg (b); 8 requests of 64 tokens over HTTP,
+# then 32 after the weight update. A rehearsal on the CPU passes SPEC_TINY.
+SPEC_SIZES = dict(slots=16, max_seq_len=4096, page=128, chunk=1024, block=16, n_req=16,
+                  new=256, span=64, reps=(4, 8), fresh=(256, 512), sampled_new=128, draft=4,
+                  ngram=2, server_req=8, server_new=64, upd_req=2, upd_new=32)
+SPEC_TINY = dict(slots=4, max_seq_len=256, page=8, chunk=64, block=4, n_req=4, new=24,
+                 span=6, reps=(3, 5), fresh=(8, 16), sampled_new=12, draft=3, ngram=2,
+                 server_req=2, server_new=12, upd_req=1, upd_new=8)
+# Where the speculative engine parts from the plain one (bf16 rows of
+# another batch shape round differently), the two tokens' teacher-forced
+# top-2 gap must be within SPEC_GAP nats: a near tie, not a wrong token.
+SPEC_GAP = 0.1
+# Leg (c): the int8 pool, speculation and int8 weights against a
+# teacher-forced forward on the dequantized decode weights (w_q * s):
+# share of greedy tokens at its argmax (within 0.1 nats) and the median
+# |logprob difference|.
+SPEC_C_AGREE = 0.95
+SPEC_C_MED = 0.05
+
+
+def dequantized_tree(cfg, params, qparams):
+    """(cfg, params) whose decode-path weights are the int8 tree's w_q * s
+    in the compute dtype, the head untied (a teacher-forced forward on what
+    the int8 decode path multiplies by)."""
+    cdt = params["final_norm"]["weight"].dtype
+
+    def deq(tree):
+        if isinstance(tree, dict):
+            return {k: deq(v) for k, v in tree.items()}
+        if isinstance(tree, tuple):
+            wq, s = tree
+            return (wq.float() * s[..., None, :]).to(cdt)
+        return tree
+
+    out = dict(params, layers=deq(qparams["layers"]), head={"weight": deq(qparams["head_q"])})
+    return dataclasses.replace(cfg, tied_embeddings=False), out
+
+
+def spec_phase(torch, rng, dev, cfg, params, seed, card, sizes=SPEC_SIZES):
+    """N-gram speculative decoding and int8 decode weights through the
+    engine and the server, at the serving phases' width, depth and params:
+    (a) 16 greedy requests through a plain and a speculative engine: the
+    speculative outputs pass the teacher-forced check, each request's
+    tokens equal the plain engine's up to the first step where they part
+    (the top-2 gap there within SPEC_GAP), the yield is above 1 token a
+    step and paged_decode_bf16 launched; (b) sampled requests (temperature
+    1, top-p 0.9) on the speculative engine: valid ids, logprobs within
+    0.05 (median) of the forward's; (c) the int8 pool, speculation and int8
+    weights in one engine: first tokens equal the bf16 engine's (prefill is
+    unquantized), greedy tokens pass the teacher-forced check on the
+    dequantized decode weights, w8a16_matmul_bf16 and paged_decode_int8
+    launched; then a GenerationServer with speculation and int8 weights
+    takes an HTTP wave (/metrics: emitted tokens > active steps) and a
+    weight update from a raw dump of perturbed() params, after which its
+    greedy tokens equal an engine's built on those params (the int8 copy
+    was rebuilt). Decode tok/s of four engines (plain bf16, int8 weights,
+    speculative, speculative with int8 weights) each from a run less the
+    prefill-only run of the same prompts."""
+    import shutil
+    import tempfile
+
+    from areal_tpu_torch import kernels
+    from areal_tpu_torch.api.config import ModelAbstraction
+    from areal_tpu_torch.api.system_api import GenerationServerConfig
+    from areal_tpu_torch.base import name_resolve, names
+    from areal_tpu_torch.engine.serving import GenRequest, ServingEngine
+    from areal_tpu_torch.system.generation_server import GenerationServer
+    from areal_tpu_torch.system.weight_transfer import dump_raw_params
+
+    sz = sizes
+    on_card = dev.type == "cuda"
+    V = cfg.vocab_size
+    n = sz["n_req"]
+    prompts = []
+    for i in range(n):
+        if i % 2 == 0:  # n-gram rich: one span repeated
+            span = rng.integers(0, V, sz["span"]).tolist()
+            prompts.append(span * int(rng.integers(sz["reps"][0], sz["reps"][1] + 1)))
+        else:
+            prompts.append(rng.integers(0, V, int(rng.integers(*sz["fresh"]))).tolist())
+    spec_kw = dict(speculative_draft_len=sz["draft"], speculative_ngram=sz["ngram"])
+    launches = {}
+
+    def add(counts):
+        for k, v in (counts or {}).items():
+            launches[k] = launches.get(k, 0) + v
+
+    def make(engine_params=params, **kw):
+        eng = ServingEngine(cfg, engine_params, max_batch_size=sz["slots"],
+                            max_seq_len=sz["max_seq_len"], decode_block_steps=sz["block"],
+                            page_size=sz["page"], prefill_chunk=sz["chunk"], eos_token_id=None,
+                            seed=seed, device=dev, **kw)
+        eng.start()
+        return eng
+
+    def greedy(tag, new, which=None):
+        return [GenRequest(qid=f"{tag}{i}", input_ids=list(p), max_new_tokens=new, greedy=True)
+                for i, p in enumerate(prompts) if which is None or i in which]
+
+    def drive(eng, tag, counted=False):
+        """Warm-up, the prompts' prefill alone, then the greedy run:
+        (results, decode tok/s, yield of the run, its launches)."""
+        run_requests(eng, [GenRequest(qid=f"{tag}-warm", input_ids=[1] * 64,
+                                      max_new_tokens=2 * sz["block"], greedy=True)])
+        _, wall_p = run_requests(eng, greedy(f"{tag}-p", 1))
+        m0 = eng.metrics()
+        if counted:
+            kernels.reset_launches()
+        res, wall = run_requests(eng, greedy(tag, sz["new"]))
+        counts = dict(kernels.launches) if counted else None
+        m1 = eng.metrics()
+        steps = m1["spec_active_steps"] - m0["spec_active_steps"]
+        yld = (m1["spec_emitted_tokens"] - m0["spec_emitted_tokens"]) / steps if steps else 1.0
+        return res, n * (sz["new"] - 1) / max(wall - wall_p, 1e-9), yld, counts
+
+    stats = dict(card=card)
+    t0 = time.perf_counter()
+    # (a) greedy: plain against speculative.
+    eng = make()
+    try:
+        res_plain, tok_plain, _, _ = drive(eng, "a0-")
+    finally:
+        eng.stop()
+    eng = make(**spec_kw)
+    try:
+        res_spec, tok_spec, yld_spec, counts_a = drive(eng, "a1-", counted=True)
+        add(counts_a)
+        tf_a = teacher_forced_check(torch, dev, cfg, params, greedy("a1-", sz["new"]), res_spec,
+                                    label="leg (a) teacher-forced check, speculative outputs")
+        parted = []
+        for i, p in enumerate(prompts):
+            a_ids, b_ids = res_plain[f"a0-{i}"].output_ids, res_spec[f"a1-{i}"].output_ids
+            if len(a_ids) != sz["new"] or len(b_ids) != sz["new"]:
+                raise AssertionError(f"spec: request {i} stopped early without an EOS")
+            j = next((k for k, (x, y) in enumerate(zip(a_ids, b_ids)) if x != y), None)
+            if j is None:
+                continue
+            top2 = teacher_forced_logp(torch, dev, cfg, params, p, b_ids[:j + 1])[-1].topk(2)
+            gap = float(top2.values[0] - top2.values[1])
+            parted.append(dict(request=i, step=j, top2_gap=gap))
+            if gap > SPEC_GAP:
+                raise AssertionError(f"spec: request {i} parts from the plain engine at token "
+                                     f"{j} with a top-2 gap of {gap:.4f} nats > {SPEC_GAP}")
+        log(f"  leg (a) greedy, {n} requests x {sz['new']} tokens: plain {tok_plain:.1f} "
+            f"decode tok/s, speculative {tok_spec:.1f} decode tok/s, "
+            f"{yld_spec:.3f} tokens a step; {len(parted)} of {n} part from the plain engine "
+            f"({[(x['request'], x['step'], round(x['top2_gap'], 4)) for x in parted]}: "
+            f"request, token, top-2 gap); launches {counts_a}; {card}")
+        if yld_spec <= 1.0:
+            raise AssertionError(f"spec: {yld_spec} tokens a step: no draft was accepted")
+        if on_card and counts_a["paged_decode_bf16"] <= 0:
+            raise AssertionError("spec: paged_decode_bf16 was not launched")
+        # (b) sampled, on the same engine.
+        sreqs = [GenRequest(qid=f"b{i}", input_ids=list(p), max_new_tokens=sz["sampled_new"],
+                            temperature=1.0, top_p=0.9) for i, p in enumerate(prompts)]
+        m_a = eng.metrics()
+        res_b, _ = run_requests(eng, sreqs)
+        for r in sreqs:
+            ids, lps = res_b[r.qid].output_ids, res_b[r.qid].output_logprobs
+            if not (1 <= len(ids) <= r.max_new_tokens and len(lps) == len(ids)
+                    and all(0 <= t < V for t in ids)
+                    and all(math.isfinite(x) and x <= 0.0 for x in lps)):
+                raise AssertionError(f"spec: sampled {r.qid} gave invalid ids or logprobs")
+        tf_b = teacher_forced_check(torch, dev, cfg, params, sreqs, res_b, agree_min=0.0,
+                                    greedy_only=False, label="leg (b) sampled, teacher-forced")
+        m_b = eng.metrics()
+        steps_b = m_b["spec_active_steps"] - m_a["spec_active_steps"]
+        yld_b = (m_b["spec_emitted_tokens"] - m_a["spec_emitted_tokens"]) / max(steps_b, 1.0)
+        log(f"  leg (b) sampled, {n} requests x {sz['sampled_new']} tokens: {yld_b:.3f} tokens "
+            f"a step")
+    finally:
+        eng.stop()
+
+    # (c) int8 weights: alone, with speculation, and with the int8 pool too.
+    eng = make(decode_weight_dtype="int8")
+    try:
+        _, tok_w, _, _ = drive(eng, "c0-")
+    finally:
+        eng.stop()
+    eng = make(decode_weight_dtype="int8", **spec_kw)
+    try:
+        _, tok_sw, yld_sw, _ = drive(eng, "c1-")
+    finally:
+        eng.stop()
+    eng = make(decode_weight_dtype="int8", kv_cache_dtype="int8", **spec_kw)
+    try:
+        res_c, tok_c, yld_c, counts_c = drive(eng, "c2-", counted=True)
+        add(counts_c)
+        cfg_d, deq = dequantized_tree(cfg, params, eng._qparams)
+    finally:
+        eng.stop()
+    firsts = [(res_c[f"c2-{i}"].output_ids[0], res_plain[f"a0-{i}"].output_ids[0])
+              for i in range(n)]
+    if any(x != y for x, y in firsts):
+        raise AssertionError(f"spec: leg (c)'s first tokens differ from the bf16 engine's "
+                             f"(prefill is unquantized): {firsts}")
+    tf_c = teacher_forced_check(torch, dev, cfg_d, deq, greedy("c2-", sz["new"]), res_c,
+                                agree_min=SPEC_C_AGREE, med_max=SPEC_C_MED,
+                                label="leg (c) teacher-forced check on w_q * s")
+    del deq
+    log(f"  leg (c) int8 pool + speculation + int8 weights: {tok_c:.1f} decode tok/s, "
+        f"{yld_c:.3f} tokens a step, first tokens equal the bf16 engine's; launches "
+        f"{counts_c}; {card}")
+    if on_card and (counts_c["w8a16_matmul_bf16"] <= 0 or counts_c["paged_decode_int8"] <= 0):
+        raise AssertionError("spec: w8a16_matmul_bf16 or paged_decode_int8 was not launched")
+    decode = dict(bf16=tok_plain, int8_weights=tok_w, spec=tok_spec, spec_int8_weights=tok_sw)
+    log(f"  decode tok/s ({n} x {sz['new']} greedy tokens, bf16 pool): plain bf16 "
+        f"{tok_plain:.1f}, int8 weights {tok_w:.1f}, speculative {tok_spec:.1f} "
+        f"({yld_spec:.3f} tokens a step), speculative with int8 weights {tok_sw:.1f} "
+        f"({yld_sw:.3f}); {card}")
+    stats.update(
+        greedy=dict(plain_tok_s=tok_plain, spec_tok_s=tok_spec, spec_tokens_per_step=yld_spec,
+                    parted=parted, teacher_forced=tf_a),
+        sampled=dict(teacher_forced=tf_b, spec_tokens_per_step=yld_b),
+        decode_tok_s=decode,
+        spec_tokens_per_step=dict(spec=yld_spec, spec_int8_weights=yld_sw, all_three=yld_c),
+        all_three=dict(decode_tok_s=tok_c, spec_tokens_per_step=yld_c, teacher_forced=tf_c),
+        engines_s=time.perf_counter() - t0)
+
+    # The server: an HTTP wave, /metrics, a weight update.
+    t1 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_spec_")
+    name_resolve.reconfigure("nfs", record_root=os.path.join(tmp, "name_resolve"))
+    exp = os.path.basename(tmp)
+    gcfg = GenerationServerConfig(
+        experiment_name=exp, trial_name="spec", server_index=0,
+        model=ModelAbstraction("tpu_transformer", args=dict(config=dataclasses.asdict(cfg))),
+        max_concurrent_requests=sz["slots"], max_seq_len=sz["max_seq_len"],
+        kv_page_size=sz["page"], decode_block_steps=sz["block"], prefill_chunk=sz["chunk"],
+        speculative_draft_len=sz["draft"], speculative_ngram=sz["ngram"],
+        decode_weight_dtype="int8", seed=seed, device=str(dev))
+    server = GenerationServer()
+    server.configure(gcfg, experiment_name=gcfg.experiment_name, trial_name=gcfg.trial_name,
+                     worker_name=gcfg.worker_name)
+    run = threading.Thread(target=server.run, daemon=True)
+    run.start()
+    try:
+        url = name_resolve.get(names.gen_server_url(exp, "spec", "0"))
+        wave = greedy("s", sz["server_new"], which=set(range(0, 2 * sz["server_req"], 2)))
+        kernels.reset_launches()
+        _, wall_s = http_wave(url, [generate_body(r) for r in wave])
+        counts_s = dict(kernels.launches)
+        add(counts_s)
+        _, _, m = http_call(url, "/metrics")
+        emitted, steps = float(m["areal:spec_emitted_tokens"]), float(m["areal:spec_active_steps"])
+        log(f"  server wave: {len(wave)} requests x {sz['server_new']} tokens in {wall_s:.2f} s; "
+            f"/metrics areal:spec_emitted_tokens {emitted}, areal:spec_active_steps {steps}, "
+            f"areal:spec_tokens_per_step {m['areal:spec_tokens_per_step']}; launches {counts_s}")
+        if not emitted > steps > 0:
+            raise AssertionError(f"spec: the server's /metrics read {emitted} tokens over "
+                                 f"{steps} steps")
+        if on_card and counts_s["w8a16_matmul_bf16"] <= 0:
+            raise AssertionError("spec: w8a16_matmul_bf16 was not launched through the server")
+        new_params = perturbed(torch, server.engine.params, seed + 1)
+        dump_dir = os.path.join(tmp, "param_realloc", "actor")
+        dump_s = dump_raw_params(new_params, dump_dir, version=1)
+        status, _, upd = http_call(url, "/update_weights_from_disk", {
+            "model_path": dump_dir, "allow_interrupt": True, "version": 1})
+        if status != 200 or not upd.get("success"):
+            raise AssertionError(f"spec: the weight update failed: {status} {upd}")
+        after = greedy("u", sz["upd_new"], which=set(range(sz["upd_req"])))
+        got = {}
+        for r in after:
+            status, _, body = http_call(url, "/generate", generate_body(r))
+            if status != 200 or body["version_start"] != 1:
+                raise AssertionError(f"spec: /generate after the update: {status} {body}")
+            got[r.qid] = body["output_ids"]
+    finally:
+        server.exit()
+        run.join(timeout=120)
+    try:
+        eng = make(new_params, decode_weight_dtype="int8", **spec_kw)
+        try:
+            want = {}
+            for r in after:
+                res, _ = run_requests(eng, [dataclasses.replace(r, done_cb=None)])
+                want[r.qid] = res[r.qid].output_ids
+        finally:
+            eng.stop()
+        log(f"  server after the update (dump {dump_s:.1f} s, load_s {upd['load_s']:.3f}): "
+            f"greedy tokens of {len(after)} requests equal an engine's on the new params: "
+            f"{got == want}; server leg {time.perf_counter() - t1:.1f} s")
+        if got != want:
+            raise AssertionError("spec: after the weight update the server's tokens do not "
+                                 "follow the new weights (a stale int8 copy?)")
+    finally:
+        del new_params
+        shutil.rmtree(tmp, ignore_errors=True)
+    stats.update(server=dict(spec_emitted_tokens=emitted, spec_active_steps=steps,
+                             wave_s=wall_s, dump_s=dump_s, load_s=upd["load_s"],
+                             follows_new_weights=True),
+                 server_s=time.perf_counter() - t1, launches=launches)
+    return stats
+
+
+# ----------------------------------------------------------------------
+# Phases 8-9: training
 # ----------------------------------------------------------------------
 
 
@@ -1919,7 +2380,7 @@ def train_phase(torch, rng, dev, cfg, seed, sizes=TRAIN_SIZES):
 
 
 # ----------------------------------------------------------------------
-# Phase 9: the worker system
+# Phase 10: the worker system
 # ----------------------------------------------------------------------
 
 WORKER_STEPS = 2
@@ -2666,7 +3127,7 @@ def async_ppo_phase(torch, rng, dev, cfg, seed, card, sizes=ASYNC_SIZES, disagg=
 
 
 # ----------------------------------------------------------------------
-# Phase 11: sync PPO end to end
+# Phase 12: sync PPO end to end
 # ----------------------------------------------------------------------
 
 SYNC_SIZES = dict(n_prompts=64, prompt=(256, 1024), train_batch_size=8, group=4,
@@ -2916,7 +3377,7 @@ def sync_ppo_phase(torch, rng, dev, cfg, seed, card, sizes=SYNC_SIZES):
 
 
 # ----------------------------------------------------------------------
-# Phase 12: disaggregated serving and the KV plane
+# Phase 13: disaggregated serving and the KV plane
 # ----------------------------------------------------------------------
 
 # P prefill (bf16 pool), D decode (bf16 pool, a tier and a prefix budget
@@ -3472,7 +3933,7 @@ def disagg_phase(torch, rng, dev, cfg, seed, card, sizes=DISAGG_SIZES):
 
 
 # ----------------------------------------------------------------------
-# Phase 13: the weight-distribution plane
+# Phase 14: the weight-distribution plane
 # ----------------------------------------------------------------------
 
 # The serving configuration behind the plane; the in-flight wave (two
@@ -3889,7 +4350,7 @@ def weight_plane_phase(torch, rng, dev, cfg, seed, card, sizes=PLANE_SIZES,
 
 
 # ----------------------------------------------------------------------
-# Phase 14: supervised fine-tuning through main_sft, saved and served
+# Phase 15: supervised fine-tuning through main_sft, saved and served
 # ----------------------------------------------------------------------
 
 # The sft phase at real size; a rehearsal on the CPU passes smaller ones.
@@ -4502,7 +4963,7 @@ def recover_phase(torch, rng, dev, cfg, seed, card, sizes=RECOVER_SIZES):
 
 
 # ----------------------------------------------------------------------
-# Phase 16: async PPO on agentic episodes (async_ppo_phase with agentic)
+# Phase 17: async PPO on agentic episodes (async_ppo_phase with agentic)
 # ----------------------------------------------------------------------
 
 # The agentic phase at real size; a rehearsal on the CPU passes smaller
@@ -4761,13 +5222,14 @@ def main() -> int:
         parity_flash_bwd(torch, rng, dev, kernel_rows,
                          np.random.default_rng([args.seed, 1]))
         parity_gae(torch, rng, dev, kernel_rows, np.random.default_rng([args.seed, 3]))
+        parity_w8a16(torch, dev, kernel_rows, np.random.default_rng([args.seed, 14]))
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         phase_done("parity", t0)
 
     cfg = r1_distill_qwen_1_5b_config()
     serve_cfg = dataclasses.replace(cfg, n_layers=SERVE_LAYERS)
-    serving = [p for p in phases if p in ("serve_bf16", "serve_int8", "interrupt")]
+    serving = [p for p in phases if p in ("serve_bf16", "serve_int8", "interrupt", "spec")]
     main_counts = {}
     if serving:
         from areal_tpu_torch.models.transformer import count_params, init_params
@@ -4798,6 +5260,21 @@ def main() -> int:
             t0 = time.perf_counter()
             report["phases"]["interrupt"] = interrupt_phase(torch, rng, dev, serve_cfg, params)
             phase_done("interrupt", t0)
+        if "spec" in phases:
+            log("phase spec")
+            t0 = time.perf_counter()
+            # Its own generator: the later phases' draws stay those of a
+            # run without it.
+            report["phases"]["spec"] = spec_phase(
+                torch, np.random.default_rng([args.seed, 15]), dev, serve_cfg, params,
+                args.seed, card)
+            # Speculative decoding and int8 weights are a main path of their
+            # own: their launches add.
+            for k, n in report["phases"]["spec"]["launches"].items():
+                if n:
+                    main_counts[k] = main_counts.get(k, 0) + n
+            torch.cuda.empty_cache()
+            phase_done("spec", t0)
         # The serving engines and pools are gone; free their weights too
         # before the server and the training phases.
         del params

@@ -14,8 +14,9 @@ time is asserted: CPU speed says nothing of the card's.
 A second run puts a prefill and a decode server in the fleet (a KV
 tier, the prefix cache and the manager's prefix index) and holds the
 rollouts to handoffs. The launcher's option surface is checked beside it: ``--help-config``
-lists the reference's keys, and options the port lacks raise before any
-worker starts.
+lists the reference's keys, options the port lacks raise before any
+worker starts, and the speculative-decoding and int8-weight options reach
+the servers' configs as the reference's launcher sends them.
 """
 
 import numpy as np
@@ -80,10 +81,9 @@ def test_help_config_lists_the_reference_keys(capsys):
 
 
 @pytest.mark.parametrize("override", [
-    "train_n_hosts=2", "auto_eval=true", "allocation_mode=d2", "gen_decode_weight_dtype=int8",
+    "train_n_hosts=2", "auto_eval=true", "allocation_mode=d2",
     "gen_weight_shards=0/1", "gen_elastic_fleet=true", "gen_autoscale=true",
     "gen_tensor_parallel=2", "actor.prefetch_depth=2", "ppo.generation_size=8",
-    "gen_speculative_draft_len=2",
 ])
 def test_unported_options_raise(override):
     cfg = cli_args.AsyncPPOMATHExpConfig()
@@ -135,3 +135,41 @@ def test_agent_type_builds_the_reference_agent_and_env(agent_type):
         assert g.agent.args == w.agent.args
     assert got[0].env.type_ == ("tool-use" if agent_type == "tool-use"
                                 else "math-code-single-step")
+
+
+@pytest.mark.parametrize("overrides", [
+    ["gen_speculative_draft_len=4", "gen_decode_weight_dtype=int8"],
+    ["gen_speculative_draft_len=2", "gen_speculative_ngram=3", "gen_speculative_window=0"],
+    ["gen_speculative_window=256", "gen_decode_weight_dtype=model"],
+    [],
+])
+def test_spec_and_int8_options_reach_the_servers_as_the_reference_sends_them(overrides):
+    """The launcher passes speculative decoding and int8 decode weights into
+    every server's config, field for field as the reference's does for the
+    same overrides."""
+    from areal_tpu.api import cli_args as jcli_args
+    from areal_tpu.experiments import make_experiment as jmake_experiment
+
+    base = ["actor.path=/nonexistent", "n_generation_servers=2"]
+    got_cfg, want_cfg = cli_args.AsyncPPOMATHExpConfig(), jcli_args.AsyncPPOMATHExpConfig()
+    cli_args.apply_overrides(got_cfg, base + overrides + ["device=cpu"])
+    jcli_args.apply_overrides(want_cfg, base + overrides)
+    got = make_experiment("async-ppo-math", got_cfg).generation_servers
+    want = jmake_experiment("async-ppo-math", want_cfg).generation_servers
+    assert len(got) == len(want) == 2
+    fields = ("speculative_draft_len", "speculative_ngram", "speculative_window",
+              "decode_weight_dtype", "kv_cache_dtype", "max_concurrent_requests",
+              "decode_block_steps")
+    for g, w in zip(got, want):
+        assert {f: getattr(g, f) for f in fields} == {f: getattr(w, f) for f in fields}
+
+
+@pytest.mark.parametrize("bad", ["fp8", "int4"])
+def test_a_bad_decode_weight_dtype_raises_as_in_the_reference(bad):
+    """The config refuses a precision neither engine has, as the
+    reference's config does (its __post_init__ is copied)."""
+    from areal_tpu.api import cli_args as jcli_args
+
+    for mod in (cli_args, jcli_args):
+        with pytest.raises(ValueError, match="gen_decode_weight_dtype"):
+            mod.AsyncPPOMATHExpConfig(gen_decode_weight_dtype=bad)

@@ -16,11 +16,17 @@ both through ``/update_weights_from_disk``; then:
 - ``/health`` is equal, each package's name_resolve reads the URL the
   other registered, and the heartbeat records carry the same fields;
 - the port refuses every unported option at boot; the weight plane's
-  routes answer a server holding nothing as the reference's do.
+  routes answer a server holding nothing as the reference's do;
+- with ``speculative_draft_len=2`` and ``decode_weight_dtype="int8"`` a
+  port server and a reference server give equal greedy tokens and equal
+  ``areal:spec_*`` lines, and each package's gserver manager parses the
+  same fleet yield from those ``/metrics`` and logs it alike.
 """
 
+import asyncio
 import json
 import threading
+import time
 import urllib.error
 import urllib.request
 import uuid
@@ -296,7 +302,6 @@ def test_unported_routes_answer_404(fleet, path, method):
 
 @pytest.mark.parametrize("option", [
     dict(tensor_parallel=2), dict(weight_shard_rank=0, weight_shard_degree=2),
-    dict(speculative_draft_len=2), dict(decode_weight_dtype="int8"),
     dict(weight_shard_degree=2),
 ])
 def test_unported_options_are_refused_at_boot(option):
@@ -346,3 +351,159 @@ def test_chaos_control_and_a_dead_engine_match(fleet, monkeypatch):
     finally:
         for eng in engines:
             eng.fatal_error = None
+
+
+# ---------------------------------------------------------------------------
+# Speculative decoding and int8 decode weights behind the server
+# ---------------------------------------------------------------------------
+
+SPEC_KW = dict(SERVER_KW, speculative_draft_len=2, decode_weight_dtype="int8",
+               prefix_cache_tokens=None)
+SPEC_LINES = ("areal:spec_tokens_per_step", "areal:spec_emitted_tokens",
+              "areal:spec_active_steps")
+
+
+def _settled_metrics(url):
+    """/metrics once two reads 50 ms apart agree on the deterministic lines:
+    the engine refreshes its page snapshot on the lap after a request's
+    reply."""
+    prev = None
+    for _ in range(100):
+        text = get(url, "/metrics")[2].decode()
+        now = [kv for kv in parse_metrics(text) if kv[0] in DETERMINISTIC]
+        if now == prev:
+            return text
+        prev = now
+        time.sleep(0.05)
+    return text
+
+
+@pytest.fixture(scope="module")
+def spec_fleet(tmp_path_factory):
+    """A reference and a port server with both options on, loaded with one
+    raw dump at version 1, each served one greedy wave."""
+    from areal_tpu.system.generation_server import GenerationServer as RefServer
+    from areal_tpu_torch.system.generation_server import GenerationServer
+
+    import areal_tpu.engine.factories  # noqa: F401  (the reference's model registry)
+
+    tmp = tmp_path_factory.mktemp("gserver_spec")
+    saved = ref_nr._default.repo, name_resolve._default.repo
+    ref_nr.reconfigure("nfs", record_root=str(tmp / "nr"))
+    name_resolve.reconfigure("nfs", record_root=str(tmp / "nr"))
+    run_id = uuid.uuid4().hex[:6]
+    ref_cfg = RefConfig(experiment_name=f"sref-{run_id}", trial_name="t0",
+                        model=RefModel("tpu_transformer", args=dict(config=dict(TINY))),
+                        **SPEC_KW)
+    port_cfg = GenerationServerConfig(
+        experiment_name=f"sport-{run_id}", trial_name="t0",
+        model=ModelAbstraction("tpu_transformer", args=dict(config=dict(TINY))),
+        device="cpu", **SPEC_KW)
+    ref, port = RefServer(), GenerationServer()
+    threads = []
+    try:
+        threads.append((ref, _start(ref, ref_cfg)))
+        threads.append((port, _start(port, port_cfg)))
+        tree = jax.tree_util.tree_map(
+            np.asarray, init_params(RefTransformerConfig(**TINY), jax.random.PRNGKey(1)))
+        dump_dir = str(tmp / "realloc" / "actor")
+        dump_raw_params(tree, dump_dir, version=1)
+        rng = np.random.default_rng(5)
+        prompts = []
+        for n in (6, 19, 33, 11):
+            p = rng.integers(0, TINY["vocab_size"], size=n).tolist()
+            prompts.append(p + p[:5] * 2)  # a repeated span to draft from
+        fleet = dict(ref=ref, port=port, outs={}, metrics={})
+        for side in ("ref", "port"):
+            url = fleet[side].address
+            status, _, body = post(url, "/update_weights_from_disk",
+                                   {"model_path": dump_dir, "allow_interrupt": True,
+                                    "version": 1})
+            assert status == 200, body
+            outs = []
+            for i, p in enumerate(prompts):
+                status, _, body = post(url, "/generate", {
+                    "qid": f"s{i}", "input_ids": p,
+                    "gconfig": {"max_new_tokens": 24, "greedy": True}})
+                assert status == 200, body
+                outs.append(json.loads(body))
+            fleet["outs"][side] = outs
+            fleet["metrics"][side] = _settled_metrics(url)
+        yield fleet
+    finally:
+        for worker, thread in threads:
+            _stop(worker, thread)
+        ref_nr._default.repo.reset()
+        name_resolve._default.repo.reset()
+        ref_nr._default.repo, name_resolve._default.repo = saved
+
+
+@pytest.mark.timeout(180)
+def test_spec_and_int8_weights_match_the_reference_server(spec_fleet):
+    for a, b in zip(spec_fleet["outs"]["ref"], spec_fleet["outs"]["port"]):
+        assert b["output_ids"] == a["output_ids"], a["qid"]
+        np.testing.assert_allclose(b["output_logprobs"], a["output_logprobs"],
+                                   rtol=1e-4, atol=1e-5)
+        assert (b["no_eos"], b["version_start"]) == (a["no_eos"], a["version_start"])
+    ref_d, port_d = assert_same_metrics(spec_fleet["metrics"]["ref"],
+                                        spec_fleet["metrics"]["port"])
+    for name in SPEC_LINES:
+        assert port_d[name] == ref_d[name], name
+    assert float(port_d["areal:spec_emitted_tokens"]) > float(port_d["areal:spec_active_steps"])
+    assert spec_fleet["port"].engine._qparams is not None
+
+
+def _manager_pair(urls):
+    """Each package's manager, built as tests/test_torch_rollout_parts.py
+    builds them, with the state its /metrics poll folds into."""
+    from tests.test_torch_rollout_parts import _port_manager, _ref_manager
+
+    out = []
+    for make in (_ref_manager, _port_manager):
+        m = make(urls=urls)
+        for attr in ("_server_gen_totals", "_server_spec_emitted", "_server_spec_steps",
+                     "_server_prefix_hits", "_server_prefix_reused", "_server_gen_reqs"):
+            setattr(m, attr, {u: 0.0 for u in urls})
+        for attr in ("_server_ttft_hist", "_server_itl_hist", "_server_total_pages",
+                     "_server_elastic", "_rerole_orig", "_server_kv", "_server_shards"):
+            setattr(m, attr, {})
+        out.append(m)
+    return out
+
+
+@pytest.mark.timeout(120)
+def test_managers_parse_and_log_the_fleet_yield_alike(spec_fleet):
+    import logging
+
+    from areal_tpu_torch.system import gserver_manager as tgm
+
+    urls = [spec_fleet["ref"].address, spec_fleet["port"].address]
+    ref_m, port_m = _manager_pair(urls)
+    for m in (ref_m, port_m):
+        asyncio.run(m._poll_metrics())
+    assert port_m._server_spec_emitted == ref_m._server_spec_emitted
+    assert port_m._server_spec_steps == ref_m._server_spec_steps
+    assert port_m._server_gen_totals == ref_m._server_gen_totals
+    steps = sum(ref_m._server_spec_steps.values())
+    assert steps > 0
+    # The reference's log suffix, from its own parsed sums.
+    want = f" spec_tokens_per_step={sum(ref_m._server_spec_emitted.values()) / steps:.2f}"
+    port_m.rollout_stat = type("Stat", (), {"as_dict": lambda self: {}})()
+    port_m._last_gen_total, port_m._last_throughput_log = 0.0, 0.0
+    lines = []
+
+    class Grab(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    grab = Grab(level=logging.INFO)
+    tgm.logger.addHandler(grab)  # the package's loggers do not propagate
+    try:
+        port_m._log_throughput(10.0)
+        assert lines and lines[-1].endswith(want)
+        # Speculation off fleet-wide: no yield in the line.
+        port_m._server_spec_steps = {u: 0.0 for u in urls}
+        port_m._log_throughput(20.0)
+        assert len(lines) == 2 and "spec_tokens_per_step" not in lines[-1]
+    finally:
+        tgm.logger.removeHandler(grab)

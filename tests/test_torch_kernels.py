@@ -54,12 +54,13 @@ def test_every_kernel_of_the_port_is_registered():
     assert set(kernels.ENTRY_POINTS) == set(kernels.launches) == {
         "flash_attn_fwd_bf16", "paged_decode_bf16", "paged_decode_int8",
         "flash_attn_bwd_dq_bf16", "flash_attn_bwd_dkv_bf16", "gae_scan_f32",
-        "packed_gae_f32"}
+        "packed_gae_f32", "w8a16_matmul_bf16"}
     assert {lib for lib, _ in kernels.ENTRY_POINTS.values()} == set(kernels.SOURCES)
     assert kernels.ENTRY_POINTS["flash_attn_bwd_dq_bf16"][0] == "flash_attn_bwd"
     assert kernels.ENTRY_POINTS["flash_attn_bwd_dkv_bf16"][0] == "flash_attn_bwd"
     assert kernels.ENTRY_POINTS["gae_scan_f32"][0] == "gae_scan"
     assert kernels.ENTRY_POINTS["packed_gae_f32"][0] == "gae_scan"
+    assert kernels.ENTRY_POINTS["w8a16_matmul_bf16"][0] == "w8a16_matmul"
     on_disk = {p.name for p in kernels.CSRC_DIR.glob("*.cu")}
     assert on_disk == set(kernels.SOURCES.values())
 
