@@ -316,7 +316,9 @@ def _paged_decode_layer(x, lp, cfg, cos, sin, kp_l, vp_l, w_pidx, w_off,
     q, k, v = qkv(norm(x, lp["ln1"], cfg), a, cfg, cdt, cos, sin)
     _write_kv(kp_l, w_pidx, w_off, k)
     _write_kv(vp_l, w_pidx, w_off, v)
-    out = paged_decode_attention(q, kp_l, vp_l, lengths + 1, page_indices)
+    # q is a view of a grouped projection's output when no bias, norm or
+    # rotary made it anew; the kernel takes contiguous rows.
+    out = paged_decode_attention(q.contiguous(), kp_l, vp_l, lengths + 1, page_indices)
     x = x + attn_out(out, a, cfg, cdt)
     return x + mlp(norm(x, lp["ln2"], cfg), lp["mlp"], cfg, cdt)
 

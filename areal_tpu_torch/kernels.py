@@ -14,8 +14,8 @@ The wrappers (``ops/attention.flash_packed_attention`` and its backward,
 pass tensor pointers and the
 current CUDA stream, raise if the C entry point returns a CUDA error,
 and add one to ``launches[name]`` per call of the entry point (one call
-may run more than one CUDA kernel: the split-K paged decode and the
-split-K W8A16 matmul run their splits, then a combine), so a run can show that its main path went
+may run more than one CUDA kernel: the split-K paged decode runs its
+splits, then a combine), so a run can show that its main path went
 through each kernel.
 """
 
@@ -90,7 +90,8 @@ ENTRY_POINTS = {
         "flash_attn_bwd", [P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, P]),
     "gae_scan_f32": ("gae_scan", [P, P, P, I, I, I, I, P, P, P, U, P]),
     "packed_gae_f32": ("gae_scan", [P, P, P, P, P, P, F, F, I, I, I, I, P, P, P, U, P]),
-    "w8a16_matmul_bf16": ("w8a16_matmul", [P, P, P, P, P, I, I, I, I, I, I, I, P]),
+    "w8a16_matmul_bf16": (
+        "w8a16_matmul", [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P]),
 }
 
 
@@ -175,15 +176,21 @@ def _function(entry: str):
     return fn
 
 
-def launch(entry: str, *args) -> None:
+def launch(entry: str, *args, stream=None) -> None:
     """Call C entry point ``entry`` with ``args`` (tensors become their
-    data pointers, None a null pointer) on the current CUDA stream, count
-    the launch, and raise on a CUDA error."""
+    data pointers, None a null pointer) on the current CUDA stream of the
+    tensors' device (or `stream`, that stream's handle, where the caller
+    has it), count the launch, and raise on a CUDA error."""
     fn = _function(entry)
     device = next(a.device for a in args if isinstance(a, torch.Tensor))
     c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    with torch.cuda.device(device):  # the runtime launches on this device
-        rc = fn(*c_args, torch.cuda.current_stream(device).cuda_stream)
+    if stream is None:
+        stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index is None or device.index == torch.cuda.current_device():
+        rc = fn(*c_args, stream)
+    else:
+        with torch.cuda.device(device):  # the runtime launches on this device
+            rc = fn(*c_args, stream)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {entry} failed: cudaError_t {rc}")
     launches[entry] += 1

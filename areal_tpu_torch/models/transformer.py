@@ -32,7 +32,7 @@ from areal_tpu_torch.models.config import TransformerConfig
 from areal_tpu_torch.ops.attention import packed_attention
 from areal_tpu_torch.ops.norms import layer_norm, rms_norm
 from areal_tpu_torch.ops.rotary import apply_rotary, rotary_cos_sin, rotary_inv_freq
-from areal_tpu_torch.ops.wquant import qmat
+from areal_tpu_torch.ops.wquant import qmat, qmats
 
 Params = Dict[str, Any]
 
@@ -118,7 +118,7 @@ def count_params(params: Params) -> int:
 def layer_params(layers: Params, i: int) -> Params:
     """Layer ``i`` of the stacked layer tree (views into the leaves). A
     quantized (int8, scale) leaf (ops/wquant.py) gives the pair of its
-    layer-``i`` slices."""
+    layer-``i`` slices, a packed one (``PackedW8``) its layer-``i`` view."""
 
     def pick(v):
         if isinstance(v, dict):
@@ -156,8 +156,7 @@ def _act(x, cfg: TransformerConfig):
 
 def mlp(h, lp, cfg: TransformerConfig, cdt):
     if cfg.mlp_type == "gated":
-        g = qmat(h, lp["w_gate"], cdt)
-        u = qmat(h, lp["w_up"], cdt)
+        g, u = qmats(h, lp, ("w_gate", "w_up"), cdt)
         if "b_gate" in lp:
             g = g + lp["b_gate"].to(cdt)
             u = u + lp["b_up"].to(cdt)
@@ -178,9 +177,7 @@ def qkv(h, a, cfg: TransformerConfig, cdt, cos, sin):
     """Projections, qk-norm and rotary: h [..., D] -> q [..., Hq, hd],
     k and v [..., Hkv, hd]. Shared by the packed forward and the paged
     decode step."""
-    q = qmat(h, a["wq"], cdt)
-    k = qmat(h, a["wk"], cdt)
-    v = qmat(h, a["wv"], cdt)
+    q, k, v = qmats(h, a, ("wq", "wk", "wv"), cdt)
     if "bq" in a:
         q = q + a["bq"].to(cdt)
         k = k + a["bk"].to(cdt)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (areal_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N] [--out report.json] [--profile-serving]
+    python3 chip_smoke.py [--seed N] [--out report.json] [--profile-serving] [--w8a16-sweep]
         [--phases build,parity,serve_bf16,serve_int8,interrupt,spec,http,grad,train,workers,
                   async_ppo,sync_ppo,disagg,weight_plane,sft,recover,agentic]
 
@@ -18,10 +18,14 @@ fails, and on a machine without CUDA):
                  PyTorch library call (the forward, paged decode and both
                  GAE entries by the device time of their kernels beside
                  the whole call, the backward with CUDA events); the
-                 W8A16 matmul at the decode path's shapes for 16, 37 and
-                 80 rows against dequantize + cuBLAS, timed beside bf16
-                 torch.matmul on the unquantized weight and summed over
-                 one decode step at 28 layers plus the head.
+                 W8A16 matmul at the decode path's launches (wq|wk|wv and
+                 w_gate|w_up grouped, gpt2's 50257-column head too) for
+                 16, 37 and 80 rows against dequantize + cuBLAS, timed
+                 beside bf16 torch.matmul on the unquantized weight and
+                 torch._weight_int8pack_mm, and summed over one decode
+                 step at 28 layers plus the head; --w8a16-sweep adds the
+                 step's time over ring stages, chunks a stage and CTAs
+                 an SM.
 3. serve_bf16  - a ServingEngine at the full width of
                  DeepSeek-R1-Distill-Qwen-1.5B and 4 of its 28 layers
                  (seeded random weights; cut for the run's time limit, to
@@ -1082,14 +1086,26 @@ def parity_gae(torch, rng, dev, report, gae_rng):
             plan_modes=[dict(shape=m["shape"], chosen=m["chosen"], **m[kname]) for m in modes])
 
 
-# The decode-path matmuls of R1-Distill-Qwen-1.5B as (names, K, N): the
-# W8A16 kernel's shapes. A decode step runs each name once a layer (28) and
-# the head once; M is the step's rows, 16 slots plain and 80 at draft
-# length 4, 37 a ragged count.
-W8A16_SHAPES = ((("wq", "wo"), 1536, 1536), (("wk", "wv"), 1536, 256),
-                (("w_gate", "w_up"), 1536, 8960), (("w_down",), 8960, 1536),
-                (("head",), 1536, 151936))
+# The decode-path matmuls of R1-Distill-Qwen-1.5B as the decode step
+# launches them: (names, K, parts), the projections that read the same
+# input packed side by side (one launch for wq|wk|wv, one for w_gate|w_up),
+# each launched once a layer (28) and the head once; M is the step's rows,
+# 16 slots plain and 80 at draft length 4, 37 a ragged count.
+W8A16_SHAPES = ((("wq", "wk", "wv"), 1536, (1536, 256, 256)), (("wo",), 1536, (1536,)),
+                (("w_gate", "w_up"), 1536, (8960, 8960)), (("w_down",), 8960, (1536,)),
+                (("head",), 1536, (151936,)))
+# Held to the plain version but not timed: one projection alone (wk, the
+# smallest); gpt2's head, whose 50257 columns (a row stride of 50257
+# bytes) only the packed layout makes legal for 16-byte copies; a ragged
+# K, whose activation rows the wrapper zero-pads to 16 bytes for TMA.
+W8A16_PARITY_SHAPES = ((("wk",), 1536, (256,)), (("gpt2 head",), 768, (50257,)),
+                       (("ragged",), 100, (40,)))
 W8A16_M = (16, 37, 80)
+# Held to the plain version on the grouped wq|wk|wv launch only, not
+# timed: with W8A16_M's 16, 48 and 80 they reach every row-block width the
+# kernel is built for (ops/wquant.MB_WIDTHS), which the engine takes with
+# more slots or other draft lengths; 300 rows run two row blocks of 160.
+W8A16_WIDE_M = (32, 64, 96, 128, 160, 192, 256, 300)
 W8A16_TIMED_M = (16, 80)
 MODEL_LAYERS = 28
 # The kernel against its plain version, both bf16 with float32 sums in
@@ -1100,6 +1116,11 @@ W8A16_RTOL = 1e-2
 # W8A16_RING_BYTES, so each call finds its weight out of the 50 MB L2, as
 # a decode step does (it streams every layer's weights once).
 W8A16_RING_BYTES = 128 << 20
+# The sweep (--w8a16-sweep): ring stages (even: a slot feeds one of the
+# two consumer warpgroups), chunks a stage (the K depth a stage carries, 64
+# each) and CTAs an SM, around the defaults of ops/wquant (STAGES, CPS,
+# CTAS_PER_SM).
+W8A16_SWEEP = dict(stages=(2, 4, 6, 8), cps=(1, 2, 4), ctas_per_sm=(1, 2))
 
 
 class Ring:
@@ -1113,34 +1134,58 @@ class Ring:
         return self.items[self.i]
 
 
+def w8a16_case(torch, dev, gen, K, parts):
+    """(bf16 weight [K, N], int8 codes, scales, packed) of one shape, drawn
+    on the card; the codes and scales of each part are quantized apart, as
+    the decode tree does."""
+    from areal_tpu_torch.ops.wquant import pack_weights, quantize_weight
+
+    ws = [(torch.randn((K, n), generator=gen, device=dev) * K ** -0.5).to(torch.bfloat16)
+          for n in parts]
+    pairs = [quantize_weight(w) for w in ws]
+    w = torch.cat(ws, dim=1)
+    wq = torch.cat([q for q, _ in pairs], dim=1)
+    s = torch.cat([x for _, x in pairs])
+    return w, wq, s, pack_weights(pairs)
+
+
 def parity_w8a16(torch, dev, report, case_rng):
     """The W8A16 kernel against its plain version (dequantize, cuBLAS,
-    scale) at the decode-path shapes and M in W8A16_M: per-row error, two
-    runs bit-equal. At M = 16 and 80 it times the kernel (device time of
-    its kernels), the plain version and torch.matmul on the unquantized
-    bf16 weight (the call int8 weights replace; device time), beside the
-    bound (int8 weight, scales, activations and output once / 3.35 TB/s),
-    and sums them over one decode step at the model's 28 layers plus the
-    head. Each timed call reads its weight from a ring of copies larger
-    than the L2 (W8A16_RING_BYTES). Weights and activations are drawn on
-    the card from a generator seeded from `case_rng`."""
-    from areal_tpu_torch.ops.wquant import _qmat_plain, quantize_weight, w8a16_matmul
+    scale) at the decode path's launches (W8A16_SHAPES, grouped as the
+    decode step launches them) and W8A16_PARITY_SHAPES, M in W8A16_M (and
+    W8A16_WIDE_M on wq|wk|wv): the per-row error within W8A16_RTOL, two
+    runs bit-equal. At M = 16 and 80
+    it times the kernel (device time of its launch), the plain version,
+    torch.matmul on the unquantized bf16 weight (one call a launch, on the
+    grouped projections' concatenated weights too, where the bf16 decode
+    path makes one a projection; device time) and torch._weight_int8pack_mm on the transposed
+    codes (the same function in one PyTorch call; device time, or the
+    error it raised), beside the bound (int8 weight, scales, activations
+    and output once / 3.35 TB/s), and sums them over one decode step at the
+    model's 28 layers plus the head. Each timed call reads its weight from
+    a ring of copies larger than the L2 (W8A16_RING_BYTES). Weights and
+    activations are drawn on the card from a generator seeded from
+    `case_rng`."""
+    from areal_tpu_torch.ops.wquant import PackedW8, _qmat_plain, w8a16_matmul
 
     gen = torch.Generator(device=dev).manual_seed(int(case_rng.integers(1 << 31)))
     bf = torch.bfloat16
     errs, rels, shapes = [], [], []
-    step = {M: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, bytes=0.0)
-            for M in W8A16_TIMED_M}
-    for names, K, N in W8A16_SHAPES:
-        w = (torch.randn((K, N), generator=gen, device=dev) * K ** -0.5).to(bf)
-        wq, s = quantize_weight(w)
-        for M in W8A16_M:
+    int8pack_error = None
+    step = {M: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, library_int8_ms=0.0, flops=0.0,
+                    bytes=0.0) for M in W8A16_TIMED_M}
+    for names, K, parts in W8A16_SHAPES + W8A16_PARITY_SHAPES:
+        timed = (names, K, parts) in W8A16_SHAPES
+        w, wq, s, pw = w8a16_case(torch, dev, gen, K, parts)
+        N = pw.N
+        rings = None
+        for M in W8A16_M + (W8A16_WIDE_M if names == ("wq", "wk", "wv") else ()):
             a = torch.randn((M, K), generator=gen, device=dev).to(bf)
-            out = w8a16_matmul(a, wq, s)
+            out = w8a16_matmul(a, pw)
             ref = _qmat_plain(a, wq, s, bf)
             err, rel = row_errors(out, ref)
-            same = torch.equal(out, w8a16_matmul(a, wq, s))
-            log(f"  w8a16_matmul_bf16 {'/'.join(names)} M={M} K={K} N={N}: max_abs_err="
+            same = torch.equal(out, w8a16_matmul(a, pw))
+            log(f"  w8a16_matmul_bf16 {'|'.join(names)} M={M} K={K} N={N}: max_abs_err="
                 f"{err:.3e} max_row_rel_err={rel:.3e} (tol {W8A16_RTOL}); two runs bit-equal: "
                 f"{same}")
             if not (rel <= W8A16_RTOL and same and torch.isfinite(out.float()).all()):
@@ -1148,49 +1193,136 @@ def parity_w8a16(torch, dev, report, case_rng):
                                      "plain version, or two runs differ")
             errs.append(err)
             rels.append(rel)
-            if M not in W8A16_TIMED_M:
+            if not timed or M not in W8A16_TIMED_M:
                 continue
             nbytes = K * N + 4 * N + 2 * M * K + 2 * M * N
             flops = 2.0 * M * N * K
             b_ms, b_by = bound(flops, nbytes)
-            if M == W8A16_TIMED_M[0]:
-                q_ring = Ring([wq] + [wq.clone() for _ in range(W8A16_RING_BYTES // (K * N))])
-                w_ring = Ring([w] + [w.clone() for _ in range(W8A16_RING_BYTES // (2 * K * N))])
+            if rings is None:
+                wt = wq.t().contiguous()
+                rings = dict(
+                    q=Ring([pw] + [PackedW8(pw.codes.clone(), pw.scale, K, pw.parts)
+                                   for _ in range(W8A16_RING_BYTES // (K * N))]),
+                    w=Ring([w] + [w.clone() for _ in range(W8A16_RING_BYTES // (2 * K * N))]),
+                    t=Ring([wt] + [wt.clone() for _ in range(W8A16_RING_BYTES // (K * N))]),
+                    u=Ring([wq] + [wq.clone() for _ in range(W8A16_RING_BYTES // (K * N))]))
+                s_bf = s.to(bf)
             row = dict(names=list(names), M=M, K=K, N=N, bound_ms=b_ms, bound_by=b_by,
-                       ms=device_ms(lambda: w8a16_matmul(a, q_ring(), s), ("w8a16",),
-                                    iters=30, per_call="auto"),
-                       plain_ms=time_ms(lambda: _qmat_plain(a, q_ring(), s, bf), iters=10),
-                       library_ms=device_ms(lambda: torch.matmul(a, w_ring()), iters=30,
-                                            per_call="auto"))
+                       ms=device_ms(lambda: w8a16_matmul(a, rings["q"]()), ("w8a16",),
+                                    iters=30, per_call=1),
+                       plain_ms=time_ms(lambda: _qmat_plain(a, rings["u"](), s, bf), iters=10),
+                       library_ms=device_ms(lambda: torch.matmul(a, rings["w"]()), iters=30,
+                                            per_call="auto"),
+                       library_int8_ms=None)
+            if int8pack_error is None:
+                try:
+                    got = torch._weight_int8pack_mm(a, wt, s_bf)
+                    row["library_int8_ms"] = device_ms(
+                        lambda: torch._weight_int8pack_mm(a, rings["t"](), s_bf), iters=30,
+                        per_call="auto")
+                    row["library_int8_max_row_rel_err"] = row_errors(got, ref)[1]
+                except Exception as e:  # noqa: BLE001 - the library call's own refusal
+                    int8pack_error = f"{type(e).__name__}: {str(e)[:200]}"
+                    log(f"  torch._weight_int8pack_mm raised on {dev}: {int8pack_error}")
             shapes.append(row)
-            times = MODEL_LAYERS * len(names) if names != ("head",) else 1
+            times = MODEL_LAYERS if names != ("head",) else 1
             for k in ("ms", "plain_ms", "library_ms"):
                 step[M][k] += times * row[k]
+            if row["library_int8_ms"] is not None:
+                step[M]["library_int8_ms"] += times * row["library_int8_ms"]
             step[M]["flops"] += times * flops
             step[M]["bytes"] += times * nbytes
-            log(f"  w8a16_matmul_bf16 timing M={M} K={K} N={N}: kernel {row['ms']:.4f} ms "
-                f"(device), plain {row['plain_ms']:.4f} ms, bf16 torch.matmul "
-                f"{row['library_ms']:.4f} ms (device); bound {b_ms:.4f} ms ({b_by}); "
-                f"weights cold in L2")
-        del w, wq, s, a, out, ref, q_ring, w_ring
+            int8 = (f"{row['library_int8_ms']:.4f} ms (device)" if row["library_int8_ms"]
+                    is not None else "raised")
+            log(f"  w8a16_matmul_bf16 timing {'|'.join(names)} M={M} K={K} N={N}: kernel "
+                f"{row['ms']:.4f} ms (device), plain {row['plain_ms']:.4f} ms, bf16 "
+                f"torch.matmul {row['library_ms']:.4f} ms (device), torch._weight_int8pack_mm "
+                f"{int8}; bound {b_ms:.4f} ms ({b_by}); weights cold in L2")
+        del w, wq, s, pw, a, out, ref, rings
         torch.cuda.empty_cache()
     for M, t in step.items():
         t["bound_ms"], t["bound_by"] = bound(t["flops"], t["bytes"])
-        log(f"  w8a16_matmul_bf16 one decode step at {MODEL_LAYERS} layers + head, M={M}: "
-            f"kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, bf16 torch.matmul "
-            f"{t['library_ms']:.3f} ms; bound {t['bound_ms']:.3f} ms ({t['bound_by']})")
+        if int8pack_error is not None:
+            t["library_int8_ms"] = None
+        int8 = f"{t['library_int8_ms']:.3f} ms" if t["library_int8_ms"] is not None else "raised"
+        log(f"  w8a16_matmul_bf16 one decode step at {MODEL_LAYERS} layers + head, M={M} "
+            f"({4 * MODEL_LAYERS + 1} launches): kernel {t['ms']:.3f} ms, plain "
+            f"{t['plain_ms']:.3f} ms, bf16 torch.matmul {t['library_ms']:.3f} ms, "
+            f"torch._weight_int8pack_mm {int8}; bound {t['bound_ms']:.3f} ms ({t['bound_by']})")
     main = step[80]
     report["w8a16_matmul_bf16"] = dict(
         name="w8a16_matmul_bf16", route="cuda", source="areal_tpu_torch/csrc/w8a16_matmul.cu",
         replaces="areal_tpu/ops/wquant.py:44",
         note=("no TPU kernel: the reference's qmat quantized branch (wquant.py:44-51) is an "
               "XLA fusion; the numbers are one decode step's W8A16 matmuls at 28 layers plus "
-              "the head, M=80 rows (16 slots, draft length 4)"),
+              "the head, M=80 rows (16 slots, draft length 4), launched as the decode path "
+              "launches them (wq|wk|wv and w_gate|w_up grouped); library_ms is bf16 "
+              "torch.matmul on the unquantized weights, grouped as the kernel's launches "
+              "(the bf16 decode path makes one matmul a projection), library_int8_ms "
+              "torch._weight_int8pack_mm on the transposed codes"),
         max_abs_err=max(errs), max_row_rel_err=max(rels), ms=main["ms"],
         plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-        library_ms=main["library_ms"], shape="decode step, 28 layers + head, M=80",
-        step_m16={k: step[16][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+        library_ms=main["library_ms"], library_int8_ms=main["library_int8_ms"],
+        library_int8_error=int8pack_error,
+        shape="decode step, 28 layers + head, M=80",
+        step_m16={k: step[16][k] for k in ("ms", "plain_ms", "library_ms", "library_int8_ms",
+                                           "bound_ms")},
         shapes=shapes)
+
+
+def sweep_w8a16(torch, dev, case_rng):
+    """--w8a16-sweep: one decode step's W8A16 time (W8A16_SHAPES at 28
+    layers + head, weights cold in L2) at M = 16 and 80 for each ring shape
+    and CTAs an SM of W8A16_SWEEP, each call checked against the default
+    shape's output (bit-equal where the plan is the same); a shape whose
+    A slice leaves no room is logged and skipped."""
+    import itertools
+
+    from areal_tpu_torch import kernels
+    from areal_tpu_torch.ops.wquant import PackedW8, w8a16_matmul, w8a16_plan
+
+    gen = torch.Generator(device=dev).manual_seed(int(case_rng.integers(1 << 31)))
+    bf = torch.bfloat16
+    configs = list(itertools.product(*W8A16_SWEEP.values()))
+    n_sm = kernels.sm_count(dev.index or 0)
+    step = {}
+    for names, K, parts in W8A16_SHAPES:
+        _, wq, s, pw = w8a16_case(torch, dev, gen, K, parts)
+        N = pw.N
+        ring = Ring([pw] + [PackedW8(pw.codes.clone(), pw.scale, K, pw.parts)
+                            for _ in range(W8A16_RING_BYTES // (K * N))])
+        times = MODEL_LAYERS if names != ("head",) else 1
+        for M in W8A16_TIMED_M:
+            a = torch.randn((M, K), generator=gen, device=dev).to(bf)
+            want = w8a16_matmul(a, pw)
+            cells = []
+            for st, cps, ctas in configs:
+                try:
+                    plan = w8a16_plan(M, K, N, n_sm, st, cps, ctas)
+                except ValueError:
+                    cells.append(f"{st}/{cps}/{ctas}: no room")
+                    continue
+                kw = dict(stages=st, cps=cps, ctas_per_sm=ctas)
+                got = w8a16_matmul(a, pw, **kw)
+                if not row_errors(got, want)[1] <= W8A16_RTOL:
+                    raise AssertionError(f"sweep {st}/{cps}/{ctas} M={M} K={K} N={N} disagrees")
+                ms = device_ms(lambda: w8a16_matmul(a, ring(), **kw), ("w8a16",), iters=20,
+                               per_call=1)
+                step[(st, cps, ctas, M)] = step.get((st, cps, ctas, M), 0.0) + times * ms
+                cells.append(f"{st}/{cps}/{ctas}: {ms:.4f} (s{plan.splits} g{plan.groups})")
+            log(f"  sweep {'|'.join(names)} M={M} (stages/cps/ctas: ms, splits, groups): "
+                + ", ".join(cells))
+        del wq, s, pw, ring, a, want
+        torch.cuda.empty_cache()
+    rows = [dict(stages=k[0], cps=k[1], ctas_per_sm=k[2], M=k[3], step_ms=v)
+            for k, v in sorted(step.items())]
+    for M in W8A16_TIMED_M:
+        best = min((r for r in rows if r["M"] == M), key=lambda r: r["step_ms"])
+        log(f"  sweep one decode step M={M}: " + ", ".join(
+            f"{r['stages']}/{r['cps']}/{r['ctas_per_sm']} {r['step_ms']:.3f} ms"
+            for r in rows if r["M"] == M) + f"; best {best['stages']}/{best['cps']}/"
+            f"{best['ctas_per_sm']}")
+    return rows
 
 
 # ----------------------------------------------------------------------
@@ -1827,7 +1959,10 @@ def dequantized_tree(cfg, params, qparams):
     """(cfg, params) whose decode-path weights are the int8 tree's w_q * s
     in the compute dtype, the head untied (a teacher-forced forward on what
     the int8 decode path multiplies by)."""
+    from areal_tpu_torch.ops.wquant import unpack_decode_tree
+
     cdt = params["final_norm"]["weight"].dtype
+    qparams = unpack_decode_tree(qparams)  # a card's tree holds them packed
 
     def deq(tree):
         if isinstance(tree, dict):
@@ -5168,6 +5303,9 @@ def main() -> int:
     ap.add_argument("--out", default=None, help="also write the full report here (JSON)")
     ap.add_argument("--profile-serving", action="store_true",
                     help="also run the serving phases' profiled windows")
+    ap.add_argument("--w8a16-sweep", action="store_true",
+                    help="with the parity phase, also time one decode step's W8A16 matmuls "
+                         "over ring stages, chunks a stage and CTAs an SM (W8A16_SWEEP)")
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -5223,6 +5361,8 @@ def main() -> int:
                          np.random.default_rng([args.seed, 1]))
         parity_gae(torch, rng, dev, kernel_rows, np.random.default_rng([args.seed, 3]))
         parity_w8a16(torch, dev, kernel_rows, np.random.default_rng([args.seed, 14]))
+        if args.w8a16_sweep:
+            report["w8a16_sweep"] = sweep_w8a16(torch, dev, np.random.default_rng([args.seed, 16]))
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         phase_done("parity", t0)

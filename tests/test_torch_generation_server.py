@@ -321,6 +321,11 @@ def test_chaos_control_and_a_dead_engine_match(fleet, monkeypatch):
     the same 500 in both and the hit counts agree. A dead engine loop
     answers /generate with the same 500 body in both."""
     monkeypatch.setenv("AREAL_CHAOS_HTTP", "1")
+    # Each injector counts every /generate its process served, so earlier
+    # tests in this process that called one package's server alone would
+    # make the counts differ: start both from zero.
+    for side in ("ref", "port"):
+        assert post(fleet[side].address, "/configure", {"faults_reset": True})[0] == 200
     body = {"qid": "chaos", "input_ids": [1, 2, 3], "gconfig": {"max_new_tokens": 2}}
     typo = {"faults": "gserver.generat=raise"}
     ref, port = both(fleet, lambda u: post(u, "/configure", typo))
