@@ -87,6 +87,18 @@ _KNOBS: List[Knob] = [
          "Backoff ceiling for the default RPC policy."),
     Knob("AREAL_RPC_TIMEOUT_S", "float", 30.0,
          "Per-attempt timeout cap of the RPC policies."),
+    Knob("AREAL_RPC_HEDGE", "bool", True,
+         "Enable hedged reads of idempotent hash-verified GETs (the weight "
+         "plane's /weights/chunk) when several holders exist."),
+    Knob("AREAL_RPC_HEDGE_DELAY_S", "float", 0.25,
+         "Silence window after which a hedge request launches against the "
+         "next holder; first success wins, losers are dropped."),
+    Knob("AREAL_RPC_BREAKER_FAILS", "int", 5,
+         "Consecutive failures that open a per-peer circuit breaker "
+         "(closed -> open); sheds (429) never count."),
+    Knob("AREAL_RPC_BREAKER_COOLDOWN_S", "float", 2.0,
+         "Open-breaker cooldown before ONE half-open probe is allowed "
+         "through; probe success closes the circuit, failure re-opens."),
     Knob("AREAL_RPC_REDISCOVERY_ATTEMPTS", "int", 64,
          "Manager-blip budget shared by partial_rollout and the rollout "
          "worker (base/rpc.py rediscovery_policy)."),

@@ -12,10 +12,17 @@ viewed over the buffer, int8-wire leaves dequantized) and handed to
 ``ServingEngine.cutover_params``, the short interrupt + swap window that
 is measured apart from the transfer.
 
+Where a chunk has two peer holders, its pull is hedged
+(``AREAL_RPC_HEDGE``, base/rpc.py ``hedged_sync``): the second holder
+races the first after ``AREAL_RPC_HEDGE_DELAY_S`` of silence, each leg
+reads into a buffer of its own, and only the first verified chunk is
+copied into the store and counted, so a slow peer costs the fetch one
+hedge delay a chunk and the ingress accounting never counts a loser.
+The origin is never hedged.
+
 Synchronous stdlib HTTP: the caller runs it on a request thread. Not
-ported: hedged chunk reads (the reference arms them through
-``AREAL_RPC_HEDGE``; the port reads no env knobs) and shard streams
-(``tp_degree`` / ``ep_degree``), which wait for multi-device.
+ported: shard streams (``tp_degree`` / ``ep_degree``), which wait for
+multi-device.
 """
 
 from __future__ import annotations
@@ -129,6 +136,9 @@ class ChunkStore:
         self.fetch_s = 0.0
         self.verify_s = 0.0
         self.resumed_chunks = 0
+        # Chunks raced between two peers, and races a hedge leg won.
+        self.hedged_chunks = 0
+        self.hedge_wins = 0
         self._lock = threading.Lock()
 
     # -- serving side (safe during fetch) ------------------------------
@@ -150,28 +160,41 @@ class ChunkStore:
         """Read bytes [start, length) of chunk ``idx`` from one upstream
         straight into the store's buffer (the chunk is not servable until
         it verifies); returns how many arrived, fewer on a torn read."""
+        return self._read_range(base_url, idx, start, length, timeout, self.chunk(idx))
+
+    def _read_range(self, base_url: str, idx: int, start: int, length: int,
+                    timeout: float, dst: memoryview) -> int:
+        """``_get_range`` into ``dst``, the chunk's bytes wherever they
+        live."""
         url = f"{base_url}/weights/chunk?" + urllib.parse.urlencode(
             {"version": self.version, "idx": idx, **self._stream_q})
         req = urllib.request.Request(url)
         if start:
             req.add_header("Range", f"bytes={start}-")
-        off, _ = self.spans[idx]
         with urllib.request.urlopen(req, timeout=timeout) as r:
-            return r.readinto(memoryview(self.buf)[off + start: off + length])
+            return r.readinto(dst[start:length])
 
     def _fetch_chunk(self, base_url: str, idx: int, timeout: float,
-                     deadline: Optional[rpc.Deadline] = None) -> Optional[int]:
+                     deadline: Optional[rpc.Deadline] = None,
+                     dst: Optional[memoryview] = None) -> Optional[int]:
         """One chunk from one upstream under the RPC retry policy
         (base/rpc.py): Range resume of a torn read, a whole re-fetch on a
-        hash mismatch. Returns the chunk's length once its bytes in the
-        buffer verify, or None (upstream exhausted)."""
+        hash mismatch. The bytes land in ``dst`` (default: the chunk's
+        place in the store's buffer, which is not servable until it
+        verifies). Returns the chunk's length once they verify, or None
+        (upstream exhausted)."""
         _, length = self.spans[idx]
         expected = self.manifest["hashes"][idx]
-        got = 0  # bytes of this chunk in the buffer, not verified yet
+        if dst is None:
+            dst, read = self.chunk(idx), self._get_range
+        else:
+            def read(*args):
+                return self._read_range(*args, dst)
+        got = 0  # bytes of this chunk in dst, not verified yet
 
         def attempt(attempt_timeout: float) -> int:
             nonlocal got
-            n = self._get_range(base_url, idx, got, length, min(timeout, attempt_timeout))
+            n = read(base_url, idx, got, length, min(timeout, attempt_timeout))
             if got:
                 with self._lock:
                     self.resumed_chunks += 1
@@ -179,7 +202,7 @@ class ChunkStore:
             if got < length:
                 raise OSError(f"short read {got}/{length}")  # resume next attempt
             t0 = time.monotonic()
-            ok = verify_chunk(self.chunk(idx), expected)
+            ok = verify_chunk(dst, expected)
             with self._lock:
                 self.verify_s += time.monotonic() - t0
             if not ok:
@@ -198,14 +221,30 @@ class ChunkStore:
             logger.debug(f"chunk {idx} from {base_url}: {e}")
             return None
 
+    def _hedge_fetch(self, url: str, idx: int, timeout: float,
+                     deadline: rpc.Deadline) -> bytearray:
+        """One hedge leg: the chunk into a buffer of the leg's own (a
+        losing leg may still be reading when the winner is copied in),
+        raising on a miss so the race tells failure from success."""
+        part = bytearray(self.spans[idx][1])
+        if self._fetch_chunk(url, idx, timeout, deadline, dst=memoryview(part)) is None:
+            raise OSError(f"chunk {idx} unavailable from {url}")
+        return part
+
     def fetch(self, upstreams: List[str], origin: Optional[str] = None,
               timeout: float = 30.0, deadline_s: float = 600.0,
-              deadline: Optional[rpc.Deadline] = None) -> Dict[str, Any]:
+              deadline: Optional[rpc.Deadline] = None,
+              hedge: Optional[bool] = None) -> Dict[str, Any]:
         """Pull every missing chunk, trying ``upstreams`` in order per
         chunk (sticky: the last upstream that delivered goes first for the
-        next chunk). Raises WeightFetchError if a chunk cannot be had from
-        any upstream before the deadline. Returns the transfer stats (also
-        kept on the store)."""
+        next chunk). With ``hedge`` (default ``rpc.hedging_enabled()``)
+        and two peer upstreams (the origin is never hedged), the first two
+        peers in that order race each chunk through ``rpc.hedged_sync``;
+        only the winner's verified bytes reach the buffer and
+        ``bytes_from``; if both legs fail the remaining upstreams are
+        tried in order. Raises WeightFetchError if a chunk cannot be had
+        from any upstream before the deadline. Returns the transfer stats
+        (also kept on the store)."""
         t_start = time.monotonic()
         order = list(dict.fromkeys(u.rstrip("/") for u in upstreams if u))
         if not order:
@@ -213,6 +252,8 @@ class ChunkStore:
         origin = origin.rstrip("/") if origin else None
         if deadline is None:
             deadline = rpc.Deadline.after(deadline_s)
+        if hedge is None:
+            hedge = rpc.hedging_enabled()
         preferred = 0
         for idx in range(self.n_chunks):
             if self._have[idx]:
@@ -222,7 +263,24 @@ class ChunkStore:
                                        f"{idx}/{self.n_chunks} chunks")
             tried = [order[preferred]] + [u for i, u in enumerate(order) if i != preferred]
             got, winner = None, None
-            for u in tried:
+            peers = [u for u in tried if u != origin]
+            rest = tried
+            if hedge and len(peers) >= 2:
+                self.hedged_chunks += 1
+                legs = [lambda u=u: self._hedge_fetch(u, idx, timeout, deadline)
+                        for u in peers[:2]]
+                try:
+                    part, i = rpc.hedged_sync(legs, deadline=deadline,
+                                              what=f"weights/chunk {idx} v{self.version}")
+                    self.chunk(idx)[:] = part
+                    got, winner = len(part), peers[i]
+                    if i > 0:
+                        self.hedge_wins += 1
+                except rpc.RpcDeadlineExceeded:
+                    raise
+                except rpc.RpcError:
+                    rest = [u for u in tried if u not in peers[:2]]
+            for u in rest if got is None else ():
                 got = self._fetch_chunk(u, idx, timeout, deadline)
                 if got is not None:
                     winner = u
@@ -256,6 +314,8 @@ class ChunkStore:
             "fetch_s": self.fetch_s,
             "verify_s": self.verify_s,
             "resumed_chunks": self.resumed_chunks,
+            "hedged_chunks": self.hedged_chunks,
+            "hedge_wins": self.hedge_wins,
             "bytes_from": dict(self.bytes_from),
             "bytes_from_origin": from_origin,
             "bytes_from_peers": total_in - from_origin,

@@ -10,11 +10,21 @@ worker health is watched while the master drives the experiment.
 interrupted, ``run`` raises ``TimeoutError`` and the workers are torn
 down. A worker that dies or raises interrupts the master and ``run``
 raises ``RuntimeError``. Workers start in the reference's order: model
-workers, generation servers, the gserver manager, rollout workers. The
-reference restarts a dead serving-plane worker (server, manager, rollout
-worker) in place and detects hung ones by their heartbeats; the port
-does neither, so any dead or raising worker ends the run. The
-multi-host ``ClusterController`` is not ported.
+workers, generation servers, the gserver manager, rollout workers.
+
+A serving-plane worker (generation server, rollout worker, gserver
+manager: ``RESTARTABLE_ROLES``) that dies, raises or hangs is restarted
+in place, up to ``max_worker_restarts`` times each; it re-registers,
+re-syncs its weights and re-enters rotation. A hang is a process that is
+alive but whose heartbeat went stale after this incarnation was last
+seen beating (a beat counts only if it carries this incarnation's
+``pid``; a worker that never beat or was just restarted gets startup
+grace); a hung process is killed and joined before its successor
+spawns, so a server's device memory is free again. A graceful
+``stopped`` record is a departure, not a death. A trainer-plane role
+(model worker), or a role whose budget is spent, ends the run, which
+``training/utils.run_experiment`` may relaunch. The multi-host
+``ClusterController`` is not ported.
 
 A run that fails (the master raised, a worker died, the deadline) asks
 every live worker to leave with SIGTERM, which a port worker takes as
@@ -28,16 +38,17 @@ nothing told to leave, then terminates them.
 
 from __future__ import annotations
 
+import dataclasses
 import multiprocessing as mp
 import os
 import signal
 import threading
 import time
 import traceback
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Set
 
 from areal_tpu_torch.api.system_api import ExperimentConfig
-from areal_tpu_torch.base import logging, name_resolve
+from areal_tpu_torch.base import health, logging, name_resolve
 
 logger = logging.getLogger("controller")
 
@@ -49,6 +60,14 @@ EXIT_WAIT_S = 150.0
 # How long the workers of a failed run get to leave after SIGTERM (the
 # model worker's exit hook waits up to 60 s for checkpoint writes).
 FAILED_EXIT_WAIT_S = 90.0
+
+# Worker roles restarted in place on death or hang. The trainer plane
+# (model workers, master) holds in-flight step state that the
+# request/reply stream cannot rebuild mid-step, so it escalates to the
+# whole-experiment relaunch; the serving plane re-registers, re-syncs
+# its weights and re-enters rotation.
+RESTARTABLE_ROLES = frozenset({"generation_server", "rollout_worker", "gserver_manager"})
+
 
 def _run_worker_proc(
     worker_type: str,
@@ -80,6 +99,16 @@ def _run_worker_proc(
         raise
 
 
+@dataclasses.dataclass
+class _WorkerRecord:
+    worker_type: str
+    config: Any
+    proc: mp.Process
+    restarts: int = 0
+    last_restart: float = 0.0
+    last_seen_alive: float = 0.0  # last fresh heartbeat (0 = never beat)
+
+
 class LocalController:
     """Run one trial on this host: subprocess workers + inline master."""
 
@@ -88,17 +117,30 @@ class LocalController:
         exp_cfg: ExperimentConfig,
         name_resolve_cfg: Optional[Dict] = None,
         worker_env: Optional[Dict[str, str]] = None,
+        max_worker_restarts: int = 2,
+        restartable_roles: Optional[Set[str]] = None,
     ):
         self.exp_cfg = exp_cfg
         self.name_resolve_cfg = name_resolve_cfg or {"backend": "nfs"}
         self.worker_env = worker_env or {}
-        self._procs: List[mp.Process] = []
+        # How many times one worker may be restarted in place before its
+        # failure escalates to the whole-experiment relaunch.
+        self.max_worker_restarts = max_worker_restarts
+        self.restartable_roles = (RESTARTABLE_ROLES if restartable_roles is None
+                                  else frozenset(restartable_roles))
+        self._workers: Dict[str, _WorkerRecord] = {}
+        # Every in-place restart of this run: worker, why, attempt.
+        self.restart_log: List[Dict[str, Any]] = []
         # Guarded by _err_lock: appended by the supervisor thread while
         # the main thread drains/raises in run()'s teardown.
         self._pending_errors: List[str] = []
         self._err_lock = threading.Lock()
         self._ctx = mp.get_context("spawn")
         self._errors = self._ctx.Queue()
+
+    @property
+    def _procs(self) -> List[mp.Process]:
+        return [r.proc for r in self._workers.values()]
 
     def _spawn(self, worker_type: str, config) -> mp.Process:
         # Spawned children must be able to import areal_tpu_torch before
@@ -125,7 +167,12 @@ class LocalController:
             daemon=True,
         )
         p.start()
-        self._procs.append(p)
+        name = getattr(config, "worker_name", worker_type)
+        rec = self._workers.get(name)
+        if rec is None:
+            self._workers[name] = _WorkerRecord(worker_type, config, p)
+        else:  # a restart keeps the record's history
+            rec.proc = p
         return p
 
     def start_workers(self):
@@ -147,6 +194,18 @@ class LocalController:
             with self._err_lock:
                 self._pending_errors.append(err)
 
+    def _discard_errors_for(self, worker_name: str) -> int:
+        """Drop the queued tracebacks of a worker that is being restarted:
+        a handled failure must not fail the run later."""
+        with self._err_lock:
+            kept, dropped = [], []
+            for err in self._pending_errors:
+                (dropped if err.startswith(f"{worker_name}: ") else kept).append(err)
+            self._pending_errors = kept
+        for err in dropped:
+            logger.warning(f"restarting {worker_name}; absorbed its failure:\n{err}")
+        return len(dropped)
+
     def check_worker_errors(self):
         self._drain_errors()
         with self._err_lock:
@@ -156,8 +215,8 @@ class LocalController:
                 )
 
     # ------------------------------------------------------------------
-    # Supervision: a dead or raising worker, or the run's deadline,
-    # interrupts the master
+    # Supervision: per-worker restart, heartbeat hang detection,
+    # escalation to the whole-experiment relaunch, the run's deadline
     # ------------------------------------------------------------------
 
     def _escalate(self, why: str):
@@ -167,31 +226,87 @@ class LocalController:
         self._watchdog_fired = True
         _thread.interrupt_main()
 
-    def supervise_once(self) -> bool:
+    def _restart_worker(self, name: str, rec: _WorkerRecord, why: str) -> bool:
+        """Restart one worker in place. False when the failure must
+        escalate instead (role not restartable, budget spent)."""
+        if (rec.worker_type not in self.restartable_roles
+                or rec.restarts >= self.max_worker_restarts):
+            return False
+        if rec.proc.is_alive():
+            # Hung, not dead: kill the wedged process (and so free its
+            # device memory) before its successor allocates.
+            rec.proc.kill()
+            rec.proc.join(timeout=10)
+        rec.restarts += 1
+        rec.last_restart = time.monotonic()
+        self._discard_errors_for(name)
+        self.restart_log.append({"worker": name, "why": why, "attempt": rec.restarts,
+                                 "old_pid": rec.proc.pid, "t_ns": time.monotonic_ns()})
+        logger.warning(f"restarting {name} ({why}; attempt {rec.restarts}/"
+                       f"{self.max_worker_restarts})")
+        self._spawn(rec.worker_type, rec.config)
+        return True
+
+    def supervise_once(self, registry: Optional[health.HealthRegistry] = None) -> bool:
         """One supervision pass. Returns False once a failure escalated
         (supervision should stop); True to keep supervising."""
         self._drain_errors()
-        for p in self._procs:
-            if not p.is_alive() and p.exitcode not in (0, None):
-                self._escalate(f"worker pid={p.pid} died (exit code {p.exitcode})")
+        alive_members, stopped = registry.classified() if registry is not None else ({}, {})
+        now = time.monotonic()
+        for name, rec in list(self._workers.items()):
+            # Only THIS incarnation's beats count: a dead worker's record
+            # stays fresh for up to STALE_FACTOR * TTL, and crediting it to
+            # the successor would end its startup grace before its first
+            # beat (and kill it as hung mid model load).
+            if name in alive_members and alive_members[name].get("pid") == rec.proc.pid:
+                rec.last_seen_alive = now
+            dead = (not rec.proc.is_alive()) and rec.proc.exitcode not in (0, None)
+            # Hung: up, but its poll loop stopped beating after this
+            # incarnation was last seen alive, and it did not stop
+            # gracefully. Judged only for restartable roles: a trainer
+            # poll loop may block for minutes in a step.
+            hung = (rec.worker_type in self.restartable_roles
+                    and rec.proc.is_alive()
+                    and rec.last_seen_alive > rec.last_restart
+                    and name not in alive_members
+                    and name not in stopped)
+            if not dead and not hung:
+                continue
+            why = "process died" if dead else "heartbeat went stale"
+            if not self._restart_worker(name, rec, why):
+                self._escalate(f"{name} failed ({why})")
                 return False
+        # Queued tracebacks. One whose process is still alive is a death
+        # in flight (a later pass sees the exit) or a leftover of an
+        # incarnation already replaced.
         with self._err_lock:
-            failed = self._pending_errors[:1]
-        if failed:
-            self._escalate(f"worker failure: {failed[0].split(': ', 1)[0]}")
+            pending = list(self._pending_errors)
+        for err in pending:
+            name = err.split(": ", 1)[0]
+            rec = self._workers.get(name)
+            if rec is not None and rec.proc.is_alive():
+                if rec.restarts > 0:
+                    self._discard_errors_for(name)
+                continue
+            if rec is not None and self._restart_worker(name, rec, "raised"):
+                continue
+            self._escalate(f"worker failure: {name}")
             return False
         return True
 
     def _watchdog(self, stop_event, deadline: Optional[float] = None):
-        """Supervise workers while the inline master runs: interrupt the
-        master on a worker failure and at the run's deadline."""
+        """Supervise workers while the inline master runs: restart failed
+        serving-plane workers in place; interrupt the master on anything
+        else, and at the run's deadline."""
+        registry = health.HealthRegistry(self.exp_cfg.experiment_name,
+                                         self.exp_cfg.trial_name)
         while not stop_event.wait(0.5):
             if deadline is not None and time.monotonic() > deadline:
                 self._deadline_fired = True
                 self._escalate("run deadline passed")
                 return
             try:
-                keep_going = self.supervise_once()
+                keep_going = self.supervise_once(registry)
             except Exception:
                 logger.warning("supervision pass failed", exc_info=True)
                 continue
@@ -267,10 +382,12 @@ class LocalController:
                 else:
                     self.join(timeout=EXIT_WAIT_S)
         return {"global_step": master.step_info.global_step,
-                "perf_summary": dict(master.perf_summary)}
+                "perf_summary": dict(master.perf_summary),
+                "worker_restarts": list(self.restart_log)}
 
     def stop_workers(self, timeout: float = FAILED_EXIT_WAIT_S):
-        """Ask every live worker to leave (SIGTERM), then join them."""
+        """Ask the current incarnation of every worker to leave (SIGTERM),
+        then join them."""
         for p in self._procs:
             if p.is_alive():
                 p.terminate()
@@ -288,4 +405,4 @@ class LocalController:
             if p.is_alive():
                 p.kill()
                 p.join(timeout=10)
-        self._procs.clear()
+        self._workers.clear()

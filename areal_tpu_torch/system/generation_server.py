@@ -1286,7 +1286,9 @@ class GenerationServer(Worker):
         if fetch_span is not None:
             fetch_span.end(fetch_s=stats["fetch_s"], verify_s=stats["verify_s"],
                            bytes_from_origin=stats["bytes_from_origin"],
-                           bytes_from_peers=stats["bytes_from_peers"])
+                           bytes_from_peers=stats["bytes_from_peers"],
+                           ingress_payload_equivalents=stats["ingress_payload_equivalents"],
+                           hedged_chunks=stats["hedged_chunks"], hedge_wins=stats["hedge_wins"])
         return _json({"success": True,
                       "transfer_ms": stats["fetch_s"] * 1000.0,
                       "verify_ms": stats["verify_s"] * 1000.0,
@@ -1546,6 +1548,8 @@ class GenerationServer(Worker):
                              "bytes_from_origin": self._wp_bytes_from_origin,
                              "bytes_from_peers": self._wp_bytes_from_peers,
                              "bytes_served": self._wp_bytes_served, "wire": self._wp_wire},
+            # This process's RPC substrate counters (hedged chunk reads).
+            "rpc": rpc.stats.snapshot(),
         }
         write_exit_record(self.cfg.experiment_name, self.cfg.trial_name,
                           self.worker_name, record)

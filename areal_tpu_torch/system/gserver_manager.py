@@ -39,7 +39,14 @@ A singleton worker that:
 - evicts servers whose heartbeat dies or that a client reports failed,
   and readmits a returning one after bringing it to the current version
   (over the plane from peers that hold it, the origin last, or with
-  ``/update_weights_from_disk``);
+  ``/update_weights_from_disk``); a server restarted in place beats the
+  same health member at a new address, which replaces its dead one in
+  the routing table and starts evicted at version 0;
+- keeps a per-peer circuit breaker board (``breakers``, base/rpc.py) fed
+  by client failure reports, its own fanout and cutover posts and its
+  ``/metrics`` polls: routing leaves an open-breaker server out as it
+  leaves out a shedding one (never evicting it for that), so a server
+  that keeps failing stops taking traffic between its readmissions;
 - logs the fleet's generation throughput from the servers' ``/metrics``,
   with the fleet's speculation yield when a server speculates.
 
@@ -51,9 +58,9 @@ Not ported, each refused at ``configure`` when set: autoscaling
 lease (``elastic_fleet``, ``standby``; so a drained server that leaves
 is evicted as missed heartbeats, not removed), multi-model pools
 (``multi_model``) and the gateway's tenant rows; the plane fans out to
-unsharded servers only (shard streams wait for multi-device). The per-peer circuit
-breakers are not ported either: a client-reported failure evicts the
-server.
+unsharded servers only (shard streams wait for multi-device). A server
+beyond the launch-time fleet (a joiner) is ignored: adopting one belongs
+to the elastic fleet.
 
 A dump is ready once its ``step.txt`` exists, the file the port's
 trainer writes after the raw dump (the reference's trainer is recognised
@@ -116,6 +123,32 @@ def _refuse_unported(config: GserverManagerConfig):
 
 
 class GserverManager(Worker):
+
+    @property
+    def breakers(self) -> rpc.BreakerBoard:
+        """Per-peer circuit breakers fed by this manager's own calls
+        (metrics polls, fanout and cutover posts) and by client-reported
+        request failures. An OPEN breaker makes the peer unroutable, as
+        an active shed window does; eviction stays the health fold's
+        call. Built lazily, so a manager built with ``__new__`` has one."""
+        b = self.__dict__.get("_breaker_board")
+        if b is None:
+            b = rpc.BreakerBoard()
+            self.__dict__["_breaker_board"] = b
+        return b
+
+    def _record_breaker(self, url: str, ok: bool):
+        """Feed one outcome to ``url``'s breaker; an opening is traced."""
+        br = self.breakers.breaker(url)
+        opens = br.opens
+        if ok:
+            br.record_success()
+        else:
+            br.record_failure()
+        if br.opens > opens:
+            logger.warning(f"circuit breaker of {url} opened ({br.opens} opening(s))")
+            tracing.event("manager.breaker_open", server=url, opens=br.opens,
+                          cooldown_s=br.cooldown_s)
 
     def _configure(self, config: GserverManagerConfig):
         _refuse_unported(config)
@@ -316,9 +349,12 @@ class GserverManager(Worker):
         if not candidates:
             return None, "none", None, None
         now = time.monotonic()
-        open_ = [u for u in candidates if self._server_shed_until.get(u, 0.0) <= now]
-        # Whole fleet inside a shed window: route anyway (the client
-        # backs off on the 429 itself).
+        tripped = set(self.breakers.open_peers())
+        open_ = [u for u in candidates
+                 if self._server_shed_until.get(u, 0.0) <= now and u not in tripped]
+        # Whole fleet shedding or breaker-open: route anyway (the client
+        # backs off on the 429 itself, and a half-open probe needs some
+        # traffic); shed windows and breakers never evict.
         pool = open_ or candidates
         qid = str(meta.get("qid") or "")
         if self._disagg_split(candidates):
@@ -461,10 +497,25 @@ class GserverManager(Worker):
             if ent is not None and ent.get("url") == url:
                 self._prefix_index.pop(q, None)
 
-    def _forget_server(self, url: str):
-        """Drop an evicted server's routing state (call under _lock):
-        its load estimates, shed window, affinity and prefix-index
-        entries and drain state."""
+    # Keep in sync with _add_server_row: every map here gets a zeroed
+    # row there.
+    _PER_SERVER_FLOAT_MAPS = (
+        "_server_tokens", "_server_gen_totals", "_server_spec_emitted",
+        "_server_spec_steps", "_server_tokens_pending", "_server_shed_until",
+        "_server_shed_total", "_server_queued_toks",
+    )
+    _PER_SERVER_SPARSE_MAPS = (
+        "_server_free_pages", "_server_total_pages", "_server_kv",
+        "_server_elastic", "_rerole_orig",
+    )
+
+    def _forget_server(self, url: str, remove: bool = False):
+        """Drop a server's routing state (call under _lock): its load
+        estimates, shed window, affinity and prefix-index entries and
+        drain state. ``remove`` (a dead address replaced by its restarted
+        server's new one) also drops its whole row: table membership,
+        per-server maps, role, version, health split, member mapping and
+        breaker."""
         self._server_reqs[url] = 0
         self._server_tokens[url] = 0.0
         self._server_tokens_pending[url] = 0.0
@@ -474,6 +525,46 @@ class GserverManager(Worker):
         self._drop_index_for(url)
         self._draining.discard(url)
         self._drain_deadline.pop(url, None)
+        if not remove:
+            return
+        # The dead incarnation's cumulative tokens leave the fleet sum;
+        # shift the throughput baseline down with them.
+        self._last_gen_total = max(
+            0.0, self._last_gen_total - self._server_gen_totals.get(url, 0.0))
+        self.server_urls = [u for u in self.server_urls if u != url]
+        for attr in self._PER_SERVER_FLOAT_MAPS + self._PER_SERVER_SPARSE_MAPS:
+            getattr(self, attr).pop(url, None)
+        self._server_reqs.pop(url, None)
+        self._server_roles.pop(url, None)
+        self._server_versions.pop(url, None)
+        self.breakers.drop(url)
+        for member in [m for m, u in self._member_urls.items() if u == url]:
+            self._member_urls.pop(member, None)
+        self._healthy.discard(url)
+        self._evicted.pop(url, None)
+
+    def _add_server_row(self, url: str):
+        """A zeroed routing-table row for a url entering the table (call
+        under _lock); its role comes from its first heartbeat."""
+        self.server_urls = sorted(set(self.server_urls) | {url})
+        for attr in self._PER_SERVER_FLOAT_MAPS:
+            getattr(self, attr)[url] = 0.0
+        self._server_reqs[url] = 0
+        self._server_roles[url] = "unified"
+        self._server_versions[url] = 0
+
+    def _replace_server_url(self, old: str, new: str):
+        """A generation server restarted in place beats the SAME health
+        member at a NEW address: forget the dead incarnation's routing
+        footprint (the new process holds no KV) and add a zeroed row for
+        the new address. It starts evicted at version 0, so readmission
+        brings it to the current version before it serves."""
+        with self._lock:
+            self._forget_server(old, remove=True)
+            self._add_server_row(new)
+            self._evicted[new] = "restarted at new address"
+        logger.info(f"generation server moved {old} -> {new}")
+        tracing.event("manager.server_moved", old=old, new=new)
 
     def _mark_unhealthy(self, url: str, reason: str):
         if url not in self.server_urls:
@@ -622,9 +713,18 @@ class GserverManager(Worker):
         reclaim the quota slots of dead rollout workers."""
         snapshot, _ = self._registry.classified()
         alive_urls = set()
+        unknown = []
         for member, record in sorted(snapshot.items()):
             url = record.get("url")
-            if not url or url not in self.server_urls:
+            if not url:
+                continue
+            old = self._member_urls.get(member)
+            if old is not None and old != url and old in self.server_urls:
+                # A known member beating at a new address: restarted.
+                self._replace_server_url(old, url)
+            elif url not in self.server_urls:
+                if old is None:
+                    unknown.append((member, url))
                 continue
             self._member_urls[member] = url
             alive_urls.add(url)
@@ -640,6 +740,19 @@ class GserverManager(Worker):
                     self._draining.add(url)
                     self._drain_deadline.setdefault(
                         url, time.monotonic() + self.cfg.drain_timeout_s)
+        # A member never seen before, at an address outside the table:
+        # if its last incarnation died before this manager saw it beat,
+        # it is the restarted owner of an evicted url that no live member
+        # claims; it replaces the first such url. Any other stranger is a
+        # joiner beyond the launch-time fleet, which is ignored.
+        for member, url in unknown:
+            claimed = set(self._member_urls.values())
+            dead_weight = sorted(u for u in self.server_urls
+                                 if u in self._evicted and u not in claimed)
+            if dead_weight:
+                self._replace_server_url(dead_weight[0], url)
+                self._member_urls[member] = url
+                alive_urls.add(url)
         for member, url in list(self._member_urls.items()):
             if member not in snapshot and url in self._healthy:
                 self._mark_unhealthy(url, f"missed heartbeats ({member})")
@@ -665,6 +778,7 @@ class GserverManager(Worker):
             if n:
                 logger.warning(
                     f"reclaimed {n} quota slot(s) from dead/departed rollout worker {member}")
+                tracing.event("manager.reclaim", worker=member, slots=n)
 
     def _training_samples(self) -> int:
         """The poll thread's snapshot of the trainer's sample counter."""
@@ -717,6 +831,11 @@ class GserverManager(Worker):
         # health fold readmits it once it beats and re-syncs.
         failed = meta.get("failed_server_url")
         if failed:
+            # The breaker first: eviction clears routing state, but the
+            # breaker remembers, so a server that keeps failing stays
+            # unroutable through its cooldown instead of re-entering
+            # rotation at every readmission.
+            self._record_breaker(failed, ok=False)
             self._mark_unhealthy(failed, "client-reported request failure")
         # A 429 is load-shedding, never a failure: route around the
         # server for its Retry-After window and keep it healthy.
@@ -731,7 +850,7 @@ class GserverManager(Worker):
         tracing.event(
             "manager.schedule", ctx=trace_ctx,
             server=url or "", routed=url is not None, policy=policy,
-            qid=qid, kv_source=kv_source or "",
+            qid=qid, kv_source=kv_source or "", version=self.weight_version,
         )
         if url is None:
             return web.json_response(
@@ -844,6 +963,9 @@ class GserverManager(Worker):
                 },
                 "weight_version": self.weight_version,
                 "rollout_stat": self.rollout_stat.as_dict(),
+                # Outstanding rollout slots per worker (a port key): what a
+                # dead worker's reclamation gives back.
+                "worker_slots": dict(self._worker_slots),
                 "servers": self.server_urls,
                 "healthy_servers": healthy,
                 "evicted_servers": dict(self._evicted),
@@ -853,6 +975,14 @@ class GserverManager(Worker):
                     "per_server": dict(self._server_shed_total),
                 },
                 "affinity_entries": len(self._affinity),
+                # This process's areal:rpc_* counters and the breaker
+                # board routing consults: an "open" entry is why a
+                # healthy-looking server takes no traffic.
+                "rpc": {
+                    "stats": rpc.stats.snapshot(),
+                    "breakers": self.breakers.snapshot(),
+                    "open": self.breakers.open_peers(),
+                },
                 # The last tree fanout: per-server transfer and cutover
                 # ms, the tree, and its evictions. Empty when the plane
                 # is off.
@@ -1208,6 +1338,7 @@ class GserverManager(Worker):
             ok = bool(body.get("success"))
         except Exception as e:
             ok, body = False, {"error": repr(e)}
+        self._record_breaker(url, ok=ok)
         if edge_span is not None:
             edge_span.end(ok=ok, transfer_ms=float(body.get("transfer_ms") or 0.0),
                           verify_ms=float(body.get("verify_ms") or 0.0))
@@ -1228,6 +1359,7 @@ class GserverManager(Worker):
             ok = bool(body.get("success"))
         except Exception as e:
             ok, body = False, {"error": repr(e)}
+        self._record_breaker(url, ok=ok)
         if cut_span is not None:
             cut_span.end(ok=ok, cutover_ms=float(body.get("cutover_ms") or 0.0),
                          within_budget=bool(body.get("within_budget", True)))
@@ -1406,7 +1538,15 @@ class GserverManager(Worker):
                             self._server_kv.setdefault(u, {})[kv_keys[name]] = float(val)
                     if self._kv_index_size:
                         await self._poll_kv_index(sess, u)
+                    # A served /metrics clears stray strikes on a CLOSED
+                    # breaker only: a wedged engine whose HTTP thread still
+                    # answers /metrics must not close a tripped one (that
+                    # takes a fanout or cutover success, or the removal).
+                    br = self.breakers.breaker(u)
+                    if br.state() == rpc.STATE_CLOSED:
+                        br.record_success()
                 except Exception:
+                    self._record_breaker(u, ok=False)
                     logger.warning(f"metrics poll failed for {u}")
 
     async def _poll_kv_index(self, sess, u: str):

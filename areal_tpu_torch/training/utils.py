@@ -60,8 +60,11 @@ def run_experiment(experiment_type: str, cfg, worker_env: Optional[dict] = None,
     attempt = 0
     while True:
         exp_cfg = make_experiment(experiment_type, cfg)
+        # A serving-plane worker is restarted in place up to
+        # worker_restarts times; only an escalation reaches this loop.
         ctl = LocalController(exp_cfg, name_resolve_cfg=name_resolve_cfg,
-                              worker_env=dict(worker_env or {}))
+                              worker_env=dict(worker_env or {}),
+                              max_worker_restarts=cfg.worker_restarts)
         left = None if deadline is None else max(1.0, deadline - time.monotonic())
         try:
             return ctl.run(timeout=left)

@@ -2,11 +2,19 @@
 """Drive the PyTorch/CUDA port (areal_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N] [--out report.json] [--profile-serving] [--w8a16-sweep]
+        [--fleet-worker-restarts N] [--serial] [--budget-s S]
         [--phases build,parity,serve_bf16,serve_int8,interrupt,spec,http,grad,train,workers,
-                  async_ppo,sync_ppo,disagg,weight_plane,sft,recover,agentic]
+                  async_ppo,sync_ppo,disagg,weight_plane,plane_loop,sft,recover,agentic,fleet]
 
 Phases (every one must pass; the script exits nonzero on the first that
-fails, and on a machine without CUDA):
+fails, and on a machine without CUDA). They run in the order below, but
+for the side lane: where workers, async_ppo, sync_ppo or sft is run,
+recover, agentic and plane_loop run in a second process
+(``chip_smoke.py --serial``) beside them, and its report joins this
+one's before disagg (--serial: everything here, in order, sft after
+sync_ppo). Past --budget-s (RUN_BUDGET_S, 1150 s) the run stops every
+process it started and exits nonzero, as it does on SIGTERM; at its end
+it stops any process of its own still running.
 
 1. build       - compile every kernel of areal_tpu_torch/csrc with nvcc for
                  sm_90a (one nvcc per source, in parallel).
@@ -176,7 +184,8 @@ fails, and on a machine without CUDA):
                  2 on the int8 wire to two servers by /distribute_weights
                  and /cutover_weights: the held leaves equal
                  dequantize_wire_leaf(quantize_wire_leaf(x)) bit for bit
-                 and the greedy tokens an engine's on them; (c) the async
+                 and the greedy tokens an engine's on them; (c), the phase
+                 plane_loop: the async
                  RL loop of phase 11 at 4 layers and max_head_offpolicyness
                  0 with gen_weight_plane=true, two servers at fanout
                  degree 1: versions 1 and 2 land on both through the
@@ -241,9 +250,9 @@ fails, and on a machine without CUDA):
                  agent_num_turns=3 and agent_scripted_tool_turns=2 (turn
                  0 calls python, turn 1 the calculator, turn 2 answers;
                  each later turn a continuation of the same qid, 128 new
-                 tokens a turn), at the full width and 7 of the 28 layers
-                 (AGENTIC_LAYERS): one server (bf16 pool, the prefix
-                 cache on), 32 math prompts of 256-768 tokens, 8 episodes
+                 tokens a turn), at the full width and 4 of the 28 layers
+                 (AGENTIC_LAYERS, 7 until the fleet phase joined): one
+                 server (bf16 pool, the prefix cache on), 32 math prompts of 256-768 tokens, 8 episodes
                  a step, 2 steps at max_head_offpolicyness 1 under
                  AREAL_TASK_STALENESS_WINDOWS=agentic:1, and two reward
                  executors (python -m areal_tpu_torch.system.
@@ -267,6 +276,39 @@ fails, and on a machine without CUDA):
                  both backward kernels and packed_gae_f32 in the model
                  worker. It prints the phase's seconds, episodes/s, each
                  turn's median re-prefill and the executors' counters.
+18. fleet      - the async loop keeps its fleet up through failures:
+                 main_async_ppo.main(argv) at the full width and 4 of the
+                 28 layers (FLEET_LAYERS) with n_generation_servers=3,
+                 gen_weight_plane=true, gen_weight_fanout=2,
+                 gen_weight_wire_dtype=int8, 128-token answers,
+                 n_rollout_workers=2, worker_restarts=2
+                 (--fleet-worker-restarts), recover_mode=disabled, 4
+                 steps, AREAL_RPC_BREAKER_FAILS=2,
+                 AREAL_RPC_BREAKER_COOLDOWN_S=5 and server 1's /generate
+                 armed to fail 6 requests in a row. A side thread
+                 (FleetChaos) delays the next 2 chunks the fanout tree's
+                 first parent serves by 1 s, SIGKILLs server 2 once
+                 rollouts run and SIGSTOPs rollout worker 1 3 s later, by
+                 the pids in their health records. Gates: (a) /status
+                 shows server 1's breaker open and the trace routes
+                 nothing to it inside an open window; (b) the controller
+                 restarted server 2 once in place, the manager moved it
+                 to its new url, and its successor's first request was
+                 served at no older a version than it was routed at
+                 (printed: the seconds from the kill, time to serve
+                 again); (c) rollout
+                 worker 1 was restarted as hung (heartbeat went stale)
+                 and the manager gave its slots back; (d) the servers'
+                 chunk reads hedged (hedges >= 1, hedge wins >= 1) and
+                 every completed fetch took each byte once; no restart
+                 but those two (a hang false positive fails); all 4 steps
+                 without a relaunch, with phase 11's gates (every trained
+                 sample's lag within max_head_offpolicyness; of the
+                 landed versions, each at most once and the last on every
+                 server but the killed one, which gate (b) holds), the
+                 forward, paged_decode_bf16, both backward kernels and
+                 packed_gae_f32 launched. With --fleet-worker-restarts 0
+                 it must fail at gate (b): the run escalates.
 
 Before the last line it prints the card's name and power limit (as
 nvidia-smi reports them) and one {"kernels": [...]} JSON line; the last
@@ -281,6 +323,7 @@ import json
 import math
 import os
 import re
+import signal
 import subprocess
 import sys
 import threading
@@ -331,8 +374,8 @@ LEAF_TOL = 5e-2
 SERVE_LAYERS = 4
 TRAIN_LAYERS = 4
 PHASES = ("build", "parity", "serve_bf16", "serve_int8", "interrupt", "spec", "http", "grad",
-          "train", "workers", "async_ppo", "sync_ppo", "disagg", "weight_plane", "sft",
-          "recover", "agentic")
+          "train", "workers", "async_ppo", "sync_ppo", "disagg", "weight_plane", "plane_loop",
+          "sft", "recover", "agentic", "fleet")
 # The train phase at real size; a rehearsal on the CPU passes smaller ones.
 TRAIN_SIZES = dict(n_prompts=8, group=4, prompt=(128, 512), response=(256, 3072),
                    row_len=4096, max_tokens_per_mb=16384, n_minibatches=4,
@@ -341,6 +384,112 @@ TRAIN_SIZES = dict(n_prompts=8, group=4, prompt=(128, 512), response=(256, 3072)
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+# The default run has 1200 s. Past RUN_BUDGET_S (from the script's start)
+# it fails by itself: every process it started is stopped, then it exits
+# nonzero, before anything outside has to stop it.
+RUN_BUDGET_S = 1150.0
+T_START = time.monotonic()
+
+
+def become_subreaper() -> None:
+    """Adopt this run's orphans (PR_SET_CHILD_SUBREAPER): a worker whose
+    parent died stays a descendant, so stop_descendants still finds it."""
+    import ctypes
+
+    try:
+        ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0)
+    except (OSError, AttributeError):
+        pass
+
+
+def descendants(root: int):
+    """Pids of every live descendant of `root`, read from /proc (a zombie,
+    which has exited already, is not live)."""
+    children = {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                state, ppid = f.read().rsplit(")", 1)[1].split()[:2]
+        except (OSError, ValueError):
+            continue
+        if state != "Z":
+            children.setdefault(int(ppid), []).append(int(d))
+    out, todo = [], [root]
+    while todo:
+        for c in children.get(todo.pop(), ()):
+            out.append(c)
+            todo.append(c)
+    return out
+
+
+def _cmdline(pid: int) -> str:
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as f:
+            return f.read().replace(b"\0", b" ").decode(errors="replace").strip()
+    except OSError:
+        return "?"
+
+
+def stop_descendants(keep=("resource_tracker",)) -> list:
+    """SIGKILL every descendant of this process (a stopped one too) but
+    those whose command line holds a word of `keep`, reap them, and
+    return their command lines."""
+    gone = []
+    for _ in range(3):
+        pids = [p for p in descendants(os.getpid())
+                if not any(k in _cmdline(p) for k in keep)]
+        if not pids:
+            break
+        for p in pids:
+            gone.append(_cmdline(p))
+            try:
+                os.kill(p, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+        deadline = time.monotonic() + 5.0
+        for p in pids:
+            while time.monotonic() < deadline:
+                try:
+                    if os.waitpid(p, os.WNOHANG)[0]:
+                        break
+                except ChildProcessError:
+                    break  # not our child, or reaped already
+                time.sleep(0.05)
+    return gone
+
+
+def guard_run(budget_s: float) -> None:
+    """Stop every process of the run and exit nonzero on SIGTERM or
+    SIGHUP, and once the run is `budget_s` seconds old (0: no budget)."""
+
+    def bail(why: str, code: int) -> None:
+        log(f"{why}: stopping every process this run started")
+        gone = stop_descendants(keep=())
+        log(f"  stopped {len(gone)} process(es)")
+        for lane in _OPEN_LANES:
+            with open(lane["text"]) as f:
+                for line in f.read().splitlines():
+                    print(f"  [side, stopped] {line}", file=sys.stderr, flush=True)
+        sys.stdout.flush()
+        os._exit(code)
+
+    def on_signal(signum, _frame):
+        bail(f"signal {signum}", 128 + signum)
+
+    for s in (signal.SIGTERM, signal.SIGHUP):
+        signal.signal(s, on_signal)
+    if budget_s > 0:
+        def watch():
+            left = budget_s - (time.monotonic() - T_START)
+            if left > 0:
+                time.sleep(left)
+            bail(f"the run passed its budget of {budget_s:.0f} s", 3)
+
+        threading.Thread(target=watch, name="run-budget", daemon=True).start()
 
 
 def card_line() -> str:
@@ -2916,6 +3065,281 @@ ASYNC_TIMEOUT_S = 900.0
 # 4 when the agentic phase did.
 ASYNC_LAYERS = 4
 
+# The fleet phase: the async loop with three servers over the weight plane
+# (origin -> two servers -> the third from a peer, so a chunk has two peer
+# holders), two rollout workers and in-place restarts, 4 steps, at
+# FLEET_LAYERS (the async phases' depth, for the run's time limit).
+# Breakers open after 2 failures and stay open 5 s; server 1's /generate
+# fails 6 requests in a row from its first; FleetChaos SIGKILLs server 2
+# once rollouts run (on an H100 a server's successor beats 34-40 s after
+# its restart, and the steps after the first fanout took 25 s at 3 steps,
+# so a kill after that fanout left no time to serve again: 4 steps and an
+# early kill leave it), SIGSTOPs rollout worker 1 3 s later
+# or, if it then holds no rollout slot, once it does (for good: the
+# controller must kill it as hung), and delays the next 2 chunks the
+# tree's first parent serves by 1 s (armed over /configure on the first
+# url of the manager's sorted table, which plan_fanout makes the wave-2
+# server's parent). Only 2: a fetch with no second peer to hedge to takes
+# every chunk from that parent. Answers of 128 tokens and the int8 wire
+# (a quarter of the float32 dump's bytes a fanout: 5.0-7.6 s against
+# 14.5-34.8 s) keep the phase near 160 s.
+FLEET_SIZES = dict(ASYNC_SIZES, steps=4, max_new_tokens=128)
+FLEET_TIMEOUT_S = 480.0
+FLEET_LAYERS = 4
+FLEET = dict(servers=3, rollout_workers=2, restarts=2, breaker_fails=2,
+             breaker_cooldown_s=5.0, fail_server=1, fail_hits=6, kill_server=2,
+             hang_worker=1, hang_after_s=3.0, chunk_delay_s=1.0, health_ttl=None)
+# The fleet's weight plane (async_ppo_phase's ``plane``): fanout 2 on the
+# int8 wire.
+FLEET_PLANE = dict(wire="int8", fanout=2)
+
+
+def fleet_env(fleet):
+    """The worker env of a fleet run: the breaker knobs, the chaos-control
+    surface of the servers, the failing server's fault spec."""
+    env = {"AREAL_RPC_BREAKER_FAILS": str(fleet["breaker_fails"]),
+           "AREAL_RPC_BREAKER_COOLDOWN_S": str(fleet["breaker_cooldown_s"]),
+           "AREAL_CHAOS_HTTP": "1"}
+    if fleet.get("fail_server") is not None:
+        env["AREAL_FAULTS"] = (f"gserver.generate@generation_server/{fleet['fail_server']}="
+                               f"raise:k=1:n={fleet['fail_hits']}")
+    if fleet.get("health_ttl"):
+        env["AREAL_HEALTH_TTL"] = str(fleet["health_ttl"])
+    return env
+
+
+class FleetChaos(threading.Thread):
+    """The fleet phase's side thread. Every 0.25 s it reads the health
+    registry and the manager's /status, and: records each server's url
+    and the breakers /status shows (opens, open peers); arms the chunk
+    delay on the tree's first parent (again at each version, and when
+    that url changes);
+    SIGKILLs the kill target once rollouts run; SIGSTOPs the hang
+    target ``hang_after_s`` later; and records the killed server's
+    successor (its new pid and url) and its readmission. Signals go to
+    the pids the workers' health records carry."""
+
+    def __init__(self, exp, trial, fleet):
+        super().__init__(daemon=True, name="fleet-chaos")
+        self.exp, self.trial, self.fleet = exp, trial, fleet
+        self._halt = threading.Event()
+        self.urls = {}  # generation server member -> its first url
+        self.breaker_opens = {}  # url -> the most openings /status showed
+        self.open_seen = set()  # urls /status listed as open
+        self.delayed = []  # (url, version) the chunk delay was armed at
+        self.killed = self.stopped = self.moved = self.readmitted = None
+        self.errors = []  # the last passes that failed (the next retries)
+
+    def stop(self):
+        self._halt.set()
+        if self.is_alive():
+            self.join(timeout=10)
+
+    def gate_of(self, msg):
+        """The gate an escalation's message belongs to, by the pids it
+        names."""
+        if self.killed and str(self.killed["pid"]) in msg:
+            return "(b)"
+        if self.stopped and str(self.stopped["pid"]) in msg:
+            return "(c)"
+        return "(b)/(c)"
+
+    def run(self):
+        from areal_tpu_torch.base.health import HealthRegistry
+
+        registry = HealthRegistry(self.exp, self.trial)
+        while not self._halt.wait(0.25):
+            try:
+                self._step(registry)
+            except Exception as e:  # a pass that failed: the next one retries
+                self.errors = (self.errors + [repr(e)])[-8:]
+
+    def _configure(self, url, body):
+        import urllib.request
+
+        req = urllib.request.Request(url + "/configure", json.dumps(body).encode(),
+                                     {"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=10) as r:
+            return json.loads(r.read())
+
+    def _step(self, registry):
+        from areal_tpu_torch.base import name_resolve, names
+
+        f = self.fleet
+        alive = registry.snapshot()
+        for m, rec in alive.items():
+            if m.startswith("generation_server/") and rec.get("url"):
+                self.urls.setdefault(m, rec["url"])
+        mgr = name_resolve.get(names.gen_server_manager(self.exp, self.trial))
+        status, _, body = http_raw(mgr + "/status", timeout=5)
+        if status != 200:
+            return
+        st = json.loads(body)
+        rpc_st = st.get("rpc") or {}
+        for u, b in (rpc_st.get("breakers") or {}).items():
+            self.breaker_opens[u] = max(self.breaker_opens.get(u, 0), int(b["opens"]))
+        self.open_seen |= set(rpc_st.get("open") or [])
+        healthy = st["healthy_servers"]
+        now = time.monotonic_ns()
+        if self.stopped is not None and not self.stopped.get("resumed"):
+            # A run that ended first must not wait out a stopped worker.
+            try:
+                done = name_resolve.get(names.experiment_status(self.exp, self.trial))
+            except name_resolve.NameEntryNotFoundError:
+                done = None
+            if done in ("COMPLETE", "ABORT"):
+                try:
+                    os.kill(self.stopped["pid"], signal.SIGCONT)
+                except ProcessLookupError:
+                    pass
+                self.stopped["resumed"] = True
+        # Armed again at every version (a fetch with one peer, a bootstrap
+        # from a single holder, may have spent the last arm's delays), and
+        # only once the server's poll loop has run: an explicit spec loaded
+        # before its first injection point would shadow its AREAL_FAULTS.
+        arm = (healthy[0], st["weight_version"]) if healthy else None
+        if f.get("chunk_delay_s") and arm and (
+                not self.delayed or self.delayed[-1] != arm):
+            hits = self._configure(arm[0], {"faults_hits": ["worker.poll"]})["faults_hits"]
+            if hits["worker.poll"] >= 1:
+                self._configure(arm[0], {
+                    "faults": f"weight_plane.serve_chunk=delay:n=2:delay={f['chunk_delay_s']}"})
+                self.delayed.append(arm)
+        if f.get("kill_server") is not None and self.killed is None \
+                and st["rollout_stat"]["running"] >= 1:
+            member = f"generation_server/{f['kill_server']}"
+            rec = alive.get(member)
+            if rec is not None:
+                os.kill(int(rec["pid"]), signal.SIGKILL)
+                self.killed = dict(member=member, pid=int(rec["pid"]), url=rec["url"],
+                                   t_ns=now, version=st["weight_version"])
+        if f.get("hang_worker") is not None and self.stopped is None and self.killed \
+                and now - self.killed["t_ns"] >= f["hang_after_s"] * 1e9:
+            member = f"rollout_worker/{f['hang_worker']}"
+            rec = alive.get(member)
+            # Stopped while it holds rollout slots: the manager must give
+            # them back.
+            if rec is not None and (st.get("worker_slots") or {}).get(member, 0) >= 1:
+                os.kill(int(rec["pid"]), signal.SIGSTOP)
+                self.stopped = dict(member=member, pid=int(rec["pid"]), t_ns=now)
+        if self.killed and self.moved is None:
+            rec = alive.get(self.killed["member"])
+            if rec is not None and int(rec["pid"]) != self.killed["pid"]:
+                self.moved = dict(pid=int(rec["pid"]), url=rec["url"], t_ns=now)
+        if self.moved and self.readmitted is None and self.moved["url"] in healthy:
+            self.readmitted = dict(t_ns=now, weight_version=st["weight_version"],
+                                   server_version=st["server_versions"].get(self.moved["url"]))
+
+
+def fleet_gates(spans, records, servers, result, chaos, fleet, plane):
+    """The fleet phase's gates, from the run's trace, the servers' exit
+    records, the controller's restart log and what FleetChaos saw: (a)
+    the failing server's breaker opened and nothing was routed to it
+    while open; (b) the killed server was restarted once in place, the
+    manager moved it to its new url, and its successor's first request
+    was served at no older a version than it was routed at (the seconds
+    from the kill to it: time to serve again); (c) the stopped rollout worker
+    was restarted as hung and the manager gave its slots back; (d) with
+    ``plane``, the plane's chunk reads hedged and a hedge won, and every
+    completed fetch took each byte once."""
+    out = {}
+    mgr = spans.get("gserver_manager", [])
+    restarts = result.get("worker_restarts", [])
+    out["worker_restarts"] = [{k: r[k] for k in ("worker", "why", "attempt")} for r in restarts]
+    # Only the planted restarts: a hang false positive (a live worker
+    # whose beat went stale) restarts another worker and fails here.
+    planted = []
+    if fleet.get("kill_server") is not None:
+        planted.append((f"generation_server/{fleet['kill_server']}", "process died"))
+    if fleet.get("hang_worker") is not None:
+        planted.append((f"rollout_worker/{fleet['hang_worker']}", "heartbeat went stale"))
+    if sorted((r["worker"], r["why"]) for r in restarts) != sorted(planted):
+        raise AssertionError(f"fleet: restarts {out['worker_restarts']}, planted {planted}")
+
+    def events(name):
+        return sorted((r for r in mgr if r["name"] == name), key=lambda r: r["start_ns"])
+
+    routes = [r for r in events("manager.schedule") if r["attrs"].get("routed")]
+    if fleet.get("fail_server") is not None:
+        url = chaos.urls.get(f"generation_server/{fleet['fail_server']}")
+        opens = [r for r in events("manager.breaker_open") if r["attrs"]["server"] == url]
+        windows = [(r["start_ns"], r["start_ns"] + r["attrs"]["cooldown_s"] * 1e9) for r in opens]
+        to_it = [r["start_ns"] for r in routes if r["attrs"]["server"] == url]
+        inside = [t for t in to_it if any(a < t < b for a, b in windows)]
+        out["breaker"] = dict(server=url, opens=len(opens),
+                              status_opens=chaos.breaker_opens.get(url, 0),
+                              status_listed_open=url in chaos.open_seen,
+                              routed_to_it=len(to_it), routed_while_open=len(inside))
+        if not opens or out["breaker"]["status_opens"] < 1 or not out["breaker"][
+                "status_listed_open"] or inside:
+            raise AssertionError(f"fleet gate (a): {out['breaker']}")
+    if fleet.get("kill_server") is not None:
+        k = chaos.killed
+        if k is None:
+            raise AssertionError("fleet gate (b): the server was never killed")
+        mine = [r for r in restarts if r["worker"] == k["member"]]
+        moved = [r for r in events("manager.server_moved") if r["attrs"]["old"] == k["url"]]
+        if len(mine) != 1 or mine[0]["why"] != "process died" or chaos.moved is None \
+                or not moved or moved[0]["attrs"]["new"] != chaos.moved["url"]:
+            raise AssertionError(f"fleet gate (b): restarts {mine}, moves "
+                                 f"{[r['attrs'] for r in moved]}, successor {chaos.moved}")
+        new = chaos.moved["url"]
+        to_new = [r for r in routes if r["attrs"]["server"] == new]
+        served = sorted((r for r in spans.get(k["member"], [])
+                         if r["name"] == "server.generate" and r["pid"] == chaos.moved["pid"]
+                         and "n_tokens" in r["attrs"] and not r["attrs"].get("error")),
+                        key=lambda r: r["start_ns"])
+        if not to_new or not served:
+            raise AssertionError(f"fleet gate (b): the successor at {new} was routed "
+                                 f"{len(to_new)} and served {len(served)} request(s)")
+        first_route, first = to_new[0], served[0]
+        out["restart"] = dict(
+            server=k["member"], old=k["url"], new=new,
+            restarted_s=(mine[0]["t_ns"] - k["t_ns"]) / 1e9,
+            first_beat_s=(chaos.moved["t_ns"] - k["t_ns"]) / 1e9,
+            readmitted=chaos.readmitted,
+            first_routed_at_version=first_route["attrs"]["version"],
+            first_served_version=first["attrs"]["version_start"],
+            time_to_serve_again_s=(first["end_ns"] - k["t_ns"]) / 1e9)
+        # The successor re-synced before it served: never behind the
+        # version it was routed at (a fanout in flight may put it ahead).
+        if first["attrs"]["version_start"] < first_route["attrs"]["version"] \
+                or first_route["attrs"]["version"] < k["version"]:
+            raise AssertionError(f"fleet gate (b): {out['restart']}")
+    if fleet.get("hang_worker") is not None:
+        s = chaos.stopped
+        member = f"rollout_worker/{fleet['hang_worker']}"
+        mine = [r for r in restarts if r["worker"] == member]
+        reclaimed = [r["attrs"]["slots"] for r in events("manager.reclaim")
+                     if r["attrs"]["worker"] == member]
+        out["hang"] = dict(worker=member, restarts=[r["why"] for r in mine],
+                           slots_given_back=sum(reclaimed),
+                           detected_s=((mine[0]["t_ns"] - s["t_ns"]) / 1e9
+                                       if s and mine else None))
+        if s is None or len(mine) != 1 or mine[0]["why"] != "heartbeat went stale" \
+                or sum(reclaimed) < 1:
+            raise AssertionError(f"fleet gate (c): stopped {s}, {out['hang']}")
+    if plane:
+        per = {n: {k: int(r.get("rpc", {}).get(k, 0)) for k in ("hedges", "hedge_wins")}
+               for n, r in zip(servers, records)}
+        fetches = {n: [r["attrs"] for r in spans.get(n, [])
+                       if r["name"] == "server.weight_fetch" and "fetch_s" in r["attrs"]]
+                   for n in servers}
+        ingress = {n: [a.get("ingress_payload_equivalents") for a in fs]
+                   for n, fs in fetches.items()}
+        races = {n: [(a.get("n_upstreams"), a.get("hedged_chunks"), a.get("hedge_wins"))
+                     for a in fs] for n, fs in fetches.items()}
+        out["hedging"] = dict(per_server=per, delayed_parents=list(chaos.delayed),
+                              ingress_payload_equivalents=ingress,
+                              fetches_upstreams_races_wins=races)
+        if sum(p["hedges"] for p in per.values()) < 1 \
+                or sum(p["hedge_wins"] for p in per.values()) < 1 \
+                or any(x != 1.0 for v in ingress.values() for x in v) \
+                or not all(ingress.values()):
+            raise AssertionError(f"fleet gate (d): {out['hedging']}")
+    log(f"  fleet: {json.dumps(out)}")
+    return out
+
 
 def tiny_tokenizer(rng, save_dir, n_words):
     """A WordPiece tokenizer over a seeded vocabulary, saved as an HF
@@ -2967,19 +3391,20 @@ def read_trace(trace_dir):
     """Every span record of the run's trace shards, by worker label."""
     out = {}
     for name in sorted(os.listdir(trace_dir)):
-        worker = None
+        worker = pid = None
         with open(os.path.join(trace_dir, name)) as f:
             for line in f:
                 rec = json.loads(line)
                 if rec.get("kind") == "header":
-                    worker = rec["worker"]
+                    worker, pid = rec["worker"], rec.get("pid")
                 elif rec.get("kind") == "span":
+                    rec["pid"] = pid  # the process: a restarted worker has two
                     out.setdefault(worker, []).append(rec)
     return out
 
 
 def async_ppo_phase(torch, rng, dev, cfg, seed, card, sizes=ASYNC_SIZES, disagg=False,
-                    plane=None, agentic=False):
+                    plane=None, agentic=False, fleet=None):
     """The async RL loop through the port's entry point,
     areal_tpu_torch.training.main_async_ppo.main(argv), with the
     reference's override keys: a GenerationServer (with ``disagg``, a
@@ -3005,7 +3430,18 @@ def async_ppo_phase(torch, rng, dev, cfg, seed, card, sizes=ASYNC_SIZES, disagg=
     and samples are admitted under
     AREAL_TASK_STALENESS_WINDOWS=agentic:<window>, which also bounds every
     trained sample's lag. The trace then also gives the tool
-    observations, the failed episodes and each chunk's re-prefill."""
+    observations, the failed episodes and each chunk's re-prefill.
+
+    ``plane["fanout"]`` (default 1) sets gen_weight_fanout.
+
+    With ``fleet`` (the fleet phase: ``sizes`` FLEET_SIZES, options
+    FLEET, ``plane`` FLEET_PLANE) the run keeps its fleet up through
+    failures: ``fleet["servers"]`` servers (fed by the weight plane
+    where ``plane`` is given), several rollout workers, ``worker_restarts``,
+    breakers armed by AREAL_RPC_BREAKER_*, one server's /generate failing
+    a few requests in a row, and a FleetChaos thread that kills one
+    server and stops one rollout worker mid-run; fleet_gates holds the
+    run to what the fleet must survive."""
     import shutil
     import tempfile
     from collections import Counter
@@ -3021,11 +3457,14 @@ def async_ppo_phase(torch, rng, dev, cfg, seed, card, sizes=ASYNC_SIZES, disagg=
     fileroot = os.path.join(tmp, "fileroot")
     nr_root = os.path.join(tmp, "name_resolve")
     env = {"AREAL_RL_TRACE": "1", "AREAL_RL_TRACE_DIR": trace_dir, "AREAL_FILEROOT": fileroot}
+    if fleet is not None:
+        env.update(fleet_env(fleet))
     if agentic:
         env["AREAL_TASK_STALENESS_WINDOWS"] = f"agentic:{sizes['window']}"
     saved_env = {k: os.environ.get(k) for k in env}
     stats = dict(card=card)
     procs = []
+    chaos = None
     try:
         t0 = time.perf_counter()
         hf_dir = os.path.join(tmp, "hf")
@@ -3054,7 +3493,7 @@ def async_ppo_phase(torch, rng, dev, cfg, seed, card, sizes=ASYNC_SIZES, disagg=
             "actor.optimizer.lr=5e-5", "actor.optimizer.warmup_steps_proportion=0.0",
             f"actor.row_len_multiple={sizes['row_len']}", f"actor.max_row_len={sizes['row_len']}",
             f"mb_spec_max_tokens={sizes['max_tokens_per_mb']}",
-            "n_rollout_workers=1",
+            f"n_rollout_workers={fleet['rollout_workers'] if fleet else 1}",
             f"gen_max_concurrent_requests={sizes['slots']}",
             f"gen_max_seq_len={sizes['max_seq_len']}",
             f"gen_kv_page_size={sizes.get('page', 128)}",
@@ -3075,9 +3514,12 @@ def async_ppo_phase(torch, rng, dev, cfg, seed, card, sizes=ASYNC_SIZES, disagg=
                      "gen_kv_index_size=4096"]
         if plane is not None:
             servers.append("generation_server/1")
-            argv += ["gen_weight_plane=true", "gen_weight_fanout=1"]
+            argv += ["gen_weight_plane=true", f"gen_weight_fanout={plane.get('fanout', 1)}"]
             if plane.get("wire"):
                 argv.append(f"gen_weight_wire_dtype={plane['wire']}")
+        if fleet is not None:
+            servers = [f"generation_server/{i}" for i in range(fleet["servers"])]
+            argv += [f"worker_restarts={fleet['restarts']}", "recover_mode=disabled"]
         argv.append(f"n_generation_servers={len(servers)}")
         if agentic:
             t0 = time.perf_counter()
@@ -3089,10 +3531,27 @@ def async_ppo_phase(torch, rng, dev, cfg, seed, card, sizes=ASYNC_SIZES, disagg=
         # Re-read AREAL_RL_TRACE and the trace dir: the master runs here.
         tracing.flush()
         tracing._ENABLED, tracing._REC = None, None
+        if fleet is not None:
+            # It reads this process's name_resolve, which the controller
+            # points at nr_root when the run starts.
+            chaos = FleetChaos(exp, trial, fleet)
+            chaos.start()
         t0 = time.perf_counter()
-        result = main_async_ppo.main(argv, worker_env=env,
-                                     timeout=AGENTIC_TIMEOUT_S if agentic else ASYNC_TIMEOUT_S)
+        try:
+            result = main_async_ppo.main(
+                argv, worker_env=env,
+                timeout=(AGENTIC_TIMEOUT_S if agentic else
+                         FLEET_TIMEOUT_S if fleet is not None else ASYNC_TIMEOUT_S))
+        except RuntimeError as e:
+            if chaos is None:
+                raise
+            # An escalation: the controller gave a failed worker up.
+            chaos.stop()
+            raise AssertionError(f"fleet gate {chaos.gate_of(str(e))}: the run escalated "
+                                 f"instead of restarting in place ({e})") from e
         stats["run_s"] = time.perf_counter() - t0
+        if chaos is not None:
+            chaos.stop()
         tracing.flush()
         if agentic:
             try:
@@ -3123,6 +3582,20 @@ def async_ppo_phase(torch, rng, dev, cfg, seed, card, sizes=ASYNC_SIZES, disagg=
         for name in servers:
             served = sorted(int(r["attrs"]["version"]) for r in spans.get(name, [])
                             if r["name"] == landed_span and landed_attr in r["attrs"])
+            if fleet is not None:
+                if chaos.killed and name == chaos.killed["member"]:
+                    continue  # its successor is held by gate (b)
+                # A server fenced off mid-run catches up at readmission
+                # to the current version only, and a version the trainer
+                # superseded before its fanout began is skipped: each
+                # version at most once, the last one everywhere.
+                for got in (landed, served):
+                    if not got or got[-1] != want[-1] or len(set(got)) != len(got) \
+                            or not set(got) <= set(want):
+                        raise AssertionError(f"{tag}: fanout landed versions {landed}, "
+                                             f"{name} loaded {served}, want the last of "
+                                             f"{want}")
+                continue
             if landed != want or served != want:
                 raise AssertionError(f"{tag}: fanout landed versions {landed}, {name} "
                                      f"loaded {served}, want {want}")
@@ -3131,8 +3604,14 @@ def async_ppo_phase(torch, rng, dev, cfg, seed, card, sizes=ASYNC_SIZES, disagg=
 
         # Every trained sample within the staleness bound: the head
         # offpolicyness, and the agentic window where there is one.
-        waits = {r["attrs"]["sample_id"]: r["attrs"] for r in spans.get("master", [])
-                 if r["name"] == "buffer.wait" and r["attrs"].get("rpc") == "actor_train"}
+        waits = [r["attrs"] for r in spans.get("master", [])
+                 if r["name"] == "buffer.wait" and r["attrs"].get("rpc") == "actor_train"]
+        if fleet is None:
+            waits = {a["sample_id"]: a for a in waits}
+        else:
+            # A restarted rollout worker starts its dataset over, so its
+            # samples may repeat ids: every trained sample counts.
+            waits = dict(enumerate(waits))
         n_want = sizes["steps"] * sizes["train_batch_size"]
         if len(waits) != n_want:
             raise AssertionError(f"{tag}: {len(waits)} trained samples traced, "
@@ -3153,13 +3632,17 @@ def async_ppo_phase(torch, rng, dev, cfg, seed, card, sizes=ASYNC_SIZES, disagg=
             with open(exit_record_path(exp, trial, name)) as f:
                 records.append(json.load(f))
         srv = records[0]
-        if plane is not None:
+        if plane is not None or fleet is not None:
             srv = dict(records[0], launches={
                 k: sum(r["launches"][k] for r in records) for k in records[0]["launches"]},
                 peak_memory_bytes=max(r["peak_memory_bytes"] for r in records),
                 metrics={k: sum(r["metrics"].get(k, 0.0) for r in records)
                          for k in ("total_generated", "last_weight_stage_s",
                                    "last_weight_swap_s")})
+        if fleet is not None:
+            stats["fleet"] = fleet_gates(spans, records, servers, result, chaos, fleet,
+                                         plane is not None)
+        if plane is not None:
             fetches = {name: [r["attrs"] for r in spans.get(name, [])
                               if r["name"] == "server.weight_fetch" and "fetch_s" in r["attrs"]]
                        for name in servers}
@@ -3176,10 +3659,13 @@ def async_ppo_phase(torch, rng, dev, cfg, seed, card, sizes=ASYNC_SIZES, disagg=
                                and "cutover_s" in r["attrs"]] for n in servers},
                 max_rss_gb={n: r["max_rss_bytes"] / 1e9 for n, r in zip(servers, records)})
             # Degree 1 over two servers is the chain origin -> S0 -> S1:
-            # every version's second hop is peer to peer.
-            peer_in = [sum(f[i] for f in stats["plane"]["bytes_from_peers"].values())
-                       for i in range(sizes["steps"])]
-            if any(f != sizes["steps"] for f in map(len, fetches.values())) or min(peer_in) <= 0:
+            # every version's second hop is peer to peer. (A fleet run's
+            # fenced and restarted servers skip versions: gate (d) holds
+            # its fetches.)
+            if fleet is None and (
+                    any(f != sizes["steps"] for f in map(len, fetches.values()))
+                    or min(sum(f[i] for f in stats["plane"]["bytes_from_peers"].values())
+                           for i in range(sizes["steps"])) <= 0):
                 raise AssertionError(f"async_ppo: plane fetches {stats['plane']}")
             log(f"  weight plane: fetch s {stats['plane']['fetch_s']}, verify s "
                 f"{stats['plane']['verify_s']}, cutover s {stats['plane']['cutover_s']}, "
@@ -3251,6 +3737,8 @@ def async_ppo_phase(torch, rng, dev, cfg, seed, card, sizes=ASYNC_SIZES, disagg=
             agentic_gates(stats, sizes, steps, spans.get("rollout_worker/0", []), srv, survivor)
         return stats
     finally:
+        if chaos is not None:
+            chaos.stop()
         stop_processes(procs)
         for k, v in saved_env.items():
             if v is None:
@@ -3979,7 +4467,8 @@ def disagg_phase(torch, rng, dev, cfg, seed, card, sizes=DISAGG_SIZES):
         status = http_call(url["M"], "/status")[2]
         log(f"  re-role: the sizer flipped U to prefill under the burst ({len(burst)} prompts "
             f"on P); fresh pairs then {[(p['url'][-5:], p['decode_url'][-5:]) for p in pairs]}"
-            f"; re-roles {[(e['from'], e['to']) for e in status['pools']['reroles']]}")
+            f"; re-roles {[(e['from'], e['to']) for e in status['pools']['reroles']]}; breaker "
+            f"openings {sum(b['opens'] for b in status['rpc']['breakers'].values())}")
 
         # Leave: the manager, then the servers, on COMPLETE.
         for t in (trial, ref_trial):
@@ -4072,17 +4561,19 @@ def disagg_phase(torch, rng, dev, cfg, seed, card, sizes=DISAGG_SIZES):
 # ----------------------------------------------------------------------
 
 # The serving configuration behind the plane; the in-flight wave (two
-# client threads a server, 7168 greedy tokens a request), the greedy
+# client threads a server, 5120 greedy tokens a request), the greedy
 # checks, and the plane's 8 MiB chunks. Gate (a) needs every server to cut
 # over while a request is in flight: an idle engine swaps at once, and a
 # swap in the block that ends a request interrupts nothing. The two
 # requests of a server start together and decode in lockstep, so they end
 # together. At 7 layers on an H100 a 3072-token request took 31.7-36.9
 # s against a cutover ~30.4 s after the wave's start, one server
-# interrupted at 2945 of its 3072 tokens; 7168 tokens a request (~2.3
-# times as long) keep the cutover well inside the first request.
+# interrupted at 2945 of its 3072 tokens, so requests grew to 7168
+# tokens; at 4 layers the cutover came 20.3 s after the wave's start, at
+# 2993-3137 of 7168 tokens (a whole request 46.3-48.5 s), so 5120 tokens
+# (~1.6 times the cutover's point) keep it well inside the first request.
 PLANE_SIZES = dict(slots=16, max_seq_len=8192, page=128, chunk=1024, wave_threads=2,
-                   wave_prompt=(256, 1024), wave_new=7168, resume_new=16,
+                   wave_prompt=(256, 1024), wave_new=5120, resume_new=16,
                    greedy_lens=(300, 1200), greedy_new=32, chunk_bytes=8 << 20)
 PLANE_TIMEOUT_S = 600.0
 # The depths of the plane's fleet, (a) and (b), and of (c), the async loop
@@ -4130,8 +4621,7 @@ def greedy_tokens(torch, engine_or_url, cfg, reqs, dev=None, sz=PLANE_SIZES,
     return out
 
 
-def weight_plane_phase(torch, rng, dev, cfg, seed, card, sizes=PLANE_SIZES,
-                       loop_sizes=PLANE_LOOP_SIZES, loop_layers=PLANE_LOOP_LAYERS):
+def weight_plane_phase(torch, rng, dev, cfg, seed, card, sizes=PLANE_SIZES):
     """The weight-distribution plane through the port's workers:
 
     (a) this process dumps version 1 of perturbed float32 params
@@ -4150,12 +4640,9 @@ def weight_plane_phase(torch, rng, dev, cfg, seed, card, sizes=PLANE_SIZES,
         (from S0) with ``/distribute_weights`` and ``/cutover_weights``:
         the leaves S0 holds assemble bit-equal to ``dequantize_wire_leaf(
         quantize_wire_leaf(x))`` computed here, and both servers' greedy
-        tokens equal an engine's on those params;
-    (c) the async RL loop through ``main_async_ppo.main(argv)`` with
-        ``gen_weight_plane=true``, two servers at fanout degree 1
-        (``async_ppo_phase`` with ``plane``), at ``loop_layers`` of the
-        model's layers and ``loop_sizes`` (max_head_offpolicyness 0):
-        versions 1 and 2 land on both servers through the plane.
+        tokens equal an engine's on those params.
+
+    Part (c), the async RL loop over the plane, is plane_loop_phase.
 
     The forward and paged decode kernels must launch in every server
     after its last cutover (the exit records split the counts there)."""
@@ -4460,14 +4947,7 @@ def weight_plane_phase(torch, rng, dev, cfg, seed, card, sizes=PLANE_SIZES,
         src.close()
         src = None
 
-        # (c) The async RL loop over the plane.
-        log("  the async RL loop with gen_weight_plane=true, two servers, fanout degree 1")
-        t0 = time.perf_counter()
-        loop = async_ppo_phase(torch, rng, dev, dataclasses.replace(cfg, n_layers=loop_layers),
-                               seed, card, sizes=loop_sizes, plane=dict(wire=None))
-        loop["phase_s"] = time.perf_counter() - t0
-        stats["loop"] = loop
-        stats["launches"] = {n: launches[n] + loop["launches"][n] for n in launches}
+        stats["launches"] = dict(launches)
         return stats
     finally:
         if src is not None:
@@ -4482,6 +4962,18 @@ def weight_plane_phase(torch, rng, dev, cfg, seed, card, sizes=PLANE_SIZES,
             else:
                 os.environ[k] = v
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def plane_loop_phase(torch, rng, dev, cfg, seed, card, sizes=PLANE_LOOP_SIZES):
+    """The weight_plane phase's part (c), a phase of its own so that it
+    can run in the side lane: the async RL loop through
+    ``main_async_ppo.main(argv)`` with ``gen_weight_plane=true``, two
+    servers at fanout degree 1 on the raw wire (``async_ppo_phase`` with
+    ``plane``), at ``sizes`` (max_head_offpolicyness 0): versions 1 and 2
+    land on both servers through the plane."""
+    log("  the async RL loop with gen_weight_plane=true, two servers, fanout degree 1")
+    return async_ppo_phase(torch, rng, dev, cfg, seed, card, sizes=sizes,
+                           plane=dict(wire=None))
 
 
 # ----------------------------------------------------------------------
@@ -5109,8 +5601,9 @@ AGENTIC_SIZES = dict(n_prompts=32, prompt=(256, 768), train_batch_size=8, max_ne
                      max_seq_len=4096, row_len=4096, max_tokens_per_mb=16384, n_minibatches=4,
                      words=400, executors=2, exec_workers=2)
 AGENTIC_TIMEOUT_S = 600.0
-# Cut in depth for the run's time limit, as the other loops.
-AGENTIC_LAYERS = 7
+# Cut in depth for the run's time limit, as the other loops: to 7, then
+# to 4 when the fleet phase joined.
+AGENTIC_LAYERS = 4
 
 
 def start_executors(tmp, exp, trial, nr_root, n, workers):
@@ -5296,13 +5789,102 @@ def kernel_entry_name(mangled: str) -> str:
     return f"{m.group(1)}<{', '.join(args)}>"
 
 
+# Phases that run in a second process, the side lane, beside the phases
+# of SIDE_LANE_BESIDE (which run here meanwhile), to keep the default
+# run inside its limit. Each of the seven spawns its own workers, reads
+# only its own temp dirs and holds no gate on a time, and their peaks on
+# the card sum to well under its memory; parity, the serving phases,
+# disagg, weight_plane and fleet, whose readings or gates hang on
+# timing, run alone. The step and fanout times of the seven are read
+# with the other lane running. --serial runs every phase here, in order.
+SIDE_LANE = ("recover", "agentic", "plane_loop")
+SIDE_LANE_BESIDE = ("workers", "async_ppo", "sync_ppo", "sft")
+# Side lanes started and not yet joined: a run that fails first prints
+# their logs to stderr.
+_OPEN_LANES = []
+
+
+def log_plane_loop(report, card):
+    """The loop over the plane beside the async_ppo phase's disk path."""
+    loop = report["phases"]["plane_loop"]
+    disk = report["phases"].get("async_ppo")
+    log(f"  the loop over the plane ({PLANE_LOOP_LAYERS} layers): step e2e "
+        f"{[round(x, 3) for x in loop['step_e2e_s']]} s, fanouts "
+        f"{[round(x, 3) for x in loop['last_weight_sync_s']]} s, dumps "
+        f"{[round(x, 2) for x in loop['dump_s']]} s"
+        + (f"; the async_ppo phase's disk path ({ASYNC_LAYERS} layers) in this run: step "
+           f"e2e {[round(x, 3) for x in disk['step_e2e_s']]} s, fanouts "
+           f"{[round(x, 3) for x in disk['last_weight_sync_s']]} s" if disk else "")
+        + f"; {card}")
+
+
+def start_side_lane(args, side):
+    """`python3 chip_smoke.py --serial --phases build,<side>` in a child
+    process, its report to a temp file and its stdout to another."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_side_")
+    out, text = os.path.join(tmp, "report.json"), os.path.join(tmp, "stdout.txt")
+    cmd = [sys.executable, os.path.abspath(__file__), "--serial", "--budget-s", "0",
+           "--seed", str(args.seed), "--phases", ",".join(["build", *side]), "--out", out]
+    log(f"side lane: {' '.join(side)} in a second process beside "
+        f"{' '.join(p for p in SIDE_LANE_BESIDE if p in args.phases.split(','))}")
+    with open(text, "w") as f:
+        proc = subprocess.Popen(cmd, stdout=f, cwd=ROOT)
+    lane = dict(proc=proc, tmp=tmp, out=out, text=text, side=side, t0=time.perf_counter())
+    _OPEN_LANES.append(lane)
+    return lane
+
+
+def finish_side_lane(lane, report, main_counts, timeout):
+    """Wait for the side lane, replay its log and take its phases'
+    reports and launches as if they had run here."""
+    import shutil
+
+    proc = lane["proc"]
+    try:
+        rc = proc.wait(timeout=max(1.0, timeout))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = None
+    if lane in _OPEN_LANES:
+        _OPEN_LANES.remove(lane)
+    with open(lane["text"]) as f:
+        lines = f.read().splitlines()
+    # Its last three lines are the card, its (empty) kernels line and its
+    # own result line: this process prints those.
+    body = lines[:-3] if rc == 0 else lines
+    for line in body:
+        log(f"  [side] {line}")
+    if rc != 0:
+        raise AssertionError(f"side lane {','.join(lane['side'])}: exit code {rc}")
+    with open(lane["out"]) as f:
+        side_report = json.load(f)
+    shutil.rmtree(lane["tmp"], ignore_errors=True)
+    for ph in lane["side"]:
+        report["phases"][ph] = side_report["phases"][ph]
+        # Each is a main path of its own: its launches add.
+        for k, n in report["phases"][ph].get("launches", {}).items():
+            if n:
+                main_counts[k] = main_counts.get(k, 0) + n
+    log(f"  side lane done {time.perf_counter() - lane['t0']:.1f} s after its start")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--serial", action="store_true",
+                    help="run every phase in this process, one after another (no side lane)")
+    ap.add_argument("--budget-s", type=float, default=RUN_BUDGET_S,
+                    help="fail, stopping every process of the run, once it is this many "
+                         "seconds old (0: no budget)")
     ap.add_argument("--phases", default=",".join(PHASES))
     ap.add_argument("--out", default=None, help="also write the full report here (JSON)")
     ap.add_argument("--profile-serving", action="store_true",
                     help="also run the serving phases' profiled windows")
+    ap.add_argument("--fleet-worker-restarts", type=int, default=FLEET["restarts"],
+                    help="worker_restarts of the fleet phase (0 plants its gate (b) failure)")
     ap.add_argument("--w8a16-sweep", action="store_true",
                     help="with the parity phase, also time one decode step's W8A16 matmuls "
                          "over ring stages, chunks a stage and CTAs an SM (W8A16_SWEEP)")
@@ -5320,6 +5902,8 @@ def main() -> int:
     from areal_tpu_torch import kernels, resolve_device
     from areal_tpu_torch.models.hf.qwen2 import r1_distill_qwen_1_5b_config
 
+    become_subreaper()
+    guard_run(args.budget_s)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = resolve_device("cuda")
@@ -5453,6 +6037,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_done("train", t0)
 
+    side = ([p for p in SIDE_LANE if p in phases]
+            if not args.serial and any(p in phases for p in SIDE_LANE_BESIDE) else [])
+    lane = start_side_lane(args, side) if side else None
+
     if "workers" in phases:
         log("phase workers")
         t0 = time.perf_counter()
@@ -5472,7 +6060,7 @@ def main() -> int:
     if "async_ppo" in phases:
         log("phase async_ppo")
         t0 = time.perf_counter()
-        # Cut in depth: the weight_plane phase runs the same loop, over
+        # Cut in depth: the plane_loop phase runs the same loop, over
         # the plane, at PLANE_LOOP_LAYERS.
         report["phases"]["async_ppo"] = async_ppo_phase(
             torch, np.random.default_rng([args.seed, 7]), dev,
@@ -5497,6 +6085,27 @@ def main() -> int:
                 main_counts[k] = main_counts.get(k, 0) + n
         torch.cuda.empty_cache()
         phase_done("sync_ppo", t0)
+
+    if "sft" in phases:
+        log("phase sft")
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        report["phases"]["sft"] = sft_phase(torch, np.random.default_rng([args.seed, 10]), dev,
+                                            dataclasses.replace(cfg, n_layers=SFT_LAYERS),
+                                            args.seed, card)
+        # SFT is a main path of its own: its launches add.
+        for k, n in report["phases"]["sft"]["launches"].items():
+            if n:
+                main_counts[k] = main_counts.get(k, 0) + n
+        torch.cuda.empty_cache()
+        phase_done("sft", t0)
+
+    if lane is not None:
+        finish_side_lane(lane, report, main_counts,
+                         timeout=args.budget_s - (time.monotonic() - T_START)
+                         if args.budget_s > 0 else 3600.0)
+        if "plane_loop" in lane["side"]:
+            log_plane_loop(report, card)
 
     if "disagg" in phases:
         log("phase disagg")
@@ -5524,34 +6133,25 @@ def main() -> int:
         for k, n in wp["launches"].items():
             if n:
                 main_counts[k] = main_counts.get(k, 0) + n
-        loop = wp["loop"]
-        disk = report["phases"].get("async_ppo")
-        log(f"  the loop over the plane ({PLANE_LOOP_LAYERS} layers): step e2e "
-            f"{[round(x, 3) for x in loop['step_e2e_s']]} s, fanouts "
-            f"{[round(x, 3) for x in loop['last_weight_sync_s']]} s, dumps "
-            f"{[round(x, 2) for x in loop['dump_s']]} s"
-            + (f"; the async_ppo phase's disk path ({ASYNC_LAYERS} layers) in this run: step "
-               f"e2e {[round(x, 3) for x in disk['step_e2e_s']]} s, fanouts "
-               f"{[round(x, 3) for x in disk['last_weight_sync_s']]} s" if disk else "")
-            + f"; {card}")
         torch.cuda.empty_cache()
         phase_done("weight_plane", t0)
 
-    if "sft" in phases:
-        log("phase sft")
+    if "plane_loop" in phases and "plane_loop" not in side:
+        log("phase plane_loop")
         t0 = time.perf_counter()
         torch.cuda.empty_cache()
-        report["phases"]["sft"] = sft_phase(torch, np.random.default_rng([args.seed, 10]), dev,
-                                            dataclasses.replace(cfg, n_layers=SFT_LAYERS),
-                                            args.seed, card)
-        # SFT is a main path of its own: its launches add.
-        for k, n in report["phases"]["sft"]["launches"].items():
+        report["phases"]["plane_loop"] = plane_loop_phase(
+            torch, np.random.default_rng([args.seed, 18]), dev,
+            dataclasses.replace(cfg, n_layers=PLANE_LOOP_LAYERS), args.seed, card)
+        # The loop over the plane is a main path of its own: its launches add.
+        for k, n in report["phases"]["plane_loop"]["launches"].items():
             if n:
                 main_counts[k] = main_counts.get(k, 0) + n
         torch.cuda.empty_cache()
-        phase_done("sft", t0)
+        phase_done("plane_loop", t0)
+        log_plane_loop(report, card)
 
-    if "recover" in phases:
+    if "recover" in phases and "recover" not in side:
         log("phase recover")
         t0 = time.perf_counter()
         torch.cuda.empty_cache()
@@ -5565,7 +6165,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_done("recover", t0)
 
-    if "agentic" in phases:
+    if "agentic" in phases and "agentic" not in side:
         log("phase agentic")
         t0 = time.perf_counter()
         torch.cuda.empty_cache()
@@ -5579,6 +6179,22 @@ def main() -> int:
                 main_counts[k] = main_counts.get(k, 0) + n
         torch.cuda.empty_cache()
         phase_done("agentic", t0)
+
+    if "fleet" in phases:
+        log("phase fleet")
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        report["phases"]["fleet"] = async_ppo_phase(
+            torch, np.random.default_rng([args.seed, 17]), dev,
+            dataclasses.replace(cfg, n_layers=FLEET_LAYERS), args.seed, card,
+            sizes=FLEET_SIZES, plane=FLEET_PLANE,
+            fleet=dict(FLEET, restarts=args.fleet_worker_restarts))
+        # The fleet under failures is a main path of its own: its launches add.
+        for k, n in report["phases"]["fleet"]["launches"].items():
+            if n:
+                main_counts[k] = main_counts.get(k, 0) + n
+        torch.cuda.empty_cache()
+        phase_done("fleet", t0)
 
     kernels_line = []
     for name, row in kernel_rows.items():
@@ -5598,6 +6214,9 @@ def main() -> int:
         with open(args.out, "w") as f:
             json.dump(report, f, indent=1)
     log(f"total {report['seconds']:.1f} s")
+    gone = stop_descendants()
+    if gone:
+        log(f"  stopped {len(gone)} process(es) still running after the last phase: {gone}")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -5607,4 +6226,16 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        # A failed phase may leave workers behind: stop them all.
+        leftover = stop_descendants()
+        if leftover:
+            print(f"stopped {len(leftover)} process(es) of the run: {leftover}",
+                  file=sys.stderr, flush=True)
+        for lane in _OPEN_LANES:
+            with open(lane["text"]) as f:
+                for line in f.read().splitlines():
+                    print(f"  [side, stopped] {line}", file=sys.stderr, flush=True)
+    sys.exit(code)
